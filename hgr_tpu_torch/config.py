@@ -1,7 +1,7 @@
 """Configuration dataclasses + YAML loading (port of hgr_tpu/config.py).
 
-Only the classifier's serving surface is ported: the data config (class
-names, joint/class counts) and the model hyper-parameters. ``yaml`` is
+The data config (class names, joint/class counts, augment factors), the
+model hyper-parameters and the training recipe. ``yaml`` is
 imported inside ``load_data_config``, so the package runs where pyyaml
 is not installed as long as no YAML file is read.
 """
@@ -111,6 +111,24 @@ class ModelConfig:
     @property
     def heatmap_size(self) -> Tuple[int, int]:
         return (self.image_size[0] // 4, self.image_size[1] // 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training recipe (reference train.py:244-283 defaults + README.md:62-71):
+    the fields the train step is built from, with the JAX package's names
+    and defaults. The loop, data and multi-device fields (batch size,
+    epochs, lr milestones, accumulation, ...) come with the slice that
+    reads them.
+    """
+
+    lr: float = 1e-3
+    sigma: float = 2.0
+    class_loss_weight: float = 0.001  # reference train.py:63
+    # De-mixed task-gradient pullbacks (train/steps.make_train_step):
+    # 'auto' = on iff the model computes in bf16, where the merged
+    # cotangent stream drowns the CE x 0.001 classification gradient.
+    grad_demix: str = "auto"  # 'auto' | 'on' | 'off' | 'batched'
 
 
 # ImageNet normalization constants applied to (BGR-ordered!) images — the

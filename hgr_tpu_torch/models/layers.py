@@ -1,5 +1,5 @@
 """Building-block layers: Conv+BN+SiLU, ResNet basic/bottleneck blocks
-(port of hgr_tpu/models/layers.py, eval mode, plain stride-2 route).
+(port of hgr_tpu/models/layers.py, plain stride-2 route).
 
 Layout: modules take and return NHWC tensors, as the JAX modules do;
 convolutions run on the NCHW view of the same memory (channels-last),
@@ -10,8 +10,8 @@ Parameter names follow PyTorch (``weight``/``bias``); BatchNorm keeps
 its running statistics under the Flax names ``mean``/``var``
 (utils/convert.py maps the trees). BatchNorm is functional over those
 buffers rather than ``nn.BatchNorm2d``, whose ``running_var`` update
-is unbiased where Flax's is biased (layers.py:260-263); train-mode
-statistics land with the training slice.
+is unbiased where Flax's is biased (layers.py:260-263), and whose fused
+kernel computes the variance and its gradient another way.
 """
 
 from __future__ import annotations
@@ -98,10 +98,23 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), b)
 
 
+# the running-stat momentum of every BatchNorm of the model
+BN_MOMENTUM = 0.9
+
+
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last (channel) axis, in float32:
-    y = (x - mean) * (rsqrt(var + eps) * weight) + bias, as Flax computes
-    it (layers.py:343-349). The output is float32."""
+    """BatchNorm over the last (channel) axis, in float32, as Flax's
+    ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` computes it
+    (layers.py:343-352): y = (x - mean) * (rsqrt(var + eps) * weight) +
+    bias. The output is float32.
+
+    Eval mode normalizes with the running statistics. Train mode uses the
+    batch statistics of Flax 0.12's ``use_fast_variance``: mean(x) and
+    var = max(mean(x²) − mean(x)², 0) in float32, written in plain torch
+    ops so that autograd differentiates that formula. Each train-mode
+    forward then updates the running statistics once, under ``no_grad``,
+    with the biased var: ra = 0.9·ra + 0.1·batch.
+    """
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -112,12 +125,19 @@ class BatchNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (ROADMAP A4/A6); "
-                "call .eval() on the model")
-        mul = torch.rsqrt(self.var + self.eps) * self.weight
-        return (x.float() - self.mean) * mul + self.bias
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.mean.mul_(m).add_((1.0 - m) * mean)
+                self.var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class ConvBnAct(nn.Module):

@@ -6,9 +6,11 @@ Forward: images (B, H, W, 3) float ->
   hmap_out (B, H/4, W/4, num_joints) f32  [NHWC; ``heatmaps_to_nchw``]
   attnmap  (B, heads, N, N) f32 with N = (H/16)*(W/16) + 1, or None.
 
-Eval mode only: BatchNorm uses its running statistics, and the forward
-on a CUDA tensor runs under ``torch.inference_mode()`` or ``no_grad()``
-(the attention backward kernel lands with the training slice).
+``.train()`` (the ``nn.Module`` default) normalizes with batch
+statistics and updates the BatchNorm running statistics once per
+forward; ``.eval()`` uses the running statistics. With
+``need_attnmap=False`` every attention layer takes the fused core, whose
+forward and backward are the CUDA kernels on the card.
 """
 
 from __future__ import annotations

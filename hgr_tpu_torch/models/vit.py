@@ -8,7 +8,8 @@ pose head (x4 align-corners upsample -> ReLU -> 1x1 conv) runs in the
 compute dtype and returns float32.
 
 Attention routes by need (vit.py:105-135): without the map, every layer
-takes ``fused_attention_qkv`` (the hand-written CUDA kernel on the card);
+takes ``fused_attention_qkv`` (the hand-written CUDA kernels on the card,
+forward and backward);
 with the map, the last layer runs the unfused chain that materializes it.
 """
 

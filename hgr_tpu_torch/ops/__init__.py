@@ -1,2 +1,4 @@
-"""Ops of the port: attention core (with its CUDA kernel), upsample,
-heatmap decode, positional embedding."""
+"""Ops of the port: attention core (forward and backward CUDA kernels),
+affine geometry, color jitter, warps (with the fused jitter + warp CUDA
+kernel), heatmap targets and decode, losses, metrics, upsample,
+positional embedding."""

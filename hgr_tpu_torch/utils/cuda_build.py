@@ -30,6 +30,10 @@ NVCC_FLAGS: List[str] = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# Flags of one kernel on top of NVCC_FLAGS. The warp rounds every product
+# and sum on its own, as its plain PyTorch version does (no fused
+# multiply-add), so that the HSV LUT's floor sees the same values.
+KERNEL_FLAGS: Dict[str, List[str]] = {"warp_twopass": ["-fmad=false"]}
 
 
 @dataclasses.dataclass
@@ -60,31 +64,48 @@ def _nvcc() -> str:
 
 def load_kernel(name: str) -> BuiltKernel:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    return load_kernels([name])[name]
+
+
+def load_kernels(names: List[str]) -> Dict[str, BuiltKernel]:
+    """Build (if needed) and load ``csrc/<name>.cu`` for each name: the
+    nvcc runs of the sources not built yet are started together, then
+    awaited in order."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-        log_path = lib_path.with_suffix(".log")
-        seconds: Optional[float] = None
-        if not lib_path.exists():
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
+        libs, builds = {}, {}
+        for name in dict.fromkeys(names):
+            if name in _loaded:
+                continue
+            src = CSRC_DIR / f"{name}.cu"
+            flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, [])
+            digest = hashlib.sha256(
+                src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
+            libs[name] = lib_path
+            if not lib_path.exists():
+                tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+                cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                builds[name] = (proc, tmp, time.perf_counter())
+        seconds: Dict[str, float] = {}
+        failed = []
+        for name, (proc, tmp, t0) in builds.items():
+            log = proc.communicate()[0]  # every build ends before a raise
+            seconds[name] = time.perf_counter() - t0
             if proc.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed for {src} (exit {proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            log_path.write_text(proc.stdout + proc.stderr)
-            os.replace(tmp, lib_path)  # atomic: readers see whole files
-        ptxas = log_path.read_text() if log_path.exists() else ""
-        built = BuiltKernel(ctypes.CDLL(str(lib_path)), lib_path, seconds,
-                            ptxas)
-        _loaded[name] = built
-        return built
+                failed.append(f"nvcc failed for {CSRC_DIR / name}.cu "
+                              f"(exit {proc.returncode}):\n{log}")
+                continue
+            libs[name].with_suffix(".log").write_text(log)
+            os.replace(tmp, libs[name])  # atomic: readers see whole files
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, lib_path in libs.items():
+            log_path = lib_path.with_suffix(".log")
+            ptxas = log_path.read_text() if log_path.exists() else ""
+            _loaded[name] = BuiltKernel(ctypes.CDLL(str(lib_path)), lib_path,
+                                        seconds.get(name), ptxas)
+        return {name: _loaded[name] for name in names}

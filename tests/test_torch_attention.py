@@ -85,3 +85,62 @@ def test_other_devices_raise_instead_of_falling_back():
     x = torch.empty(1, 10, 3 * H * D, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         A.fused_attention_qkv(x, H, D, SCALE)
+
+
+# -- backward ----------------------------------------------------------------
+
+# gradients: tests/test_attention_pallas.py:61-74,103-117 hold the Pallas
+# backward at 1e-4; bf16 outputs are one rounding of f32 sums taken in
+# another order, so one bf16 ulp (2e-2 at |x| < 4)
+GRAD_TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
+            "bfloat16": dict(atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n", [(2, 145), (2, 37)])
+def test_bwd_reference_matches_pallas_bwd_kernel(b, n, dtype):
+    from hgr_tpu.ops.attention_pallas import _attention_qkv_bwd_impl
+
+    xj, xt = _pair(_qkv(b, n, seed=20 + n), dtype)
+    g = np.random.RandomState(n).randn(b, n, H * D).astype(np.float32)
+    gj, gt = _pair(g, dtype)
+    want = _attention_qkv_bwd_impl(xj, gj, H, D, SCALE, interpret=True)
+    got = A.attention_qkv_bwd_reference(xt, gt, H, D, SCALE)
+    assert got.dtype == xt.dtype and got.shape == (b, n, 3 * H * D)
+    np.testing.assert_allclose(_np(got), _np(want), **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_function_matches_jax_vjp(dtype):
+    """The port's gradient on the CPU against jax.vjp of the fused op with
+    both Pallas kernels in interpret mode."""
+    xj, xt = _pair(_qkv(2, 37, seed=5), dtype)
+    g = np.random.RandomState(6).randn(2, 37, H * D).astype(np.float32)
+    gj, gt = _pair(g, dtype)
+    out_j, vjp = jax.vjp(
+        lambda q: jax_fused_attention_qkv(q, H, D, SCALE, True), xj)
+    (want,) = vjp(gj)
+    xt.requires_grad_()
+    out_t = A.fused_attention_qkv(xt, H, D, SCALE)
+    np.testing.assert_allclose(_np(out_t.detach()), _np(out_j), **TOL[dtype])
+    before = A.fused_attention_qkv_bwd.launches
+    (got,) = torch.autograd.grad(out_t, xt, gt)
+    assert A.fused_attention_qkv_bwd.launches == before  # CPU: plain
+    np.testing.assert_allclose(_np(got), _np(want), **GRAD_TOL[dtype])
+
+
+def test_plain_backward_passes_gradcheck_in_float64():
+    """float64 gradcheck of the autograd.Function (plain backward) against
+    finite differences, and against autograd of the plain forward chain;
+    at a width where the Jacobian is small (2 heads of 4)."""
+    x = torch.from_numpy(np.random.RandomState(7).randn(2, 6, 24)
+                         ).requires_grad_()
+    scale = 4 ** -0.5
+    assert torch.autograd.gradcheck(
+        lambda q: A.fused_attention_qkv(q, 2, 4, scale), (x,), eps=1e-6,
+        atol=1e-6)
+    g = torch.from_numpy(np.random.RandomState(8).randn(2, 6, 8))
+    (want,) = torch.autograd.grad(A.attention_qkv_reference(x, 2, 4, scale),
+                                  x, g)
+    got = A.attention_qkv_bwd_reference(x.detach(), g, 2, 4, scale)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)

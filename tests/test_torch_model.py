@@ -342,9 +342,3 @@ def test_unfused_attention_route_matches_fused(jax_model):
 def test_unported_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         MultiTaskNet(image_size=(48, 48), **{field: value})
-
-
-def test_train_mode_batchnorm_raises():
-    model = MultiTaskNet(image_size=(48, 48))  # nn.Module starts in train
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(1, 48, 48, 3))
