@@ -115,16 +115,28 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Training recipe (reference train.py:244-283 defaults + README.md:62-71):
-    the fields the train step is built from, with the JAX package's names
-    and defaults. The loop, data and multi-device fields (batch size,
-    epochs, lr milestones, accumulation, ...) come with the slice that
-    reads them.
+    """Training recipe (reference train.py:244-283 defaults + README.md:62-71)
+    with the JAX package's names and defaults (hgr_tpu/config.py:139-166):
+    the fields that ``cli.train.run`` and ``train.loop.fit`` read. Not
+    ported: ``mesh_shape`` (multi-GPU training, ROADMAP A12) and
+    ``debug_every`` (debug images, A14); ``steps_per_epoch``, which
+    nothing reads (an epoch is one pass of the train loader).
     """
 
+    batch_size: int = 32
+    epochs: int = 50
     lr: float = 1e-3
+    lr_step: Tuple[int, ...] = (30, 40)
+    lr_factor: float = 0.1
     sigma: float = 2.0
+    seed: int = 42
     class_loss_weight: float = 0.001  # reference train.py:63
+    num_workers: int = 8
+    log_dir: str = "logs"
+    save_dir: str = "output"
+    canvas_size: int = 256  # host staging canvas (square)
+    # Sequential microbatches per optimizer step (train/steps.py).
+    grad_accum: int = 1
     # De-mixed task-gradient pullbacks (train/steps.make_train_step):
     # 'auto' = on iff the model computes in bf16, where the merged
     # cotangent stream drowns the CE x 0.001 classification gradient.

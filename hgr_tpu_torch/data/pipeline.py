@@ -2,8 +2,9 @@
 hgr_tpu/data/pipeline.py:127-322; reference libs/load.py:52-146).
 
 The host stages each decoded image into a square uint8 canvas with its
-orig->canvas affine (hgr_tpu/data/pipeline.py:70 ``stage_image``, not
-ported yet). On the device, one batched function draws the augment
+orig->canvas affine (``stage_image``, numpy, bit for bit the JAX
+package's; the window it keeps comes from ``staging_window_fraction``).
+On the device, one batched function draws the augment
 parameters (``draw_augment_params``, from a ``torch.Generator``), folds
 flip and crop geometry into one affine, applies the HSV jitter and the
 warp, rounds as cv2's uint8 warp does, normalizes, moves the joints into
@@ -15,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from hgr_tpu_torch.config import AugmentConfig
@@ -30,6 +32,96 @@ from hgr_tpu_torch.ops.warp import batched_affine_warp
 from hgr_tpu_torch.ops.warp_fused import warp_twopass
 
 WARP_METHODS = ("auto", "exact", "kernel")
+
+
+def staging_window_fraction(aug: AugmentConfig,
+                            crop_size_factor: float = 0.35) -> float:
+    """Fraction of max(h, w) the augmented crop can ever sample from
+    (hgr_tpu/data/pipeline.py:51): twice the worst reach from the image
+    center, 2·tf (translate) + csf·(1 + sf)·√2/2 (the crop's half
+    diagonal at 45°), at most 1. The defaults give 0.748."""
+    reach = (2.0 * aug.translate_factor
+             + crop_size_factor * (1.0 + aug.scale_factor)
+             * float(np.sqrt(2.0)) / 2.0)
+    return float(min(1.0, 2.0 * reach))
+
+
+def stage_image(img: np.ndarray, canvas_size: int, window_frac: float = 0.75
+                ) -> Tuple[np.ndarray, np.ndarray, Tuple[int, int]]:
+    """Stage a decoded (H, W, 3) uint8 image into a square canvas
+    (hgr_tpu/data/pipeline.py:70): keep the central ``window_frac ·
+    max(h, w)`` window, downscale it only when it exceeds the canvas, and
+    place it at the top-left. Returns (canvas uint8, orig->canvas affine
+    (2, 3) float32, (orig_h, orig_w))."""
+    h, w = img.shape[:2]
+    win = int(np.ceil(window_frac * max(h, w)))
+    cx, cy = w / 2.0, h / 2.0
+    x0 = max(0, int(np.floor(cx - win / 2.0)))
+    y0 = max(0, int(np.floor(cy - win / 2.0)))
+    x1 = min(w, x0 + win)
+    y1 = min(h, y0 + win)
+    window = img[y0:y1, x0:x1]
+    wh, ww = window.shape[:2]
+
+    scale = 1.0
+    if max(wh, ww) > canvas_size:
+        scale = canvas_size / max(wh, ww)
+        new_w = max(1, int(round(ww * scale)))
+        new_h = max(1, int(round(wh * scale)))
+        window = _host_resize(window, (new_h, new_w))
+        wh, ww = window.shape[:2]
+
+    canvas = np.zeros((canvas_size, canvas_size, 3), np.uint8)
+    canvas[:wh, :ww] = window[:, :, :3]
+    a = np.array(
+        [[scale, 0.0, -x0 * scale], [0.0, scale, -y0 * scale]], np.float32)
+    return canvas, a, (h, w)
+
+
+def _linear_taps(dst: int, src: int) -> Tuple[np.ndarray, np.ndarray]:
+    """First source index and float32 fraction of each output position,
+    with half-pixel centres, as cv2's resize computes them: the position
+    in double, rounded to float32, floored."""
+    scale = 1.0 / (dst / src)
+    pos = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    i0 = np.floor(pos).astype(np.int64)
+    return i0, pos - i0.astype(np.float32)
+
+
+def _fixed_weights(frac: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The two taps' 11-bit fixed-point weights, each rounded on its own."""
+    one = np.float32(1 << 11)
+    return (np.rint((np.float32(1.0) - frac) * one).astype(np.int32),
+            np.rint(frac * one).astype(np.int32))
+
+
+def _host_resize(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an (H, W, C) uint8 image, bit for bit what
+    ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)`` gives, which the
+    JAX package calls where cv2 imports (pipeline.py:107-113); cv2 stays
+    off the port. cv2 (imgproc/src/resize.cpp) blends each row's two
+    columns in integers with 11-bit weights (edges clamped to one column),
+    then two rows with 11-bit weights, rounding as its vector path does:
+    ``((b0·(S0 >> 4)) >> 16) + ((b1·(S1 >> 4)) >> 16)``, plus 2, >> 2."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    sx, fx = _linear_taps(ow, w)
+    edge = (sx < 0) | (sx >= w - 1)
+    fx[edge] = 0.0
+    sx = np.clip(sx, 0, w - 1)
+    a0, a1 = _fixed_weights(fx)
+    sy, fy = _linear_taps(oh, h)
+    b0, b1 = _fixed_weights(fy)
+    r0, r1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    rows, inv = np.unique(np.concatenate([r0, r1]), return_inverse=True)
+    src = img[rows]
+    cols = (src[:, sx].astype(np.int32) * a0[None, :, None]
+            + src[:, np.minimum(sx + 1, w - 1)].astype(np.int32)
+            * a1[None, :, None]) >> 4
+    s0, s1 = cols[inv[:oh]], cols[inv[oh:]]
+    out = (((b0[:, None, None] * s0) >> 16) + ((b1[:, None, None] * s1) >> 16)
+           + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 @dataclasses.dataclass

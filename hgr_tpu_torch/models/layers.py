@@ -12,16 +12,45 @@ its running statistics under the Flax names ``mean``/``var``
 buffers rather than ``nn.BatchNorm2d``, whose ``running_var`` update
 is unbiased where Flax's is biased (layers.py:260-263), and whose fused
 kernel computes the variance and its gradient another way.
+
+``fused_bn()`` routes each train-mode ``ConvBnAct`` through
+``ops/bn_act.bn_act`` instead (hgr_tpu/models/layers.py:48-68,
+:339-342): the same parameters and buffers, the two-pass biased batch
+variance, and a hand-derived backward whose two passes are CUDA kernels
+on the card. Off unless asked for.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from hgr_tpu_torch.ops.bn_act import bn_act
+
+# Fused BN(+SiLU) training route: the module-level override wins when set
+# (tests and tools pin it), else HGR_TPU_FUSED_BN ('on' | 'off' |
+# 'auto'/unset), read at each forward. 'auto' stays off, as in the JAX
+# package (layers.py:55, where the route lost on the TPU): on the H100 it
+# measured faster (PERF.md), but no benchmark cell holds that yet.
+_FUSED_BN: Optional[bool] = None
+_FUSED_BN_AUTO = False
+
+
+def fused_bn() -> bool:
+    """Whether train-mode ConvBnAct takes the fused route."""
+    if _FUSED_BN is not None:
+        return _FUSED_BN
+    v = os.environ.get("HGR_TPU_FUSED_BN", "auto")
+    if v in ("1", "on", "true"):
+        return True
+    if v in ("0", "off", "false"):
+        return False
+    return _FUSED_BN_AUTO
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
@@ -130,20 +159,30 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
             var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = BN_MOMENTUM
-                self.mean.mul_(m).add_((1.0 - m) * mean)
-                self.var.mul_(m).add_((1.0 - m) * var)
+            self.update_stats(mean, var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
 
+    @torch.no_grad()
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """ra = 0.9·ra + 0.1·batch for the running mean and (biased) var."""
+        m = BN_MOMENTUM
+        self.mean.mul_(m).add_((1.0 - m) * mean.detach())
+        self.var.mul_(m).add_((1.0 - m) * var.detach())
+
 
 class ConvBnAct(nn.Module):
     """conv(bias=False) + BatchNorm + SiLU (reference model/gelan.py:18-56
     ``Conv``): the conv in ``dtype``, BN and SiLU in float32, the output
-    cast to ``dtype`` (hgr_tpu/models/layers.py:267)."""
+    cast to ``dtype`` (hgr_tpu/models/layers.py:267).
+
+    In train mode with ``fused_bn()`` the BN(+SiLU) is ``ops/bn_act.bn_act``
+    on the conv output, with the running statistics updated from its
+    two-pass biased variance (layers.py:259-263). bf16 BN is not ported
+    (ROADMAP A13), so the chain is float32 and the JAX condition on the
+    chain dtype (layers.py:334-340) always holds."""
 
     def __init__(self, c_in: int, features: int, kernel_size: int = 1,
                  strides: int = 1, padding: Optional[int] = None,
@@ -163,6 +202,12 @@ class ConvBnAct(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and fused_bn():
+            bn = self.bn
+            y, mean, var = bn_act(self.conv(x), bn.weight, bn.bias, bn.eps,
+                                  self.use_act)
+            bn.update_stats(mean, var)
+            return y.to(self.dtype)
         y = self.bn(self.conv(x))
         if self.use_act:
             y = F.silu(y)

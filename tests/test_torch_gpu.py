@@ -164,22 +164,85 @@ def test_warp_kernel_matches_plain_version(canvas_dtype, rot, scale, jitter):
     assert float((diff > 0.02).float().mean()) < 0.01
 
 
+# the bn kernels against their plain versions (ops/bn_act.py): T1/T2 are
+# f32 sums over M rows taken in another order, held at 1e-6 of the sum of
+# the terms' magnitudes; dy is one rounding of f32 values that may differ
+# by a few ulps (FMA contraction, expf): 1e-5 in f32, one bf16 ulp in bf16
+BN_DY_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+             "bfloat16": dict(atol=2e-2, rtol=2**-7)}
+
+
 @pytest.mark.gpu
-def test_f32_train_step_on_card_matches_cpu(monkeypatch):
+@pytest.mark.parametrize("shape", [(1, 33, 7, 64), (3, 17, 11, 64),
+                                   (2, 5, 5, 20), (2, 9, 9, 512)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", [True, False])
+def test_bn_act_kernels_match_plain_versions(shape, dtype, act):
+    _cuda_or_skip()
+    from hgr_tpu_torch.ops import bn_act as B
+
+    rng = np.random.RandomState(16)
+    c = shape[-1]
+    dt = getattr(torch, dtype)
+    y = torch.from_numpy((rng.randn(*shape) * 2 + 0.3).astype(
+        np.float32)).to("cuda", dt).reshape(-1, c)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        "cuda", dt).reshape(-1, c)
+    gamma = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).cuda()
+    beta = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)).cuda()
+    _, mean, var = B.fwd_chain(y, gamma, beta, 1e-5, act)
+    r = torch.rsqrt(var + 1e-5)
+    before = (B.bn_act_reduce.launches, B.bn_act_elem.launches)
+    t1, t2 = B.bn_act_reduce(y, g, mean, r, gamma, beta, act)
+    p1, p2 = B.bn_act_reduce_reference(y, g, mean, r, gamma, beta, act)
+    m = float(y.shape[0])
+    dy = B.bn_act_elem(y, g, mean, r, gamma, beta, p1 / m, p2 / m, act)
+    torch.cuda.synchronize()
+    assert (B.bn_act_reduce.launches, B.bn_act_elem.launches) == (
+        before[0] + 1, before[1] + 1)
+    dz, xhat = B._dz_xhat(y, g, mean, r, gamma, beta, act)
+    for got, want, mag in ((t1, p1, dz.abs().sum(0)),
+                           (t2, p2, (dz * xhat).abs().sum(0))):
+        assert bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all())
+    want = B.bn_act_elem_reference(y, g, mean, r, gamma, beta, p1 / m,
+                                   p2 / m, act)
+    assert dy.dtype == y.dtype and dy.shape == y.shape
+    np.testing.assert_allclose(dy.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BN_DY_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_bn_act_kernels_reject_what_they_do_not_take():
+    _cuda_or_skip()
+    from hgr_tpu_torch.ops import bn_act as B
+
+    v = torch.zeros(8, device="cuda")
+    y = torch.zeros(4, 8, device="cuda")
+    with pytest.raises(TypeError):
+        B.bn_act_reduce(y.half(), y.half(), v, v, v, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        B.bn_act_reduce(torch.zeros(8, 4, device="cuda").t(), y, v, v, v, v)
+    with pytest.raises(ValueError, match="cotangent"):
+        B.bn_act_elem(y, y[:2], v, v, v, v, v, v)
+
+
+def _card_vs_cpu_step(monkeypatch, fused: bool):
     """One f32 de-mixed train step (TF32 off) at 48x48 on the card,
-    through the three kernels, against the same step on the CPU, which
-    warps with the kernel's plain version. Both take the same
-    injected augment draw (torch's random streams differ by device).
-    Gradients: per-tensor relative error 1e-3 (f32 sums in other orders
-    through ~30 layers, forward and backward)."""
+    through the kernels, against the same step on the CPU, which warps
+    with the kernel's plain version. Both take the same injected augment
+    draw (torch's random streams differ by device). Gradients: per-tensor
+    relative error 1e-3 (f32 sums in other orders through ~30 layers,
+    forward and backward)."""
     _cuda_or_skip()
     from hgr_tpu_torch.config import AugmentConfig
     from hgr_tpu_torch.data import pipeline
-    from hgr_tpu_torch.models import MultiTaskNet
+    from hgr_tpu_torch.models import MultiTaskNet, layers
+    from hgr_tpu_torch.ops import bn_act as B
     from hgr_tpu_torch.ops import warp_fused as W
     from hgr_tpu_torch.train import steps
     from hgr_tpu_torch.train.state import create_train_state
 
+    monkeypatch.setattr(layers, "_FUSED_BN", fused)
     # every warp sample a third of a pixel off the canvas grid: images of
     # 60 px shifted by (1/3, 1/3), crop 0.35·60 = 21 px scaled to 48 (one
     # canvas pixel per output pixel), rotations of multiples of 90°. Each
@@ -212,6 +275,12 @@ def test_f32_train_step_on_card_matches_cpu(monkeypatch):
         "joints_vis": np.ones((b, 21), np.float32),
         "label": rng.randint(0, 19, (b,)).astype(np.int64),
     }
+
+    def counts():
+        return (A.fused_attention_qkv.launches,
+                A.fused_attention_qkv_bwd.launches, W.warp_twopass.launches,
+                B.bn_act_reduce.launches, B.bn_act_elem.launches)
+
     out = {}
     for dev in ("cpu", "cuda"):
         model = MultiTaskNet(image_size=(48, 48),
@@ -220,14 +289,14 @@ def test_f32_train_step_on_card_matches_cpu(monkeypatch):
         step = steps.make_train_step(
             AugmentConfig(), image_size=(48, 48), heatmap_size=(12, 12),
             grad_demix=True, debug_return_grads=True, warp_method="kernel")
-        counts = (A.fused_attention_qkv.launches,
-                  A.fused_attention_qkv_bwd.launches, W.warp_twopass.launches)
+        before = counts()
         _, m = step(state, batch, torch.Generator(device=dev))
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert (A.fused_attention_qkv.launches - counts[0],
-                    A.fused_attention_qkv_bwd.launches - counts[1],
-                    W.warp_twopass.launches - counts[2]) == (4, 8, 1)
+            # 22 ConvBnAct layers x 2 pullbacks on the fused route
+            bn = 44 if fused else 0
+            assert tuple(a - b for a, b in zip(counts(), before)) == (
+                4, 8, 1, bn, bn)
         out[dev] = m
     for k in ("total_loss", "class_loss", "joints_loss"):
         np.testing.assert_allclose(float(out["cuda"][k]),
@@ -237,3 +306,13 @@ def test_f32_train_step_on_card_matches_cpu(monkeypatch):
     for k, w in g_cpu.items():
         err = float((g_card[k].cpu() - w).norm() / w.norm().clamp_min(1e-12))
         assert err <= 1e-3, (k, err)
+
+
+@pytest.mark.gpu
+def test_f32_train_step_on_card_matches_cpu(monkeypatch):
+    _card_vs_cpu_step(monkeypatch, fused=False)
+
+
+@pytest.mark.gpu
+def test_f32_fused_bn_train_step_on_card_matches_cpu(monkeypatch):
+    _card_vs_cpu_step(monkeypatch, fused=True)
