@@ -17,7 +17,15 @@ random weights:
 - training from files: ``hgr_tpu_torch.cli.train``'s ``run`` on a
   synthetic JPEG dataset made from a seed, fused BN on: 2 epochs, the
   test split from the best checkpoint, a ``--resume`` epoch, then two
-  ``--device_cache`` epochs.
+  ``--device_cache`` epochs;
+- multi-rank training through the same CLI (fused BN on): a 2x2 data x
+  tensor-parallel mesh of four ranks sharing the card over gloo (the
+  split-operand attention kernels on each rank's head group), then a
+  {data: 2} mesh from the sharded device cache. The ranks are processes:
+  each writes its launch counts beside the run and this script sums
+  them. Then a 2x2 f32 step against the single-process step on the card,
+  and the TP run's best checkpoint restored on one rank against the four
+  ranks' eval forward.
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -58,6 +66,10 @@ KERNELS = {
                           "hgr_tpu/ops/attention_pallas.py:51"),
     "attention_qkv_bwd": ("attention_qkv_bwd",
                           "hgr_tpu/ops/attention_pallas.py:175"),
+    "attention_split_fwd": ("attention_qkv_fwd",
+                            "hgr_tpu/ops/attention_pallas.py:294"),
+    "attention_split_bwd": ("attention_qkv_bwd",
+                            "hgr_tpu/ops/attention_pallas.py:302"),
     "warp_twopass": ("warp_twopass", "hgr_tpu/ops/warp_pallas.py:251"),
     "bn_act_reduce": ("bn_act_bwd", "hgr_tpu/ops/bn_act_pallas.py:102"),
     "bn_act_elem": ("bn_act_bwd", "hgr_tpu/ops/bn_act_pallas.py:129"),
@@ -111,6 +123,10 @@ BN_OPS = {("reduce", True): 17, ("reduce", False): 5,
           ("elem", True): 18, ("elem", False): 6}
 # the loop phase: synthetic splits at the writer's 224 px
 LOOP_SPLITS = (("train", 2048), ("val", 512), ("test", 512))
+# the multi-rank phase: the global batch, and the f32 parity step's
+MESH_BATCH, PARITY_BATCH = 128, 8
+TP_MESH, DP_MESH = {"data": 2, "model": 2}, {"data": 2}
+
 
 
 def emit(obj) -> None:
@@ -321,6 +337,99 @@ def bwd_kernel_phase(torch):
     return main
 
 
+def split_kernel_phase(torch):
+    """The split-operand kernels vs their plain versions and vs the packed
+    kernels on the same data (one kernel body: 0.0 difference), fed the
+    chunk views of one packed tensor and three contiguous tensors, at the
+    full width (B=256, 8 heads) and a tensor-parallel rank's head group
+    (B=128, 4 heads), bf16 and f32; times against SDPA on split heads."""
+    import torch.nn.functional as F
+
+    from hgr_tpu_torch.ops import attention as A
+
+    rows, main = [], {}
+    for b, h, dtype in [(TRAIN_BATCH, HEADS, "bfloat16"),
+                        (TRAIN_BATCH, HEADS, "float32"),
+                        (128, HEADS // 2, "bfloat16"),
+                        (128, HEADS // 2, "float32")]:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(b * 10 + h)
+        hd = h * HEAD_DIM
+        qkv = torch.randn(b, 145, 3 * hd, device="cuda", generator=gen).to(dt)
+        g = torch.randn(b, 145, hd, device="cuda", generator=gen).to(dt)
+        packed = A.fused_attention_qkv(qkv, h, HEAD_DIM, SCALE)
+        packed_d = A.fused_attention_qkv_bwd(qkv, g, h, HEAD_DIM,
+                                             SCALE).chunk(3, dim=-1)
+        for layout in ("views", "contiguous"):
+            ops = qkv.chunk(3, dim=-1)
+            if layout == "contiguous":
+                ops = tuple(t.contiguous() for t in ops)
+            out = A.fused_attention_split(*ops, h, HEAD_DIM, SCALE)
+            ref = A.attention_split_reference(*ops, h, HEAD_DIM, SCALE)
+            d = A.fused_attention_split_bwd(*ops, g, h, HEAD_DIM, SCALE)
+            d_ref = A.attention_split_bwd_reference(*ops, g, h, HEAD_DIM,
+                                                    SCALE)
+            torch.cuda.synchronize()
+            fwd_err = (out.float() - ref.float()).abs().max().item()
+            atol, rtol = GRAD_TOL[dtype]
+            bwd_err = max((x.float() - y.float()).abs().max().item()
+                          for x, y in zip(d, d_ref))
+            bwd_excess = max((
+                (x.float() - y.float()).abs() - atol - rtol
+                * y.float().abs()).max().item() for x, y in zip(d, d_ref))
+            vs_packed = (out.float() - packed.float()).abs().max().item()
+            bwd_vs_packed = max((x.float() - y.float()).abs().max().item()
+                                for x, y in zip(d, packed_d))
+            base = {"shape": [b, 145, hd], "heads": h, "dtype": dtype,
+                    "layout": layout}
+            check(fwd_err <= KERNEL_TOL[dtype],
+                  f"split fwd vs plain {base}: {fwd_err}")
+            check(bwd_excess <= 0, f"split bwd vs plain {base}: {bwd_err}")
+            check(vs_packed == 0.0 and bwd_vs_packed == 0.0,
+                  f"split vs packed kernel {base}: {vs_packed}, "
+                  f"{bwd_vs_packed}")
+            fwd = {**base, "kernel": "attention_split_fwd",
+                   "max_abs_err": fwd_err, "tol": KERNEL_TOL[dtype],
+                   "max_abs_diff_vs_packed_kernel": vs_packed}
+            bwd = {**base, "kernel": "attention_split_bwd",
+                   "max_abs_err": bwd_err, "atol": atol, "rtol": rtol,
+                   "max_abs_diff_vs_packed_kernel": bwd_vs_packed}
+            if layout == "views":
+                qh, kh, vh = (t.reshape(b, 145, h, HEAD_DIM).transpose(1, 2)
+                              for t in ops)
+                qg, kg, vg = (t.detach().requires_grad_()
+                              for t in (qh, kh, vh))
+                o = F.scaled_dot_product_attention(qg, kg, vg, scale=SCALE)
+                g_h = g.reshape(b, 145, h, HEAD_DIM).transpose(1, 2)
+                fwd.update(_alternate(torch, {
+                    "plain": lambda: A.attention_split_reference(
+                        *ops, h, HEAD_DIM, SCALE),
+                    "kernel": lambda: A.fused_attention_split(
+                        *ops, h, HEAD_DIM, SCALE),
+                    "library": lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, scale=SCALE)}))
+                bwd.update(_alternate(torch, {
+                    "plain": lambda: A.attention_split_bwd_reference(
+                        *ops, g, h, HEAD_DIM, SCALE),
+                    "kernel": lambda: A.fused_attention_split_bwd(
+                        *ops, g, h, HEAD_DIM, SCALE),
+                    "library": lambda: torch.autograd.grad(
+                        o, (qg, kg, vg), g_h, retain_graph=True)}, iters=20))
+                es = qkv.element_size()
+                fwd.update(_bound(4 * b * 145 * hd * es,
+                                  4 * b * h * 145 * 145 * HEAD_DIM, dtype))
+                bwd.update(_bound(7 * b * 145 * hd * es,
+                                  10 * b * h * 145 * 145 * HEAD_DIM, dtype))
+                for row in (fwd, bwd):
+                    row["ms"] = row.pop("kernel_ms")
+                if (b, dtype) == (TRAIN_BATCH, "bfloat16"):
+                    main = {"attention_split_fwd": fwd,
+                            "attention_split_bwd": bwd}
+            rows += [fwd, bwd]
+    emit({"kernel_checks": rows})
+    return main
+
+
 def _warp_inputs(torch, b, rot, seed):
     from hgr_tpu_torch.ops.affine import build_affine
 
@@ -409,29 +518,16 @@ def _staged_batch(b: int, seed: int) -> dict:
     }
 
 
-def _counted():
-    """Each kernel's wrapper, which carries its launch count."""
-    from hgr_tpu_torch.ops import bn_act
-    from hgr_tpu_torch.ops.attention import (
-        fused_attention_qkv,
-        fused_attention_qkv_bwd,
-    )
-    from hgr_tpu_torch.ops.warp_fused import warp_twopass
-
-    return {"attention_qkv_fwd": fused_attention_qkv,
-            "attention_qkv_bwd": fused_attention_qkv_bwd,
-            "warp_twopass": warp_twopass,
-            "bn_act_reduce": bn_act.bn_act_reduce,
-            "bn_act_elem": bn_act.bn_act_elem}
-
-
 def _counts():
-    return {name: fn.launches for name, fn in _counted().items()}
+    from hgr_tpu_torch.utils import launches
+
+    return launches.counts()
 
 
 def _zero_counts():
-    for fn in _counted().values():
-        fn.launches = 0
+    from hgr_tpu_torch.utils import launches
+
+    launches.zero()
 
 
 def _delta(after, before):
@@ -627,7 +723,9 @@ def train_phase(torch, n_bn: int):
     # warp; on the fused route each ConvBnAct's two bn kernels per pullback
     pullbacks = 2 if demix else 1
     want = {route: {"attention_qkv_fwd": 4,
-                    "attention_qkv_bwd": 4 * pullbacks, "warp_twopass": 1,
+                    "attention_qkv_bwd": 4 * pullbacks,
+                    "attention_split_fwd": 0, "attention_split_bwd": 0,
+                    "warp_twopass": 1,
                     "bn_act_reduce": n_bn * pullbacks * (route == "on"),
                     "bn_act_elem": n_bn * pullbacks * (route == "on")}
             for route in ("off", "on")}
@@ -824,24 +922,12 @@ def train_vs_cpu_phase(torch, fused: bool, n_bn: int):
           f"card vs CPU f32 step loss: {loss_err}")
 
 
-def loop_phase(torch, n_bn: int):
-    """Training from files through the CLI's ``run``: a synthetic dataset
-    (LOOP_SPLITS, the writer's 224 px JPEGs, seeds 0-2), B=256, canvas
-    256, bf16, HGR_TPU_FUSED_BN=on. Run 1: 2 epochs with the first 3 steps
-    profiled, then the test split from the best checkpoint; run 2:
-    ``--resume``, 1 epoch from the saved step; run 3: ``--resume
-    --device_cache``, 2 epochs, the first 3 steps profiled. Checks the
-    steps, the checkpoints, the logged metrics and every kernel's
-    launches against the counts the code gives. Also times the streaming
-    loader alone over the train split (no device work)."""
+def write_dataset():
+    """The synthetic splits of LOOP_SPLITS (seeds 0-2) under
+    build/chip_smoke/data: (work directory, DataConfig, seconds)."""
     import shutil
 
-    from hgr_tpu_torch.cli import train as cli
     from hgr_tpu_torch.config import DEFAULT_NAMES, DataConfig
-    from hgr_tpu_torch.data import native
-    from hgr_tpu_torch.data.dataset import read_annotations
-    from hgr_tpu_torch.data.loader import BatchLoader
-    from hgr_tpu_torch.data.pipeline import staging_window_fraction
     from hgr_tpu_torch.data.synthetic import write_synthetic_split
 
     work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -851,8 +937,27 @@ def loop_phase(torch, n_bn: int):
     t0 = time.perf_counter()
     for seed, (split, n) in enumerate(LOOP_SPLITS):
         write_synthetic_split(data, split, n, seed=seed)
-    write_s = time.perf_counter() - t0
-    cfg = DataConfig(path=data, names=dict(DEFAULT_NAMES))
+    return (work, DataConfig(path=data, names=dict(DEFAULT_NAMES)),
+            time.perf_counter() - t0)
+
+
+def loop_phase(torch, n_bn: int, work: str, cfg, write_s: float):
+    """Training from files through the CLI's ``run``: a synthetic dataset
+    (LOOP_SPLITS, the writer's 224 px JPEGs, seeds 0-2), B=256, canvas
+    256, bf16, HGR_TPU_FUSED_BN=on. Run 1: 2 epochs with the first 3 steps
+    profiled, then the test split from the best checkpoint; run 2:
+    ``--resume``, 1 epoch from the saved step; run 3: ``--resume
+    --device_cache``, 2 epochs, the first 3 steps profiled. Checks the
+    steps, the checkpoints, the logged metrics and every kernel's
+    launches against the counts the code gives. Also times the streaming
+    loader alone over the train split (no device work)."""
+    from hgr_tpu_torch.cli import train as cli
+    from hgr_tpu_torch.data import native
+    from hgr_tpu_torch.data.dataset import read_annotations
+    from hgr_tpu_torch.data.loader import BatchLoader
+    from hgr_tpu_torch.data.pipeline import staging_window_fraction
+
+    data = cfg.path
     base = ["--data_config", "(a DataConfig built by chip_smoke.py)",
             "--batch_size", str(TRAIN_BATCH), "--canvas_size", str(CANVAS),
             "--image_size", str(IMAGE), str(IMAGE), "--dtype", "bfloat16",
@@ -941,6 +1046,257 @@ def loop_phase(torch, n_bn: int):
     for name, profile in profiles.items():
         emit({"loop_profile_3_steps": {"run": name, **profile}})
     return counts
+
+
+def _rank_counts(save: str, world: int) -> list:
+    """The launch counts each rank of a CLI mesh run wrote beside it."""
+    out = []
+    for r in range(world):
+        with open(os.path.join(save, "ranks", f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_phase(torch, n_bn: int, work: str, cfg):
+    """Multi-rank training through the CLI's ``run`` on the loop phase's
+    dataset, bf16, CLI defaults (de-mixed), fused BN on, global batch
+    MESH_BATCH: 1 epoch and the test split on the 2x2 mesh (four ranks
+    sharing the card over gloo; the coordinator traces its first 3
+    steps), then 2 epochs on {data: 2} from the sharded device cache. Checks every rank's launches against the counts
+    the code gives. Returns (summed launches, the TP run's save path)."""
+    from hgr_tpu_torch.cli import train as cli
+
+    n_train, n_val, n_test = (n for _, n in LOOP_SPLITS)
+    base = ["--data_config", "(a DataConfig built by chip_smoke.py)",
+            "--batch_size", str(MESH_BATCH), "--canvas_size", str(CANVAS),
+            "--image_size", str(IMAGE), str(IMAGE), "--dtype", "bfloat16",
+            "--seed", "0", "--num_workers", "2", "--device", "cuda",
+            "--save_dir", os.path.join(work, "mesh_out"),
+            "--log_dir", os.path.join(work, "mesh_logs")]
+    per_epoch = -(-n_train // MESH_BATCH)
+    evals = -(-n_val // MESH_BATCH)
+    runs = [("2x2 mesh (data x model), 1 epoch, test", TP_MESH,
+             ["--suffix", "tp", "--epochs", "1", "--mesh", "data=2,model=2",
+              "--host_device_count", "4", "--profile", "3"], 1,
+             evals + -(-n_test // MESH_BATCH), "split"),
+            ("{data: 2} mesh, --device_cache, 2 epochs", DP_MESH,
+             ["--suffix", "dp", "--epochs", "2", "--mesh", "data=2",
+              "--host_device_count", "2", "--device_cache"], 2,
+             2 * evals + -(-n_test // MESH_BATCH), "qkv")]
+    total = {name: 0 for name in KERNELS}
+    rows, tp_save = [], ""
+    os.environ["HGR_TPU_FUSED_BN"] = "on"
+    try:
+        for name, shape, argv, epochs, eval_steps, route in runs:
+            world = shape.get("data", 1) * shape.get("model", 1)
+            t0 = time.perf_counter()
+            state, save = cli.run(cli.parse_args(base + argv), cfg)
+            seconds = time.perf_counter() - t0
+            check(state is None, f"{name}: the ranks ran in processes")
+            ranks = _rank_counts(save, world)
+            steps = epochs * per_epoch
+            want = {f"attention_{route}_fwd": 4 * (steps + eval_steps),
+                    f"attention_{route}_bwd": 8 * steps,
+                    "bn_act_reduce": 2 * n_bn * steps,
+                    "bn_act_elem": 2 * n_bn * steps}
+            for r, rec in enumerate(ranks):
+                got = rec["launches"]
+                check(rec["step"] == steps and rec["backend"] == "gloo",
+                      f"{name} rank {r}: step {rec['step']} backend "
+                      f"{rec['backend']}")
+                check(all(got[k] == v for k, v in want.items())
+                      and got["warp_twopass"] >= steps,
+                      f"{name} rank {r}: launches {got}, want {want}")
+                for k in total:
+                    total[k] += got[k]
+            with open(os.path.join(work, "mesh_logs", os.path.basename(save),
+                                   "metrics.jsonl")) as f:
+                lines = [json.loads(x) for x in f]
+            epoch_lines = [x for x in lines if "epoch" in x]
+            check(len(epoch_lines) == epochs and all(
+                np.isfinite(x["train/total_loss"]) for x in epoch_lines),
+                f"{name}: epoch lines {epoch_lines}")
+            rows.append({
+                "run": name, "mesh": shape, "ranks": world,
+                "backend": "gloo, one card shared", "seconds": seconds,
+                "steps": steps, "eval_steps": eval_steps,
+                "train_time_s": [x["train_time_s"] for x in epoch_lines],
+                "steps_per_s": [per_epoch / x["train_time_s"]
+                                for x in epoch_lines],
+                "train_loss": [x["train/total_loss"] for x in epoch_lines],
+                "val_loss": [x["val/total_loss"] for x in epoch_lines],
+                "launches_per_rank": [rec["launches"] for rec in ranks]})
+            if shape is TP_MESH:
+                tp_save = save
+                # the coordinator's trace: its own kernels only, while the
+                # other three ranks share the card
+                with open(os.path.join(save, "profile",
+                                       "profile_summary.json")) as f:
+                    prof = json.load(f)
+                check(prof["device_events"] > 0,
+                      f"{name}: rank 0's profile saw device kernels")
+                rows[-1]["rank0_profile_3_steps"] = {
+                    **{k: prof[k] for k in ("window_ms", "device_busy_ms",
+                                            "device_idle_share",
+                                            "device_events")},
+                    "top_device_ops": prof["top_device_ops"][:6]}
+    finally:
+        os.environ.pop("HGR_TPU_FUSED_BN")
+    emit({"mesh": {"batch": MESH_BATCH, "dtype": "bfloat16",
+                   "fused_bn": True, "steps_per_epoch": per_epoch,
+                   "runs": rows, "launches": total}})
+    return total, tp_save
+
+
+def _mesh_rank(rank: int, world: int, port: int, in_path: str,
+               out_dir: str) -> None:
+    """One rank of the 2x2 card checks: the f32 parity step on its rows
+    (its share of the fixed augment draw), then the TP run's best
+    checkpoint restored into its shard and an eval forward of its rows."""
+    import torch
+
+    from hgr_tpu_torch.config import AugmentConfig
+    from hgr_tpu_torch.data import pipeline
+    from hgr_tpu_torch.models import MultiTaskNet
+    from hgr_tpu_torch.parallel import distributed
+    from hgr_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from hgr_tpu_torch.parallel.steps import (
+        make_parallel_train_step,
+        shard_state,
+    )
+    from hgr_tpu_torch.parallel.tp import gather_state
+    from hgr_tpu_torch.train import steps
+    from hgr_tpu_torch.train.checkpoint import CheckpointManager
+    from hgr_tpu_torch.train.state import create_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, "gloo")
+    try:
+        inp = torch.load(in_path, weights_only=False)
+        mesh = make_mesh(TP_MESH)
+        params = inp["params"]
+        steps.draw_augment_params = lambda gen, b, sizes, cfg: \
+            pipeline.AugmentParams(**{k: torch.from_numpy(v[:b]).cuda()
+                                      for k, v in params.items()})
+        model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                             fused_attention="split",
+                             generator=torch.Generator().manual_seed(1))
+        state = shard_state(create_train_state(model, device="cuda"), mesh,
+                            tensor_parallel=True)
+        step = make_parallel_train_step(
+            mesh, AugmentConfig(), image_size=(IMAGE, IMAGE),
+            heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=True,
+            debug_return_grads=True, warp_method="kernel")
+        _, m = step(state, shard_batch(inp["batch"], mesh),
+                    torch.Generator(device="cuda"))
+        grads = gather_state({"step": 0, "model": m.pop("_grads")},
+                             mesh)["model"]
+        # the TP run's best checkpoint, cut to this rank's shard (f32)
+        best = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                            fused_attention="split")
+        best = shard_state(create_train_state(best, device="cuda"), mesh,
+                           tensor_parallel=True)
+        best = CheckpointManager(inp["weight_dir"], mesh=mesh).restore(
+            best, "best")
+        x = torch.from_numpy(inp["images"]).cuda()
+        rows = shard_batch({"x": x}, mesh)["x"]
+        with torch.no_grad():
+            logits, hmap, _ = best.model.eval()(rows, need_attnmap=False)
+        if rank == 0:
+            torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
+                        "loss": float(m["total_loss"]),
+                        "best_step": best.step}, os.path.join(
+                            out_dir, "parity.pt"))
+        if mesh.model_index == 0:
+            torch.save({"logits": logits.float().cpu(),
+                        "hmap": hmap.float().cpu()},
+                       os.path.join(out_dir, f"eval{mesh.data_index}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
+    """On the 2x2 mesh (four ranks on the card, gloo), f32 with TF32 off:
+    one de-mixed step at global B=PARITY_BATCH against the single-process
+    step on the card (per-tensor relative gradient error STEP_GRAD_TOL,
+    the loss to 1e-5 relative); and the TP run's best checkpoint, restored
+    on one rank, against the four ranks' f32 eval forward (each its rows,
+    from the same file cut to its shard), within MODEL_TOL of the largest
+    output (f32 sums in another order: the row-parallel reduce)."""
+    import torch.multiprocessing as mp
+
+    from hgr_tpu_torch.config import AugmentConfig
+    from hgr_tpu_torch.models import MultiTaskNet
+    from hgr_tpu_torch.parallel.distributed import free_port
+    from hgr_tpu_torch.train.checkpoint import CheckpointManager
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_train_step
+
+    batch, params = _grid_third_case(torch, PARITY_BATCH)
+    out_dir = os.path.join(work, "mesh_checks")
+    os.makedirs(out_dir, exist_ok=True)
+    images = np.random.RandomState(6).randn(8, IMAGE, IMAGE, 3).astype(
+        np.float32)
+    in_path = os.path.join(out_dir, "inputs.pt")
+    torch.save({"batch": batch, "images": images,
+                "params": {k: v.numpy() for k, v in params.items()},
+                "weight_dir": os.path.join(tp_save, "weight")}, in_path)
+    t0 = time.perf_counter()
+    mp.start_processes(_mesh_rank, args=(4, free_port(), in_path, out_dir),
+                       nprocs=4, join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = torch.load(os.path.join(out_dir, "parity.pt"), weights_only=False)
+    with _fixed_draw(params):
+        model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                             generator=torch.Generator().manual_seed(1))
+        state = create_train_state(model, device="cuda")
+        step = make_train_step(
+            AugmentConfig(), image_size=(IMAGE, IMAGE),
+            heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=True,
+            debug_return_grads=True, warp_method="kernel")
+        _, single = step(state, batch, torch.Generator(device="cuda"))
+    g_one = single["_grads"]
+    errs = {k: float((ranks["grads"][k] - w.cpu()).norm()
+                     / w.cpu().norm().clamp_min(1e-12))
+            for k, w in g_one.items()}
+    worst = max(errs, key=errs.get)
+    loss = float(single["total_loss"])
+    loss_err = abs(ranks["loss"] - loss)
+    # the TP run's best checkpoint on one rank
+    one = MultiTaskNet(image_size=(IMAGE, IMAGE))
+    one = CheckpointManager(os.path.join(tp_save, "weight")).restore(
+        create_train_state(one, device="cuda"), "best")
+    with torch.no_grad():
+        lo, hm, _ = one.model.eval()(torch.from_numpy(images).cuda(),
+                                     need_attnmap=False)
+    parts = [torch.load(os.path.join(out_dir, f"eval{d}.pt"),
+                        weights_only=False) for d in range(2)]
+    eval_err = max(
+        (torch.cat([p["logits"] for p in parts]) - lo.float().cpu()).abs()
+        .max().item(),
+        (torch.cat([p["hmap"] for p in parts]) - hm.float().cpu()).abs()
+        .max().item()) / max(lo.float().abs().max().item(),
+                             hm.float().abs().max().item(), 1.0)
+    emit({"mesh_checks": {
+        "mesh": TP_MESH, "ranks": 4, "seconds": seconds,
+        "f32_step_b8": {"max_rel_grad_err": errs[worst],
+                        "worst_tensor": worst,
+                        "median_rel_grad_err": float(np.median(
+                            list(errs.values()))),
+                        "tol": STEP_GRAD_TOL, "loss": loss,
+                        "loss_abs_err": loss_err},
+        "best_checkpoint_step": ranks["best_step"],
+        "one_rank_vs_ranks_eval_err_of_max_abs": eval_err,
+        "eval_tol_of_max_abs": MODEL_TOL}})
+    check(errs[worst] <= STEP_GRAD_TOL,
+          f"2x2 mesh vs single-process f32 step grads: {worst} "
+          f"{errs[worst]}")
+    check(loss_err <= 1e-5 * abs(loss), f"2x2 mesh step loss: {loss_err}")
+    check(ranks["best_step"] == one.step, "best checkpoint step")
+    check(eval_err <= MODEL_TOL,
+          f"best checkpoint on one rank vs the ranks' eval: {eval_err}")
 
 
 def model_phase(torch, state):
@@ -1121,6 +1477,8 @@ def main() -> int:
             "warp_twopass": warp_kernel_phase(torch)}
     rows["bn_act_reduce"], rows["bn_act_elem"], _ = bn_kernel_phase(
         torch, path_layers)
+    rows.update(split_kernel_phase(torch))
+    single_path = [k for k in KERNELS if "split" not in k]
 
     # main path 1, serving: counts at 0 just before, read just after
     state = load_classifier_weights("", (IMAGE, IMAGE), seed=0)
@@ -1137,23 +1495,33 @@ def main() -> int:
     n_bn = len(path_layers)
     _zero_counts()
     trained = train_phase(torch, n_bn)
-    for name in KERNELS:
+    for name in single_path:
         check(trained[name] > 0, f"the train step launched {name}")
     train_vs_cpu_phase(torch, fused=False, n_bn=n_bn)
     train_vs_cpu_phase(torch, fused=True, n_bn=n_bn)
 
     # main path 3, training from files through the CLI
+    work, cfg, write_s = write_dataset()
     _zero_counts()
-    looped = loop_phase(torch, n_bn)
-    for name in KERNELS:
+    looped = loop_phase(torch, n_bn, work, cfg, write_s)
+    for name in single_path:
         check(looped[name] > 0, f"the training loop launched {name}")
+
+    # main path 4, multi-rank training through the CLI: the counts live in
+    # the ranks' processes, which start at 0 and write them beside the run
+    _zero_counts()
+    meshed, tp_save = mesh_phase(torch, n_bn, work, cfg)
+    for name in KERNELS:
+        check(meshed[name] > 0, f"the multi-rank runs launched {name}")
+    mesh_checks_phase(torch, tp_save, work)
 
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"hgr_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
-        "launches": served[name] + trained[name] + looped[name],
+        "launches": served[name] + trained[name] + looped[name]
+        + meshed[name],
         "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],

@@ -10,6 +10,22 @@ backward (ops/bn_act.py). Every flag of the JAX CLI is accepted; the ones
 whose feature is not ported yet raise ``NotImplementedError`` naming
 their ROADMAP item. ``main`` reads the YAML data config and calls
 ``run(args, data_cfg)``, which does everything after it.
+
+Meshes (parallel/), with the JAX CLI's meaning and refusals; every rank
+is a process:
+
+- ``--mesh data=D,model=M``: this process starts the D·M ranks of one
+  host (``spawn``) and joins them; a rank that fails fails the run. Each
+  CUDA rank needs a card of its own (nccl) unless
+  ``--host_device_count`` says the ranks share the host's card(s).
+- ``--host_device_count N``: N simulated devices on this host: the ranks
+  run on the CPU under ``--device cpu`` or share the card(s) under
+  ``--device cuda``, always over gloo.
+- ``--distributed HOST:PORT,NPROC,PID``: this process is rank PID of
+  NPROC, one per host; pure data parallelism, as in JAX.
+
+Each rank writes its kernel launch counts to
+``<save_dir>/<run>/ranks/rank<r>.json``.
 """
 
 from __future__ import annotations
@@ -65,15 +81,20 @@ def build_parser() -> argparse.ArgumentParser:
                              "on under bf16); 'batched' is not ported yet "
                              '(ROADMAP A15)')
     parser.add_argument('--mesh', type=str, default='',
-                        help='not ported yet (ROADMAP A12)')
+                        help="mesh spec, e.g. 'data=8' or 'data=4,model=2'; "
+                             'empty = single device')
     parser.add_argument('--canvas_size', type=int, default=256)
     parser.add_argument('--resume', action='store_true',
                         help='resume from the last checkpoint if present')
     parser.add_argument('--host_device_count', type=int, default=0,
-                        help='not ported yet (ROADMAP A12)')
+                        help='simulate N devices on this host: the mesh '
+                             'ranks run on the CPU (--device cpu) or share '
+                             'the card(s), over gloo')
     parser.add_argument('--distributed', type=str, default='',
                         metavar='HOST:PORT,NPROC,PID',
-                        help='not ported yet (ROADMAP A12)')
+                        help='multi-host data parallelism: this process is '
+                             'rank PID of NPROC (one per host); --mesh '
+                             'data=NPROC')
     parser.add_argument('--profile', type=int, default=0, metavar='N',
                         help='trace the first N train steps with '
                              'torch.profiler into <save_dir>/<run>/profile')
@@ -102,9 +123,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     unported = [
-        (args.mesh, "--mesh", "A12"),
-        (args.distributed, "--distributed", "A12"),
-        (args.host_device_count, "--host_device_count", "A12"),
         (args.remat, "--remat", "A13"),
         (args.early_dtype, "--early_dtype", "A13"),
         (args.decoder_dtype, "--decoder_dtype", "A13"),
@@ -127,24 +145,140 @@ def snapshot_dir(root: str, split_dir: str) -> str:
                         + hashlib.sha256(abspath.encode()).hexdigest()[:8])
 
 
+def _check_mesh(args: argparse.Namespace, mesh_shape, nproc: int) -> None:
+    """The JAX CLI's refusals for a mesh (cli/train.py:201-253)."""
+    from hgr_tpu_torch.config import ModelConfig
+    from hgr_tpu_torch.parallel.mesh import check_heads
+
+    data, tp = mesh_shape.get("data", 1), mesh_shape.get("model", 1) > 1
+    check_heads(mesh_shape, ModelConfig.heads)
+    if args.grad_accum > 1 and args.batch_size % (args.grad_accum * data):
+        raise SystemExit(f"--batch_size {args.batch_size} must divide by "
+                         f"grad_accum x data-axis ({args.grad_accum * data})")
+    if args.batch_size % data:
+        raise SystemExit(f"--batch_size {args.batch_size} must divide by "
+                         f"the data axis {data}")
+    if args.device_cache and mesh_shape and args.grad_accum > 1:
+        raise NotImplementedError(
+            "--device_cache with --grad_accum under a mesh (each microbatch "
+            "a global row range, which the sharded cache would have to "
+            "reshard between the ranks) is not ported (ROADMAP A17)")
+    if args.device_cache and tp:
+        raise SystemExit("--device_cache supports single-device and pure-DP "
+                         "meshes; tensor-parallel meshes would replicate the "
+                         "cache across 'model'")
+    if nproc > 1:
+        if tp:
+            raise SystemExit("--distributed supports pure-DP meshes "
+                             "(data=N); tensor parallelism is single-host")
+        if args.device_cache:
+            raise SystemExit("--device_cache is single-host; use the "
+                             "streaming loader under --distributed")
+        if not mesh_shape:
+            raise SystemExit(f"--distributed requires --mesh data=N over the "
+                             f"global rank count ({nproc})")
+        if data != nproc:
+            raise SystemExit(f"--distributed: mesh data axis must equal the "
+                             f"global rank count {nproc}, got {mesh_shape}")
+        if args.batch_size % (nproc * max(1, args.grad_accum)):
+            raise SystemExit(f"--batch_size {args.batch_size} must divide by "
+                             f"num_processes x grad_accum "
+                             f"({nproc} x {args.grad_accum})")
+
+
 def run(args: argparse.Namespace, data_cfg):
     """Build the loaders, the model and its train state from ``args`` and
     ``data_cfg`` (a ``DataConfig``), resume if asked, and ``fit``. Returns
-    (the final TrainState, the run's save path)."""
-    from hgr_tpu_torch.config import ModelConfig, TrainConfig
-    from hgr_tpu_torch.data.dataset import read_annotations
-    from hgr_tpu_torch.data.device_cache import DeviceCacheLoader
-    from hgr_tpu_torch.data.loader import BatchLoader
-    from hgr_tpu_torch.data.pipeline import staging_window_fraction
-    from hgr_tpu_torch.models import MultiTaskNet
-    from hgr_tpu_torch.train.checkpoint import CheckpointManager
-    from hgr_tpu_torch.train.loop import fit
-    from hgr_tpu_torch.train.state import create_train_state, resolve_device
+    (the final TrainState, the run's save path); when the ranks of a mesh
+    ran in processes of their own, the state is None."""
+    from hgr_tpu_torch.parallel import distributed
+    from hgr_tpu_torch.parallel.mesh import parse_mesh
+    from hgr_tpu_torch.train.state import resolve_device
 
     _refuse_unported(args)
     if args.image_size[0] != args.image_size[-1]:
         raise ValueError("only square images are supported")
     device = resolve_device(args.device)
+    mesh_shape = parse_mesh(args.mesh)
+    nproc = 1
+    if args.distributed:
+        addr, nproc, pid = distributed.parse_spec(args.distributed)
+    _check_mesh(args, mesh_shape, nproc)
+    shared = args.host_device_count > 0
+    if args.distributed:
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if device.type == "cuda" and not shared and cards < 1:
+            raise RuntimeError("--distributed on CUDA needs a card per rank")
+        backend = distributed.backend_for(device.type, shared)
+        distributed.initialize(addr, nproc, pid, backend)
+        try:
+            return _train(args, data_cfg, mesh_shape, device)
+        finally:
+            distributed.shutdown()
+    world = mesh_shape.get("data", 1) * mesh_shape.get("model", 1)
+    if world == 1:
+        return _train(args, data_cfg, mesh_shape, device)
+    if shared and world > args.host_device_count:
+        raise ValueError(f"mesh {mesh_shape} needs {world} devices, have "
+                         f"{args.host_device_count}")
+    if device.type == "cuda" and not shared \
+            and torch.cuda.device_count() < world:
+        raise RuntimeError(
+            f"mesh {mesh_shape} needs {world} cards (one per rank), this "
+            f"host has {torch.cuda.device_count()}; pass --host_device_count "
+            f"{world} for ranks that share them")
+    backend = distributed.backend_for(device.type, shared)
+    import torch.multiprocessing as mp
+
+    port = distributed.free_port()
+    mp.start_processes(_rank_main, args=(args, data_cfg, mesh_shape, world,
+                                         port, backend),
+                       nprocs=world, join=True, start_method="spawn")
+    return None, _save_path(args)
+
+
+def _rank_main(rank: int, args, data_cfg, mesh_shape, world: int, port: int,
+               backend: str) -> None:
+    """One local rank of a mesh: join the group, train, write the counts."""
+    from hgr_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend)
+    try:
+        _train(args, data_cfg, mesh_shape, device)
+    finally:
+        distributed.shutdown()
+
+
+def _save_path(args: argparse.Namespace) -> str:
+    return os.path.join(args.save_dir, "{}_{}x{}_{}".format(
+        args.backbone, args.image_size[0], args.image_size[-1], args.suffix))
+
+
+def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
+    """The run of one rank (or of the one process without a mesh)."""
+    from hgr_tpu_torch.config import ModelConfig, TrainConfig
+    from hgr_tpu_torch.data.dataset import read_annotations
+    from hgr_tpu_torch.data.device_cache import (
+        DeviceCacheLoader,
+        ShardedDeviceCacheLoader,
+    )
+    from hgr_tpu_torch.data.loader import BatchLoader
+    from hgr_tpu_torch.data.pipeline import staging_window_fraction
+    from hgr_tpu_torch.models import MultiTaskNet
+    from hgr_tpu_torch.parallel import distributed
+    from hgr_tpu_torch.parallel.mesh import make_mesh, resolve_fused_attention
+    from hgr_tpu_torch.parallel.steps import shard_state
+    from hgr_tpu_torch.train.checkpoint import CheckpointManager
+    from hgr_tpu_torch.train.loop import fit
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.utils import launches
+
+    main = distributed.is_coordinator()
     # the recipe's one source from here on (train_cfg, not args)
     train_cfg = TrainConfig(
         batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
@@ -153,21 +287,34 @@ def run(args: argparse.Namespace, data_cfg):
         class_loss_weight=args.class_loss_weight,
         num_workers=args.num_workers, log_dir=args.log_dir,
         save_dir=args.save_dir, canvas_size=args.canvas_size,
-        grad_accum=args.grad_accum, grad_demix=args.grad_demix)
+        grad_accum=args.grad_accum, grad_demix=args.grad_demix,
+        mesh_shape=mesh_shape or None)
     if train_cfg.batch_size % train_cfg.grad_accum:
         raise SystemExit(f"--batch_size {train_cfg.batch_size} must divide "
                          f"by --grad_accum {train_cfg.grad_accum}")
-    model_name = "{}_{}x{}_{}".format(
-        args.backbone, args.image_size[0], args.image_size[-1], args.suffix)
-    save_path = os.path.join(train_cfg.save_dir, model_name)
+    save_path = _save_path(args)
+    model_name = os.path.basename(save_path)
     os.makedirs(save_path, exist_ok=True)
     image_size = (args.image_size[0], args.image_size[-1])
+    mesh_shape = train_cfg.mesh_shape or {}
     model_cfg = ModelConfig(
         num_joints=data_cfg.num_joints, num_classes=data_cfg.num_classes,
         image_size=image_size,
         backbone='large' if args.backbone == 'gelanl' else 'small',
-        compute_dtype=args.dtype, early_units=args.early_units)
+        compute_dtype=args.dtype, early_units=args.early_units,
+        fused_attention=resolve_fused_attention(mesh_shape,
+                                                ModelConfig.heads))
+    mesh = make_mesh(mesh_shape) if mesh_shape else None
+    tensor_parallel = mesh is not None and mesh.tensor_parallel
+    if mesh is not None and main:
+        print(f"mesh: {mesh_shape} over {distributed.process_count()} "
+              f"ranks, backend {distributed.backend() or 'none'}",
+              flush=True)
     window_frac = staging_window_fraction(data_cfg.augments)
+    ranks = {}
+    if mesh is not None:
+        ranks = dict(process_count=mesh.data_size,
+                     process_index=mesh.data_index)
 
     def make_loader(split, shuffle, cache=False):
         split_dir = os.path.join(data_cfg.path, split)
@@ -180,9 +327,15 @@ def run(args: argparse.Namespace, data_cfg):
         if cache and args.device_cache:
             snap = (snapshot_dir(args.cache_snapshot, split_dir)
                     if args.cache_snapshot else "")
+            if mesh is not None:
+                return idx, ShardedDeviceCacheLoader(
+                    idx, shard_index=mesh.data_index,
+                    shard_count=mesh.data_size, snapshot_dir=snap,
+                    device=device, **kw)
             return idx, DeviceCacheLoader(idx, snapshot_dir=snap,
                                           device=device, **kw)
-        return idx, BatchLoader(idx, **kw)
+        return idx, BatchLoader(idx, microbatches=train_cfg.grad_accum
+                                if shuffle else 1, **ranks, **kw)
 
     # No split drops its tail (the reference's loaders keep it,
     # libs/load.py:280-305): the tail batch is padded and masked. The test
@@ -195,23 +348,34 @@ def run(args: argparse.Namespace, data_cfg):
         num_joints=model_cfg.num_joints, num_classes=model_cfg.num_classes,
         image_size=image_size, backbone=model_cfg.backbone,
         dtype=getattr(torch, model_cfg.compute_dtype),
+        fused_attention=model_cfg.fused_attention,
         generator=torch.Generator().manual_seed(train_cfg.seed))
     steps_per_epoch = len(train_loader)
     milestones = [m * steps_per_epoch for m in train_cfg.lr_step]
     state = create_train_state(model, lr=train_cfg.lr,
                                milestones_steps=milestones,
                                lr_factor=train_cfg.lr_factor, device=device)
+    if mesh is not None:
+        state = shard_state(state, mesh, tensor_parallel)
     if args.resume:
-        ckpt = CheckpointManager(os.path.join(save_path, "weight"))
+        ckpt = CheckpointManager(os.path.join(save_path, "weight"), mesh=mesh)
         if ckpt.has("last"):
             state = ckpt.restore(state, "last")
-            print(f"resumed from step {state.step}", flush=True)
-    print(f"{len(train_idx)} train samples, {steps_per_epoch} steps/epoch",
-          flush=True)
+            if main:
+                print(f"resumed from step {state.step}", flush=True)
+    if main:
+        print(f"{len(train_idx)} train samples, {steps_per_epoch} "
+              "steps/epoch", flush=True)
     state = fit(model_cfg, train_cfg, data_cfg, state, train_loader,
                 val_loader, test_loader, save_path=save_path,
                 log_dir=train_cfg.log_dir, run_name=model_name,
+                mesh=mesh, tensor_parallel=tensor_parallel,
                 lr_fn=state.schedule, profile_steps=args.profile)
+    if mesh is not None:
+        launches.write(os.path.join(
+            save_path, "ranks", f"rank{distributed.process_index()}.json"),
+            step=state.step, mesh=mesh_shape, rank=mesh.rank,
+            device=str(device), backend=distributed.backend())
     return state, save_path
 
 

@@ -118,9 +118,9 @@ class TrainConfig:
     """Training recipe (reference train.py:244-283 defaults + README.md:62-71)
     with the JAX package's names and defaults (hgr_tpu/config.py:139-166):
     the fields that ``cli.train.run`` and ``train.loop.fit`` read. Not
-    ported: ``mesh_shape`` (multi-GPU training, ROADMAP A12) and
-    ``debug_every`` (debug images, A14); ``steps_per_epoch``, which
-    nothing reads (an epoch is one pass of the train loader).
+    ported: ``debug_every`` (debug images, ROADMAP A14) and
+    ``steps_per_epoch``, which nothing reads (an epoch is one pass of the
+    train loader).
     """
 
     batch_size: int = 32
@@ -134,6 +134,9 @@ class TrainConfig:
     num_workers: int = 8
     log_dir: str = "logs"
     save_dir: str = "output"
+    # the mesh of ranks, e.g. {'data': 8} or {'data': 4, 'model': 2};
+    # None = one device (parallel/mesh.py)
+    mesh_shape: Optional[Dict[str, int]] = None
     canvas_size: int = 256  # host staging canvas (square)
     # Sequential microbatches per optimizer step (train/steps.py).
     grad_accum: int = 1

@@ -1,10 +1,14 @@
-// Fused multi-head attention backward on the packed qkv projection.
+// Fused multi-head attention backward, on the packed qkv projection or on
+// q, k and v as three operands.
 //
 // Replaces the TPU kernel hgr_tpu/ops/attention_pallas.py:175
 // (_attention_qkv_bwd_kernel, launched by _attention_qkv_bwd_impl :233
-// from the custom VJP _bwd :398). It differentiates the forward kernel
-// csrc/attention_qkv_fwd.cu as executed, from qkv (B, N, 3*H*D) and the
-// output cotangent g (B, N, H*D), without any saved N x N tensor.
+// from the custom VJP _bwd :398) through attention_qkv_bwd, and
+// _split_bwd_impl :302 (the same kernel fed the concatenation of three
+// operands, its output cut in three) through attention_split_bwd. It
+// differentiates the forward kernel csrc/attention_qkv_fwd.cu as
+// executed, from q, k, v and the output cotangent g (B, N, H*D), without
+// any saved N x N tensor.
 //
 // What it computes, per image b and head h (D = 32), all in f32:
 //   s[i, j]  = (q_i . k_j) * scale, P = softmax_j(s)   (recomputed)
@@ -14,8 +18,14 @@
 //   dv_j = sum_i P^[i, j] g_i,  P^ = P rounded to the compute type T and
 //                                    widened back (the forward multiplies
 //                                    v by that rounded P, :218-225)
-// and writes dq | dk | dv once each into the packed (B, N, 3*H*D)
-// gradient, in T.
+// and writes dq, dk and dv once each, in T.
+//
+// One kernel body serves both entry points: every operand (q, k, v, g in;
+// dq, dk, dv out) is a base pointer with an image stride and a row stride
+// in elements. attention_qkv_bwd passes the packed qkv and the packed
+// gradient (B, N, 3*H*D) as three thirds each with row stride 3*H*D;
+// attention_split_bwd passes its caller's operands as they are. The two
+// entry points compute bit-identical gradients on the same data.
 //
 // Bound on an H100 SXM at the training shape (B=64, N=145, H=8, D=32,
 // bf16): the function must move 33.26 MB (qkv 14.25 MB and g 4.75 MB read
@@ -26,8 +36,8 @@
 // Design (simple first): one block per (head, image), which stages that
 // head's Q, K, V and G (N x D, widened to f32, rows padded to D + 1
 // floats so that lane j reading row j hits 32 distinct banks) into
-// shared memory by stride from the packed rows. Two phases, no atomics,
-// so the result is deterministic:
+// shared memory from the operands' rows by 16-byte loads. Two phases, no
+// atomics, so the result is deterministic:
 //   1. query rows, one warp per row: lane j computes s, dA for keys
 //      j, j + 32, ...; the warp reduces the softmax max and sum and the
 //      row sum of dA P with shuffles; lane d then sums dq_i[d] over the
@@ -39,8 +49,7 @@
 //      subtraction, and then take the same instructions in the same
 //      order, so P and dS have the same bits in both phases.
 // All five products run on the CUDA cores in f32. Left for later:
-// tensor-core tiles (mma.sync, then wgmma) for the products, and
-// 16-byte vector loads of the packed rows.
+// tensor-core tiles (mma.sync, then wgmma) for the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,11 +98,56 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return s;
 }
 
+// Stage n rows of one head (D = 32 features, row stride ``row`` elements)
+// into shared memory as f32 rows of ``stride`` floats: 16-byte loads when
+// the rows allow them (every layout the callers pass in practice), else
+// one element per thread. The staged values are the same either way. With
+// ``stride`` = D + 1 the vector path's stores hit 32 distinct banks.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+                                           int64_t row, float* dst,
+                                           int stride, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = kHeadDim / kVec;
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % kVec == 0) {
+    for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
+      const int j = idx / kChunks;
+      const int c = (idx - j * kChunks) * kVec;
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + j * row + c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int t = 0; t < kVec; ++t) dst[j * stride + c + t] = to_f32(e[t]);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n * kHeadDim; idx += blockDim.x) {
+      const int j = idx / kHeadDim;
+      const int d = idx - j * kHeadDim;
+      dst[j * stride + d] = to_f32(src[j * row + d]);
+    }
+  }
+}
+
+// One (B, N, H*D) operand: element strides between images and rows.
+template <typename P>
+struct Operand {
+  P* p;
+  int64_t img;
+  int64_t row;
+  // the head's columns of image b: element (i, d) is at [i * row + d]
+  __device__ __forceinline__ P* head(int b, int h) const {
+    return p + b * img + h * kHeadDim;
+  }
+};
+
+template <typename T>
+struct Operands {
+  Operand<const T> q, k, v, g;
+  Operand<T> dq, dk, dv;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-attention_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
-                         T* __restrict__ dqkv, int n, int heads,
-                         float scale) {
+attention_bwd_kernel(const Operands<T> ops, int n, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                     // n * kStride each
   float* ks = qs + n * kStride;
@@ -106,25 +160,17 @@ attention_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int hd = heads * kHeadDim;
-  const int64_t row_stride = 3 * static_cast<int64_t>(hd);
-  const T* img = qkv + static_cast<int64_t>(b) * n * row_stride;
-  const T* gimg = g + static_cast<int64_t>(b) * n * hd;
-  T* out = dqkv + static_cast<int64_t>(b) * n * row_stride;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  for (int idx = tid; idx < n * kHeadDim; idx += blockDim.x) {
-    const int j = idx / kHeadDim;
-    const int d = idx - j * kHeadDim;
-    const T* src = img + j * row_stride + h * kHeadDim + d;
-    qs[j * kStride + d] = to_f32(src[0]);
-    ks[j * kStride + d] = to_f32(src[hd]);
-    vs[j * kStride + d] = to_f32(src[2 * hd]);
-    gs[j * kStride + d] = to_f32(gimg[static_cast<int64_t>(j) * hd +
-                                      h * kHeadDim + d]);
-  }
+  stage_rows(ops.q.head(b, h), ops.q.row, qs, kStride, n);
+  stage_rows(ops.k.head(b, h), ops.k.row, ks, kStride, n);
+  stage_rows(ops.v.head(b, h), ops.v.row, vs, kStride, n);
+  stage_rows(ops.g.head(b, h), ops.g.row, gs, kStride, n);
+  T* __restrict__ dqh = ops.dq.head(b, h);
+  T* __restrict__ dkh = ops.dk.head(b, h);
+  T* __restrict__ dvh = ops.dv.head(b, h);
   __syncthreads();
 
   float* pa = scratch + warp * 2 * n;  // this warp's two rows
@@ -161,7 +207,7 @@ attention_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
     __syncwarp();
     float dq = 0.f;
     for (int j = 0; j < n; ++j) dq = fmaf(pb[j], ks[j * kStride + lane], dq);
-    out[i * row_stride + h * kHeadDim + lane] = from_f32<T>(dq);
+    dqh[i * ops.dq.row + lane] = from_f32<T>(dq);
     if (lane == 0) {
       row_max[i] = m;
       row_sum[i] = l;
@@ -193,9 +239,8 @@ attention_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
       dk = fmaf(pa[i], qs[i * kStride + lane], dk);
       dv = fmaf(pb[i], gs[i * kStride + lane], dv);
     }
-    T* o = out + j * row_stride + h * kHeadDim + lane;
-    o[hd] = from_f32<T>(dk);
-    o[2 * hd] = from_f32<T>(dv);
+    dkh[j * ops.dk.row + lane] = from_f32<T>(dk);
+    dvh[j * ops.dv.row + lane] = from_f32<T>(dv);
     __syncwarp();
   }
 }
@@ -205,21 +250,52 @@ size_t smem_bytes(int n) {
          (4 * kStride + 3 + 2 * kWarps);
 }
 
+// ptrs: q, k, v, g, dq, dk, dv; strides: their (image, row) element
+// strides, in that order (14 values)
 template <typename T>
-cudaError_t launch(const void* qkv, const void* g, void* dqkv, int batch,
-                   int n, int heads, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* const* ptrs, const int64_t* strides,
+                   int batch, int n, int heads, float scale,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(n);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_qkv_bwd_kernel<T>,
+        attention_bwd_kernel<T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
+  auto in = [&](int i) {
+    return Operand<const T>{static_cast<const T*>(ptrs[i]), strides[2 * i],
+                            strides[2 * i + 1]};
+  };
+  auto out = [&](int i) {
+    return Operand<T>{static_cast<T*>(const_cast<void*>(ptrs[i])),
+                      strides[2 * i], strides[2 * i + 1]};
+  };
+  const Operands<T> ops{in(0), in(1), in(2), in(3), out(4), out(5), out(6)};
   const dim3 grid(heads, batch);
-  attention_qkv_bwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(g),
-      static_cast<T*>(dqkv), n, heads, scale);
+  attention_bwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(ops, n,
+                                                                 scale);
   return cudaGetLastError();
+}
+
+bool bad_shape(int batch, int n, int heads, int head_dim) {
+  return head_dim != kHeadDim || batch < 1 || batch > 65535 || n < 1 ||
+         heads < 1 || heads > 65535;
+}
+
+int dispatch(const void* const* ptrs, const int64_t* strides, int batch,
+             int n, int heads, float scale, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(
+          launch<float>(ptrs, strides, batch, n, heads, scale, s));
+    case 1:
+      return static_cast<int>(
+          launch<__nv_bfloat16>(ptrs, strides, batch, n, heads, scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -231,26 +307,38 @@ int attention_qkv_bwd_smem_bytes(int n) {
   return static_cast<int>(smem_bytes(n));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success); the caller has checked shapes and pointers.
+// qkv (B, N, 3*H*D) and g (B, N, H*D), contiguous -> the packed gradient
+// dqkv (B, N, 3*H*D). dtype: 0 = float32, 1 = bfloat16. Returns
+// cudaGetLastError() after the launch (0 on success); the caller has
+// checked shapes and pointers.
 int attention_qkv_bwd(const void* qkv, const void* g, void* dqkv, int batch,
                       int n, int heads, int head_dim, float scale, int dtype,
                       void* stream) {
-  if (head_dim != kHeadDim || batch < 1 || batch > 65535 || n < 1 ||
-      heads < 1 || heads > 65535) {
+  if (bad_shape(batch, n, heads, head_dim) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(
-          launch<float>(qkv, g, dqkv, batch, n, heads, scale, s));
-    case 1:
-      return static_cast<int>(
-          launch<__nv_bfloat16>(qkv, g, dqkv, batch, n, heads, scale, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t hd = static_cast<int64_t>(heads) * kHeadDim;
+  const int64_t es = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const char* x = static_cast<const char*>(qkv);
+  const char* dx = static_cast<const char*>(dqkv);
+  const void* ptrs[7] = {x, x + hd * es, x + 2 * hd * es, g,
+                         dx, dx + hd * es, dx + 2 * hd * es};
+  const int64_t row = 3 * hd, img = n * row;
+  const int64_t strides[14] = {img, row, img, row, img, row, n * hd, hd,
+                               img, row, img, row, img, row};
+  return dispatch(ptrs, strides, batch, n, heads, scale, dtype, stream);
+}
+
+// q, k, v, g in and dq, dk, dv out: seven (B, N, H*D) operands with unit
+// feature stride, their pointers in ``ptrs`` and their (image, row)
+// element strides in ``strides`` (14 values), in that order.
+int attention_split_bwd(const void* const* ptrs, const int64_t* strides,
+                        int batch, int n, int heads, int head_dim,
+                        float scale, int dtype, void* stream) {
+  if (bad_shape(batch, n, heads, head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return dispatch(ptrs, strides, batch, n, heads, scale, dtype, stream);
 }
 
 const char* attention_qkv_bwd_error_string(int code) {

@@ -1,7 +1,10 @@
-// Fused multi-head attention forward on the packed qkv projection.
+// Fused multi-head attention forward, on the packed qkv projection or on
+// q, k and v as three operands.
 //
 // Replaces the TPU kernel hgr_tpu/ops/attention_pallas.py:51
-// (_attention_qkv_kernel, launched by _attention_qkv_impl :85).
+// (_attention_qkv_kernel, launched by _attention_qkv_impl :85) through
+// attention_qkv_fwd, and _split_fwd_impl :294 (the same kernel fed the
+// concatenation of three operands) through attention_split_fwd.
 //
 // What it computes, per image b and head h (D = 32):
 //   s[i, j] = (q_i . k_j) * scale          q, k widened to f32, f32 dot,
@@ -10,9 +13,15 @@
 //                                          f32 max / exp / sum, P rounded
 //                                          to the compute type T
 //   out[i]  = round_T(sum_j P[i, j] * v_j) f32 accumulation
-// reading q, k, v by stride from qkv (B, N, 3*H*D) = [q | k | v], each
-// head-major, and writing out (B, N, H*D). No N x N tensor reaches
-// device memory.
+// reading q, k, v by stride and writing out (B, N, H*D). No N x N tensor
+// reaches device memory. One kernel body serves both entry points: each
+// operand is a base pointer with an image stride and a row stride (in
+// elements), head-major within a row. attention_qkv_fwd passes the packed
+// qkv (B, N, 3*H*D) = [q | k | v] as (qkv, qkv + H*D, qkv + 2*H*D) with
+// row stride 3*H*D; attention_split_fwd passes three operands of its
+// caller's strides (a chunk view of a packed tensor, or contiguous
+// tensors) with no copy and no concatenation. The two entry points
+// therefore compute bit-identical outputs on the same data.
 //
 // Bound on an H100 SXM at the serving shape (B=64, N=145, H=8, D=32,
 // bf16): the function must move 19.0 MB (qkv read once, 14.25 MB; out
@@ -21,16 +30,16 @@
 //
 // Design (simple first): one block per (row group of 32 queries, head,
 // image). The block stages that head's K and V (N x D, widened to f32)
-// from the packed rows into shared memory; K rows are padded to D + 1
-// floats so that lane j reading row j hits 32 distinct banks. Each warp
-// owns one query row at a time: lane j computes the scores of keys
-// j, j + 32, ... into the warp's own row of shared memory, the warp
-// reduces max and sum with shuffles, and lane d then accumulates output
-// feature d over all keys. Both products run on the CUDA cores in f32;
-// the K/V staging is repeated by the ceil(N / 32) row groups of a head
-// (served from L2). Left for later: mma / wgmma tensor-core tiles for
-// the two products, one block per (image, head) with K/V staged once,
-// and 16-byte vector loads.
+// from their operands' rows into shared memory by 16-byte loads; rows
+// are padded to D + 1 floats so that lane j reading row j (and the
+// staging stores) hit 32 distinct banks. Each warp owns one query row at
+// a time: lane j computes the scores of keys j, j + 32, ... into the
+// warp's own row of shared memory, the warp reduces max and sum with
+// shuffles, and lane d then accumulates output feature d over all keys.
+// Both products run on the CUDA cores in f32; the K/V staging is
+// repeated by the ceil(N / 32) row groups of a head (served from L2).
+// Left for later: mma / wgmma tensor-core tiles for the two products,
+// one block per (image, head) with K/V staged once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,7 +52,7 @@ constexpr int kHeadDim = 32;             // one lane per output feature
 constexpr int kWarps = 8;                // warps per block
 constexpr int kRowsPerWarp = 4;          // query rows each warp walks
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kKStride = kHeadDim + 1;   // padded K row (bank conflicts)
+constexpr int kKStride = kHeadDim + 1;   // padded K, V rows (bank conflicts)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -72,31 +81,67 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Stage n rows of one head (D = 32 features, row stride ``row`` elements)
+// into shared memory as f32 rows of ``stride`` floats: 16-byte loads when
+// the rows allow them (every layout the callers pass in practice), else
+// one element per thread. The staged values are the same either way. With
+// ``stride`` = D + 1 the vector path's stores hit 32 distinct banks.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
+                                           int64_t row, float* dst,
+                                           int stride, int n) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = kHeadDim / kVec;
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % kVec == 0) {
+    for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
+      const int j = idx / kChunks;
+      const int c = (idx - j * kChunks) * kVec;
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + j * row + c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int t = 0; t < kVec; ++t) dst[j * stride + c + t] = to_f32(e[t]);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n * kHeadDim; idx += blockDim.x) {
+      const int j = idx / kHeadDim;
+      const int d = idx - j * kHeadDim;
+      dst[j * stride + d] = to_f32(src[j * row + d]);
+    }
+  }
+}
+
+// One (B, N, H*D) operand: element strides between images and rows.
+template <typename T>
+struct Operand {
+  const T* p;
+  int64_t img;
+  int64_t row;
+  // the head's columns of image b: element (i, d) is at [i * row + d]
+  __device__ __forceinline__ const T* head(int b, int h) const {
+    return p + b * img + h * kHeadDim;
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                         int n, int heads, float scale) {
+attention_fwd_kernel(const Operand<T> q_op, const Operand<T> k_op,
+                     const Operand<T> v_op, T* __restrict__ out, int n,
+                     int heads, float scale) {
   extern __shared__ float smem[];
-  float* ks = smem;                     // n * kKStride
-  float* vs = ks + n * kKStride;        // n * kHeadDim
-  float* ps = vs + n * kHeadDim;        // kWarps * n, one row per warp
+  float* ks = smem;                     // n * kKStride each
+  float* vs = ks + n * kKStride;
+  float* ps = vs + n * kKStride;        // kWarps * n, one row per warp
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hd = heads * kHeadDim;
-  const int64_t row_stride = 3 * static_cast<int64_t>(hd);
-  const T* img = qkv + static_cast<int64_t>(b) * n * row_stride;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  for (int idx = tid; idx < n * kHeadDim; idx += blockDim.x) {
-    const int j = idx / kHeadDim;
-    const int d = idx - j * kHeadDim;
-    const T* src = img + j * row_stride + h * kHeadDim + d;
-    ks[j * kKStride + d] = to_f32(src[hd]);
-    vs[j * kHeadDim + d] = to_f32(src[2 * hd]);
-  }
+  const T* __restrict__ qh = q_op.head(b, h);
+  stage_rows(k_op.head(b, h), k_op.row, ks, kKStride, n);
+  stage_rows(v_op.head(b, h), v_op.row, vs, kKStride, n);
   __syncthreads();
 
   float* p = ps + warp * n;
@@ -104,7 +149,7 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int i = row0 + r * kWarps + warp;
     if (i >= n) break;  // uniform across the warp; later rows are larger
-    const float q_lane = to_f32(img[i * row_stride + h * kHeadDim + lane]);
+    const float q_lane = to_f32(qh[i * q_op.row + lane]);
     float q[kHeadDim];
 #pragma unroll
     for (int d = 0; d < kHeadDim; ++d) q[d] = __shfl_sync(kFull, q_lane, d);
@@ -131,28 +176,54 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
     __syncwarp();
 
     float acc = 0.f;
-    for (int j = 0; j < n; ++j) acc = fmaf(p[j], vs[j * kHeadDim + lane], acc);
+    for (int j = 0; j < n; ++j) acc = fmaf(p[j], vs[j * kKStride + lane], acc);
     out[(static_cast<int64_t>(b) * n + i) * hd + h * kHeadDim + lane] =
         from_f32<T>(acc);
     __syncwarp();  // p is rewritten by the warp's next row
   }
 }
 
+// strides: element strides (image, row) of q, k and v, in that order
 template <typename T>
-cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int64_t* strides, void* out, int batch, int n,
+                   int heads, float scale, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * static_cast<size_t>(n) * (kKStride + kHeadDim + kWarps);
+      sizeof(float) * static_cast<size_t>(n) * (2 * kKStride + kWarps);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_qkv_fwd_kernel<T>,
+        attention_fwd_kernel<T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
+  const Operand<T> q_op{static_cast<const T*>(q), strides[0], strides[1]};
+  const Operand<T> k_op{static_cast<const T*>(k), strides[2], strides[3]};
+  const Operand<T> v_op{static_cast<const T*>(v), strides[4], strides[5]};
   const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, batch);
-  attention_qkv_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
+  attention_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
+      q_op, k_op, v_op, static_cast<T*>(out), n, heads, scale);
   return cudaGetLastError();
+}
+
+bool bad_shape(int batch, int n, int heads, int head_dim) {
+  return head_dim != kHeadDim || batch < 1 || batch > 65535 || n < 1 ||
+         heads < 1 || heads > 65535;
+}
+
+int dispatch(const void* q, const void* k, const void* v,
+             const int64_t* strides, void* out, int batch, int n, int heads,
+             float scale, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(
+          launch<float>(q, k, v, strides, out, batch, n, heads, scale, s));
+    case 1:
+      return static_cast<int>(launch<__nv_bfloat16>(
+          q, k, v, strides, out, batch, n, heads, scale, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -161,28 +232,39 @@ extern "C" {
 
 // Shared memory one block needs for sequence length n, in bytes.
 int attention_qkv_fwd_smem_bytes(int n) {
-  return static_cast<int>(sizeof(float)) * n * (kKStride + kHeadDim + kWarps);
+  return static_cast<int>(sizeof(float)) * n * (2 * kKStride + kWarps);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
 // launch (0 on success); the caller has checked shapes and pointers.
+// qkv (B, N, 3*H*D) contiguous -> out (B, N, H*D).
 int attention_qkv_fwd(const void* qkv, void* out, int batch, int n, int heads,
                       int head_dim, float scale, int dtype, void* stream) {
-  if (head_dim != kHeadDim || batch < 1 || batch > 65535 || n < 1 ||
-      heads < 1 || heads > 65535) {
+  if (bad_shape(batch, n, heads, head_dim) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(
-          launch<float>(qkv, out, batch, n, heads, scale, s));
-    case 1:
-      return static_cast<int>(
-          launch<__nv_bfloat16>(qkv, out, batch, n, heads, scale, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t hd = static_cast<int64_t>(heads) * kHeadDim;
+  const int64_t row = 3 * hd;
+  const int64_t img = n * row;
+  const int64_t strides[6] = {img, row, img, row, img, row};
+  const size_t es = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const char* base = static_cast<const char*>(qkv);
+  return dispatch(base, base + hd * es, base + 2 * hd * es, strides, out,
+                  batch, n, heads, scale, dtype, stream);
+}
+
+// q, k, v: three (B, N, H*D) operands with unit feature stride and the
+// element strides (image, row) of q, k, v in ``strides`` (6 values) ->
+// out (B, N, H*D) contiguous.
+int attention_split_fwd(const void* q, const void* k, const void* v,
+                        const int64_t* strides, void* out, int batch, int n,
+                        int heads, int head_dim, float scale, int dtype,
+                        void* stream) {
+  if (bad_shape(batch, n, heads, head_dim)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  return dispatch(q, k, v, strides, out, batch, n, heads, scale, dtype,
+                  stream);
 }
 
 const char* attention_qkv_fwd_error_string(int code) {

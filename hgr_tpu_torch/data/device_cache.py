@@ -21,8 +21,14 @@ files are all gone is served on the annotation fingerprint alone; a stale
 or partial snapshot is rebuilt (data files, then the manifest, commit by
 atomic rename).
 
-The sharded cache over several cards waits for multi-GPU training
-(ROADMAP A12).
+``ShardedDeviceCacheLoader`` is one data rank's cache on a pure-DP mesh
+(hgr_tpu/data/device_cache.py:413-549): rank s keeps the contiguous
+global samples [s·n_local, (s+1)·n_local) on its own device, shuffles
+them within the shard each epoch, and yields its block of every global
+batch. Its rows come from the same snapshot format: with a snapshot
+directory the coordinator builds (or validates) the whole split's
+snapshot, and after a barrier every rank reads its rows from it; without
+one each rank stages its own samples.
 """
 
 from __future__ import annotations
@@ -37,7 +43,9 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from hgr_tpu_torch.data.dataset import AnnotationIndex
 from hgr_tpu_torch.data.loader import BatchLoader
+from hgr_tpu_torch.parallel import distributed
 from hgr_tpu_torch.train.state import resolve_device
 
 _CACHED_KEYS = ("canvas", "orig_to_canvas", "sizes_hw", "joints",
@@ -264,4 +272,114 @@ class DeviceCacheLoader(BatchLoader):
             mask = np.zeros((bs,), np.float32)
             mask[:valid] = 1.0
             batch["valid"] = mask
+            yield batch
+
+
+class ShardedDeviceCacheLoader(DeviceCacheLoader):
+    """The device cache of data rank ``shard_index`` of ``shard_count``.
+
+    Shard s owns the global samples [s·n_local, min((s+1)·n_local, N))
+    with n_local = ceil(N / shard_count). Every epoch it permutes its own
+    rows with ``RandomState(seed + epoch·10007 + s)`` (no shuffle: index
+    order), pads its sequence by repetition to len(self) blocks of
+    batch_size / shard_count rows (``valid`` masks the repeats) and yields
+    its block of each global batch: the blocks of the ranks, in rank
+    order, are the JAX loader's global batch on a {'data': shard_count}
+    mesh. Rows past N (a shard with fewer real samples) hold an identity
+    affine and canvas-sized dims, so the masked augment stays finite."""
+
+    def __init__(self, index, batch_size: int, shard_index: int,
+                 shard_count: int, snapshot_dir: str = "", device="cuda",
+                 **kwargs):
+        super().__init__(index, batch_size, snapshot_dir=snapshot_dir,
+                         device=device, **kwargs)
+        if batch_size % shard_count:
+            raise ValueError(f"batch_size {batch_size} not divisible by the "
+                             f"'data' axis size {shard_count}")
+        self.shard, self.shards = shard_index, shard_count
+        n = len(self.index)
+        self.n_local = -(-n // shard_count)
+        self.lo = shard_index * self.n_local
+        self.n_real = max(0, min(self.n_local, n - self.lo))
+
+    def __len__(self) -> int:
+        return -(-self.n_local // (self.batch_size // self.shards))
+
+    def _build_cache(self) -> None:
+        n, cs = self.n_local, self.canvas_size
+        spec = _flat_shapes(cs, self.num_joints)
+        cache = {k: torch.zeros((n, flat), dtype=_TORCH_DTYPES[np.dtype(dt)],
+                                device=self.device)
+                 for k, (flat, _, dt) in spec.items()}
+        cache["orig_to_canvas"][:] = torch.tensor([1.0, 0, 0, 0, 1.0, 0])
+        cache["sizes_hw"][:] = float(cs)
+        lo, hi = self.lo, self.lo + self.n_real
+
+        def write(block: Dict[str, np.ndarray], start: int) -> None:
+            """Keep the block's rows that fall in this shard."""
+            stop = start + len(next(iter(block.values())))
+            a, b = max(start, lo), min(stop, hi)
+            for k, v in block.items():
+                if a < b:
+                    rows = np.require(v[a - start:b - start],
+                                      requirements="CW")
+                    cache[k][a - lo:b - lo].copy_(torch.from_numpy(rows))
+
+        if self.snapshot_dir:
+            if distributed.is_coordinator():
+                self.loaded_from_snapshot = self._fill(write, spec,
+                                                       len(self.index))
+            distributed.barrier()  # the snapshot is whole from here on
+            if not distributed.is_coordinator():
+                self.loaded_from_snapshot = self._fill(write, spec,
+                                                       len(self.index))
+        else:
+            self._stage_own(write, spec)
+        self._cache = cache
+        self._spec = spec
+
+    def _stage_own(self, write, spec) -> None:
+        """Decode and stage this shard's samples only."""
+        sub = AnnotationIndex(self.index.samples[self.lo:self.lo + self.n_real],
+                              self.index.names)
+        if not len(sub):
+            return
+        own = BatchLoader(sub, self.batch_size, canvas_size=self.canvas_size,
+                          num_joints=self.num_joints, shuffle=False,
+                          drop_last=False, num_workers=self.num_workers,
+                          window_frac=self.window_frac)
+        start = 0
+        for batch in own:
+            valid = min(self.batch_size, len(sub) - start)
+            write({k: np.ascontiguousarray(batch[k][:valid]).reshape(
+                valid, spec[k][0]) for k in _CACHED_KEYS}, self.lo + start)
+            start += valid
+
+    def _epoch_plan(self) -> Iterator:
+        """(local row ids, valid) of this shard's block of each batch of
+        one epoch; advances the epoch counter."""
+        bl = self.batch_size // self.shards
+        nb = len(self)
+        order = np.arange(self.n_real)
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self._epoch * 10007
+                                        + self.shard)
+            rng.shuffle(order)
+        padded = (np.resize(order, nb * bl) if self.n_real
+                  else np.zeros(nb * bl, np.int64))
+        valid = np.zeros(nb * bl, np.float32)
+        valid[:self.n_real] = 1.0
+        self._epoch += 1
+        for b in range(nb):
+            yield padded[b * bl:(b + 1) * bl], valid[b * bl:(b + 1) * bl]
+
+    def __iter__(self) -> Iterator[Dict]:
+        if self._cache is None:
+            self._build_cache()
+        for ids, valid in self._epoch_plan():
+            idx = torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
+                self.device)
+            batch = {k: torch.index_select(v, 0, idx).reshape(
+                (len(ids),) + self._spec[k][1]) for k, v in self._cache.items()}
+            batch["valid"] = valid
             yield batch

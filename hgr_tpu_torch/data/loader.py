@@ -8,6 +8,11 @@ takes: canvas (B, S, S, 3) uint8, orig_to_canvas (B, 2, 3) f32, sizes_hw
 f32, label (B,) int32 and valid (B,) f32. Every batch has ``batch_size``
 rows: without ``drop_last`` the tail batch repeats samples and ``valid``
 masks the repeats. The shuffle of epoch e is ``RandomState(seed + e)``.
+Under data parallelism (``process_count`` data ranks; here a "process"
+is a data rank, and the ranks of one model group load the same rows)
+every rank walks the same global order and materializes only its rows
+of each global batch (``parallel/mesh.py:shard_rows``), as
+hgr_tpu/data/loader.py:69-92 does per process.
 A whole batch is decoded and staged by the native library when it is
 available and every file is a JPEG, else per image on a thread pool
 (native decode, then PIL) with ``stage_image``. A producer thread keeps
@@ -27,6 +32,7 @@ import numpy as np
 from hgr_tpu_torch.data import native
 from hgr_tpu_torch.data.dataset import AnnotationIndex
 from hgr_tpu_torch.data.pipeline import stage_image
+from hgr_tpu_torch.parallel.mesh import shard_rows
 
 
 def _decode_image(path: str) -> np.ndarray:
@@ -42,13 +48,24 @@ def _decode_image(path: str) -> np.ndarray:
 
 
 class BatchLoader:
-    """Iterable of staged numpy batches in the train step's layout."""
+    """Iterable of staged numpy batches in the train step's layout.
+
+    ``process_count`` / ``process_index``: this data rank's rows of every
+    global batch of ``batch_size``; ``microbatches`` (the step's
+    ``grad_accum``) makes them its share of each microbatch."""
 
     def __init__(self, index: AnnotationIndex, batch_size: int,
                  canvas_size: int = 256, num_joints: int = 21,
                  shuffle: bool = False, seed: int = 42,
                  drop_last: bool = True, num_workers: int = 4,
-                 prefetch: int = 2, window_frac: float = 0.75):
+                 prefetch: int = 2, window_frac: float = 0.75,
+                 process_count: int = 1, process_index: int = 0,
+                 microbatches: int = 1):
+        if not 0 <= process_index < max(1, process_count):
+            raise ValueError(f"process_index {process_index} out of range "
+                             f"for process_count {process_count}")
+        self.rows = shard_rows(batch_size, max(1, process_count),
+                               process_index, microbatches)
         self.index = index
         self.batch_size = batch_size
         self.canvas_size = canvas_size
@@ -93,7 +110,12 @@ class BatchLoader:
         return canvas, affine, (h, w), joints, vis
 
     def _assemble(self, ids: np.ndarray, valid: int) -> Dict[str, np.ndarray]:
-        bs, cs = self.batch_size, self.canvas_size
+        """This rank's rows of the global batch ``ids`` whose first
+        ``valid`` entries are real."""
+        g_mask = np.zeros((self.batch_size,), np.float32)
+        g_mask[:valid] = 1.0
+        ids, g_mask = ids[self.rows], g_mask[self.rows]
+        bs, cs = len(ids), self.canvas_size
         batch = {
             "canvas": np.zeros((bs, cs, cs, 3), np.uint8),
             "orig_to_canvas": np.zeros((bs, 2, 3), np.float32),
@@ -113,9 +135,7 @@ class BatchLoader:
                 batch["sizes_hw"][k] = hw
                 batch["joints"][k] = joints
                 batch["joints_vis"][k] = vis
-        mask = np.zeros((bs,), np.float32)
-        mask[:valid] = 1.0
-        batch["valid"] = mask
+        batch["valid"] = g_mask
         return batch
 
     def _native_batch(self, ids: np.ndarray,

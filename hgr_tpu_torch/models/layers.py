@@ -18,6 +18,13 @@ kernel computes the variance and its gradient another way.
 :339-342): the same parameters and buffers, the two-pass biased batch
 variance, and a hand-derived backward whose two passes are CUDA kernels
 on the card. Off unless asked for.
+
+Data parallelism: ``sync_batch_stats(model, group)`` makes every
+BatchNorm of the model take its train-mode statistics over ``group``
+(the mesh's data group): the per-channel sums and the row count are
+summed over the ranks, through a differentiable sum on the plain route
+and around the two kernels on the fused one (ops/bn_act.py), so the
+statistics and the running-stat update are those of the global batch.
 """
 
 from __future__ import annotations
@@ -27,10 +34,12 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from hgr_tpu_torch.ops.bn_act import bn_act
+from hgr_tpu_torch.parallel.collectives import all_sum_grad
 
 # Fused BN(+SiLU) training route: the module-level override wins when set
 # (tests and tools pin it), else HGR_TPU_FUSED_BN ('on' | 'off' |
@@ -152,13 +161,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
         self.eps = eps
+        self.sync_group = None  # set by sync_batch_stats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            if self.sync_group is None:
+                mean = x.mean(dim=axes)
+                mean_sq = (x * x).mean(dim=axes)
+            else:  # over the data group; every rank holds as many rows
+                count = x[..., 0].numel() * dist.get_world_size(
+                    self.sync_group)
+                sums = all_sum_grad(torch.stack(
+                    [x.sum(dim=axes), (x * x).sum(dim=axes)]),
+                    self.sync_group)
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             self.update_stats(mean, var)
         else:
             mean, var = self.mean, self.var
@@ -171,6 +190,15 @@ class BatchNorm(nn.Module):
         m = BN_MOMENTUM
         self.mean.mul_(m).add_((1.0 - m) * mean.detach())
         self.var.mul_(m).add_((1.0 - m) * var.detach())
+
+
+def sync_batch_stats(module: nn.Module, group) -> nn.Module:
+    """Take every BatchNorm's train-mode statistics over the ranks of
+    ``group`` (None: this rank's batch alone)."""
+    for mod in module.modules():
+        if isinstance(mod, BatchNorm):
+            mod.sync_group = group
+    return module
 
 
 class ConvBnAct(nn.Module):
@@ -205,7 +233,7 @@ class ConvBnAct(nn.Module):
         if self.training and fused_bn():
             bn = self.bn
             y, mean, var = bn_act(self.conv(x), bn.weight, bn.bias, bn.eps,
-                                  self.use_act)
+                                  self.use_act, group=bn.sync_group)
             bn.update_stats(mean, var)
             return y.to(self.dtype)
         y = self.bn(self.conv(x))

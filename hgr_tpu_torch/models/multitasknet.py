@@ -10,7 +10,9 @@ Forward: images (B, H, W, 3) float ->
 statistics and updates the BatchNorm running statistics once per
 forward; ``.eval()`` uses the running statistics. With
 ``need_attnmap=False`` every attention layer takes the fused core, whose
-forward and backward are the CUDA kernels on the card.
+forward and backward are the CUDA kernels on the card;
+``fused_attention='split'`` feeds them q, k and v as three operands (the
+tensor-parallel form, equal bit for bit to the packed one on one rank).
 """
 
 from __future__ import annotations
@@ -58,11 +60,9 @@ class MultiTaskNet(nn.Module):
             raise _unported("remat", remat, "A13")
         if stride2_impl != "plain":
             raise _unported("stride2_impl", stride2_impl, "A13")
-        if fused_attention == "split":
-            raise _unported("fused_attention", fused_attention, "A12/B5")
-        if fused_attention not in (True, False):
+        if fused_attention not in (True, False, "split"):
             raise ValueError(
-                f"fused_attention must be True or False, got "
+                f"fused_attention must be True, False or 'split', got "
                 f"{fused_attention!r}")
         self.image_size = tuple(image_size)
         self.num_joints, self.num_classes = num_joints, num_classes
@@ -72,7 +72,7 @@ class MultiTaskNet(nn.Module):
         self.decoder = ViT(num_classes, num_joints,
                            (image_size[0] // 16, image_size[1] // 16), dim,
                            depth, heads, head_dim, mlp_dim, dtype=dtype,
-                           fused=bool(fused_attention))
+                           fused=fused_attention)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         torch_init_(self, generator)

@@ -9,8 +9,15 @@ compute dtype and returns float32.
 
 Attention routes by need (vit.py:105-135): without the map, every layer
 takes ``fused_attention_qkv`` (the hand-written CUDA kernels on the card,
-forward and backward);
+forward and backward), or with ``fused='split'`` ``fused_attention_split``
+on the three chunk views of ``to_qkv``'s output (the same kernel bodies);
 with the map, the last layer runs the unfused chain that materializes it.
+
+Tensor parallelism (``parallel/tp.py`` cuts the shards): an ``Attention``
+or ``FeedForward`` whose ``tp_group`` is set holds this rank's shard of
+to_qkv/fc1 (column-parallel) and to_out/fc2 (row-parallel) and runs
+Megatron's pair of collectives (``parallel/collectives.py``) around them;
+fc2's bias is added once, after the reduce.
 """
 
 from __future__ import annotations
@@ -25,11 +32,13 @@ from hgr_tpu_torch.models.layers import Conv, Dense
 from hgr_tpu_torch.ops.attention import (
     attention_core,
     fused_attention_qkv,
+    fused_attention_split,
     merge_heads,
     split_heads,
 )
 from hgr_tpu_torch.ops.posemb import pos_emb_sincos_2d
 from hgr_tpu_torch.ops.resize import upsample_bilinear_align_corners
+from hgr_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 
 
 class FeedForward(nn.Module):
@@ -41,20 +50,31 @@ class FeedForward(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=1e-5)
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype)
+        self.tp_group = None  # set by parallel.tp.make_tensor_parallel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(self.norm(x.float()))))
+        h = self.norm(x.float())
+        if self.tp_group is None:
+            return self.fc2(F.gelu(self.fc1(h)))
+        h = F.gelu(self.fc1(copy_to_model(h, self.tp_group)))
+        fc2 = self.fc2
+        part = F.linear(h.to(fc2.dtype), fc2.weight.to(fc2.dtype))
+        return reduce_from_model(part, self.tp_group,
+                                 bias=fc2.bias.to(fc2.dtype))
 
 
 class Attention(nn.Module):
     """Pre-LN multi-head attention (reference transformer.py:45-77).
 
-    ``fused``: True routes the no-map case through ``fused_attention_qkv``;
-    False always takes the unfused chain.
+    ``fused``: True routes the no-map case through ``fused_attention_qkv``,
+    'split' through ``fused_attention_split`` (the tensor-parallel form,
+    vit.py:118-126); False always takes the unfused chain. Under tensor
+    parallelism ``heads`` is this rank's head count and the map is not
+    available (ROADMAP A14).
     """
 
     def __init__(self, dim: int, heads: int, head_dim: int,
-                 dtype: torch.dtype = torch.float32, fused: bool = True):
+                 dtype: torch.dtype = torch.float32, fused=True):
         super().__init__()
         inner = heads * head_dim
         self.norm = nn.LayerNorm(dim, eps=1e-5)
@@ -63,10 +83,18 @@ class Attention(nn.Module):
         self.heads, self.head_dim = heads, head_dim
         self.scale = head_dim**-0.5
         self.fused = fused
+        self.tp_group = None  # set by parallel.tp.make_tensor_parallel
 
     def forward(self, x: torch.Tensor, need_map: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        qkv = self.to_qkv(self.norm(x.float()))
+        h = self.norm(x.float())
+        if self.tp_group is not None:
+            if need_map:
+                raise NotImplementedError(
+                    "the attention map under tensor parallelism (each rank "
+                    "holds a head group) is not ported (ROADMAP A14)")
+            h = copy_to_model(h, self.tp_group)
+        qkv = self.to_qkv(h)
         attn = None
         if need_map or not self.fused:
             q, k, v = split_heads(qkv, self.heads, self.head_dim)
@@ -74,10 +102,18 @@ class Attention(nn.Module):
             if not need_map:
                 attn = None
             out = merge_heads(out)
+        elif self.fused == "split":
+            q, k, v = qkv.chunk(3, dim=-1)
+            out = fused_attention_split(q, k, v, self.heads, self.head_dim,
+                                        self.scale)
         else:
             out = fused_attention_qkv(qkv.contiguous(), self.heads,
                                       self.head_dim, self.scale)
-        return self.to_out(out), attn
+        if self.tp_group is None:
+            return self.to_out(out), attn
+        w = self.to_out.weight.to(self.to_out.dtype)
+        part = F.linear(out.to(self.to_out.dtype), w)
+        return reduce_from_model(part, self.tp_group), attn
 
 
 class Transformer(nn.Module):
@@ -86,7 +122,7 @@ class Transformer(nn.Module):
 
     def __init__(self, dim: int, depth: int, heads: int, head_dim: int,
                  mlp_dim: int, dtype: torch.dtype = torch.float32,
-                 fused: bool = True):
+                 fused=True):
         super().__init__()
         for i in range(depth):
             # Flax names: layers_<i>_attn / layers_<i>_ff (vit.py:166-173)
@@ -119,7 +155,7 @@ class ViT(nn.Module):
     def __init__(self, num_classes: int, num_joints: int,
                  feature_size: Tuple[int, int], dim: int, depth: int,
                  heads: int, head_dim: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.float32, fused: bool = True):
+                 dtype: torch.dtype = torch.float32, fused=True):
         super().__init__()
         h, w = feature_size
         self.feature_size = (h, w)

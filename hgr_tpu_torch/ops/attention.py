@@ -11,6 +11,19 @@ hgr_tpu/ops/attention_pallas.py).
   ``fused_attention_qkv.launches`` and ``fused_attention_qkv_bwd.launches``.
   On CPU tensors they run ``attention_qkv_reference`` and
   ``attention_qkv_bwd_reference``, the kernels' plain versions.
+* ``fused_attention_split`` — the same core on q, k and v as three
+  (B, N, H·D) operands (``fused_attention_split`` :343, the form a
+  tensor-parallel mesh shards by heads), saving q, k and v. Its CUDA
+  entry points ``attention_split_fwd`` / ``attention_split_bwd`` are the
+  packed kernels' own bodies (ports of ``_split_fwd_impl`` :294 and
+  ``_split_bwd_impl`` :302) reading each operand through its own pointer
+  and strides: a ``chunk(3, -1)`` view of a packed tensor or contiguous
+  tensors, with no concatenation. Counted in
+  ``fused_attention_split.launches`` and
+  ``fused_attention_split_bwd.launches``; on CPU tensors the plain
+  versions ``attention_split_reference`` and
+  ``attention_split_bwd_reference`` run, which the packed plain versions
+  call on the three thirds.
 * ``attention_core`` — the unfused chain on heads-first tensors that can
   also return the post-softmax map (``_xla_attention_core`` :139); the
   model's need-map path and ``fused_attention=False`` use it.
@@ -66,50 +79,74 @@ def _acc_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.promote_types(t.dtype, torch.float32)
 
 
+def _heads_first(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    b, n, _ = t.shape
+    return t.reshape(b, n, heads, head_dim).permute(0, 2, 1, 3)
+
+
+def attention_split_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, heads: int, head_dim: int,
+                              scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernels: q, k, v (B, N, H·D) -> (B, N,
+    H·D).
+
+    Same arithmetic as the kernels: q·kᵀ in f32, then ``scale``; f32
+    softmax; P rounded to q's dtype; P·v accumulated in f32 and rounded to
+    q's dtype. (float64 inputs compute in float64.)
+    """
+    acc = _acc_dtype(q)
+    qh, kh, vh = (_heads_first(t, heads, head_dim).to(acc) for t in (q, k, v))
+    s = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1).to(q.dtype).to(acc)
+    out = torch.matmul(p, vh).to(q.dtype)
+    return merge_heads(out)
+
+
 def attention_qkv_reference(qkv: torch.Tensor, heads: int, head_dim: int,
                             scale: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (B, N, 3·H·D) -> (B, N, H·D).
+    """Plain version on the packed (B, N, 3·H·D) projection: the split one
+    on its three thirds."""
+    return attention_split_reference(*qkv.chunk(3, dim=-1), heads, head_dim,
+                                     scale)
 
-    Same arithmetic as the kernel: q·kᵀ in f32, then ``scale``; f32
-    softmax; P rounded to qkv's dtype; P·v accumulated in f32 and rounded
-    to qkv's dtype. (float64 inputs compute in float64.)
+
+def attention_split_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, g: torch.Tensor,
+                                  heads: int, head_dim: int, scale: float
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Plain PyTorch version of the backward kernels (the math of
+    ``_xla_attention_qkv_bwd``, attention_pallas.py:252): q, k, v and the
+    output cotangent g, each (B, N, H·D) -> (dq, dk, dv) in q's dtype.
+
+    P is recomputed in f32; dA = g·vᵀ; dS = P ⊙ (dA − rowsum(dA ⊙ P)) ·
+    scale; dq = dS·k and dk = dSᵀ·q from the f32 P; dv = P̂ᵀ·g with P̂ = P
+    rounded to q's dtype, as the forward multiplied v by it.
     """
-    acc = _acc_dtype(qkv)
-    q, k, v = (t.to(acc) for t in split_heads(qkv, heads, head_dim))
-    s = torch.matmul(q, k.transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1).to(qkv.dtype).to(acc)
-    out = torch.matmul(p, v).to(qkv.dtype)
-    return merge_heads(out)
+    acc = _acc_dtype(q)
+    qh, kh, vh, g_f = (_heads_first(t, heads, head_dim).to(acc)
+                       for t in (q, k, v, g))
+    attn = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale,
+                         dim=-1)
+    d_attn = torch.matmul(g_f, vh.transpose(-1, -2))
+    d_scores = attn * (d_attn - torch.sum(d_attn * attn, dim=-1,
+                                          keepdim=True))
+    d_scores = d_scores * scale
+    dq = torch.matmul(d_scores, kh)
+    dk = torch.matmul(d_scores.transpose(-1, -2), qh)
+    attn_q = attn.to(q.dtype).to(acc)
+    dv = torch.matmul(attn_q.transpose(-1, -2), g_f)
+    return tuple(merge_heads(t).to(q.dtype) for t in (dq, dk, dv))
 
 
 def attention_qkv_bwd_reference(qkv: torch.Tensor, g: torch.Tensor,
                                 heads: int, head_dim: int,
                                 scale: float) -> torch.Tensor:
-    """Plain PyTorch version of the backward kernel (the math of
-    ``_xla_attention_qkv_bwd``, attention_pallas.py:252): qkv (B, N, 3·H·D)
-    and the output cotangent g (B, N, H·D) -> the packed gradient
-    (B, N, 3·H·D) in qkv's dtype.
-
-    P is recomputed in f32; dA = g·vᵀ; dS = P ⊙ (dA − rowsum(dA ⊙ P)) ·
-    scale; dq = dS·k and dk = dSᵀ·q from the f32 P; dv = P̂ᵀ·g with P̂ = P
-    rounded to qkv's dtype, as the forward multiplied v by it.
-    """
-    acc = _acc_dtype(qkv)
-    q, k, v = (t.to(acc) for t in split_heads(qkv, heads, head_dim))
-    b, n, _ = qkv.shape
-    g_f = g.reshape(b, n, heads, head_dim).permute(0, 2, 1, 3).to(acc)
-    attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale,
-                         dim=-1)
-    d_attn = torch.matmul(g_f, v.transpose(-1, -2))
-    d_scores = attn * (d_attn - torch.sum(d_attn * attn, dim=-1,
-                                          keepdim=True))
-    d_scores = d_scores * scale
-    dq = torch.matmul(d_scores, k)
-    dk = torch.matmul(d_scores.transpose(-1, -2), q)
-    attn_q = attn.to(qkv.dtype).to(acc)
-    dv = torch.matmul(attn_q.transpose(-1, -2), g_f)
-    return torch.cat([merge_heads(t).to(qkv.dtype) for t in (dq, dk, dv)],
-                     dim=-1)
+    """Plain version of the packed backward: qkv (B, N, 3·H·D) and g (B, N,
+    H·D) -> the packed gradient (B, N, 3·H·D), the split one on the three
+    thirds."""
+    return torch.cat(attention_split_bwd_reference(
+        *qkv.chunk(3, dim=-1), g, heads, head_dim, scale), dim=-1)
 
 
 def _declare(lib: ctypes.CDLL, name: str, argtypes) -> ctypes.CDLL:
@@ -127,10 +164,15 @@ def _kernel() -> ctypes.CDLL:
     """The built forward kernel library with its C signatures declared."""
     from hgr_tpu_torch.utils.cuda_build import load_kernel
 
-    return _declare(load_kernel("attention_qkv_fwd").lib, "attention_qkv_fwd",
-                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                     ctypes.c_int, ctypes.c_void_p])
+    lib = _declare(load_kernel("attention_qkv_fwd").lib, "attention_qkv_fwd",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_int, ctypes.c_void_p])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.attention_split_fwd.argtypes = [p, p, p, p, p, i, i, i, i,
+                                        ctypes.c_float, i, p]
+    lib.attention_split_fwd.restype = i
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,10 +180,15 @@ def _bwd_kernel() -> ctypes.CDLL:
     """The built backward kernel library with its C signatures declared."""
     from hgr_tpu_torch.utils.cuda_build import load_kernel
 
-    return _declare(load_kernel("attention_qkv_bwd").lib, "attention_qkv_bwd",
-                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib = _declare(load_kernel("attention_qkv_bwd").lib, "attention_qkv_bwd",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.attention_split_bwd.argtypes = [p, p, i, i, i, i, ctypes.c_float, i,
+                                        p]
+    lib.attention_split_bwd.restype = i
+    return lib
 
 
 def _check(qkv: torch.Tensor, heads: int, head_dim: int) -> None:
@@ -217,6 +264,85 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     return out
 
 
+def _check_split(ts, heads: int, head_dim: int) -> Tuple[int, int]:
+    """(B, N) of the (B, N, H·D) operands ``ts``, which the split kernels
+    read by their image and row strides (unit feature stride)."""
+    first = ts[0]
+    if first.dim() != 3 or first.shape[-1] != heads * head_dim:
+        raise ValueError(f"operands must be (B, N, {heads * head_dim}), got "
+                         f"{tuple(first.shape)}")
+    for t in ts:
+        if t.shape != first.shape or t.dtype != first.dtype \
+                or t.device != first.device:
+            raise ValueError("q, k, v (and g) must share shape, dtype and "
+                             f"device: {tuple(t.shape)} {t.dtype} {t.device}"
+                             f" vs {tuple(first.shape)} {first.dtype} "
+                             f"{first.device}")
+        if t.stride(2) != 1:
+            raise ValueError("attention split kernels need a unit feature "
+                             f"stride, got strides {t.stride()}")
+    if first.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"attention kernel takes float32 or bfloat16, got {first.dtype}")
+    if head_dim != _KERNEL_HEAD_DIM:
+        raise ValueError(f"attention kernel supports head_dim "
+                         f"{_KERNEL_HEAD_DIM}, got {head_dim}")
+    b, n, _ = first.shape
+    if not 1 <= b <= 65535 or not 1 <= heads <= 65535 or n < 1:
+        raise ValueError(f"batch {b} / heads {heads} / length {n} outside "
+                         "the kernel's range")
+    return b, n
+
+
+def _strides(ts) -> ctypes.Array:
+    vals = [s for t in ts for s in (t.stride(0), t.stride(1))]
+    return (ctypes.c_int64 * len(vals))(*vals)
+
+
+def _launch_split(q, k, v, heads: int, head_dim: int,
+                  scale: float) -> torch.Tensor:
+    b, n = _check_split((q, k, v), heads, head_dim)
+    lib = _kernel()
+    if lib.attention_qkv_fwd_smem_bytes(n) > _SMEM_LIMIT:
+        raise ValueError(
+            f"sequence length {n} needs more shared memory than a block has")
+    out = torch.empty((b, n, heads * head_dim), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attention_split_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                     _strides((q, k, v)), out.data_ptr(), b, n,
+                                     heads, head_dim, float(scale),
+                                     _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        msg = lib.attention_qkv_fwd_error_string(rc).decode()
+        raise RuntimeError(f"attention_split_fwd launch failed: {msg} ({rc})")
+    fused_attention_split.launches += 1
+    return out
+
+
+def _launch_split_bwd(q, k, v, g, heads: int, head_dim: int, scale: float
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, n = _check_split((q, k, v, g), heads, head_dim)
+    lib = _bwd_kernel()
+    if lib.attention_qkv_bwd_smem_bytes(n) > _SMEM_LIMIT:
+        raise ValueError(
+            f"sequence length {n} needs more shared memory than a block has")
+    outs = tuple(torch.empty((b, n, heads * head_dim), dtype=q.dtype,
+                             device=q.device) for _ in range(3))
+    ts = (q, k, v, g) + outs
+    ptrs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in ts))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.attention_split_bwd(ptrs, _strides(ts), b, n, heads,
+                                     head_dim, float(scale),
+                                     _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        msg = lib.attention_qkv_bwd_error_string(rc).decode()
+        raise RuntimeError(f"attention_split_bwd launch failed: {msg} ({rc})")
+    fused_attention_split_bwd.launches += 1
+    return outs
+
+
 def _device_type(t: torch.Tensor, op: str) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{op} runs on cuda or cpu, got {t.device}")
@@ -267,5 +393,59 @@ def fused_attention_qkv(qkv: torch.Tensor, heads: int, head_dim: int,
     return _FusedAttentionQKV.apply(qkv, heads, head_dim, scale)
 
 
+def fused_attention_split_bwd(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, g: torch.Tensor, heads: int,
+                              head_dim: int, scale: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv), each (B, N, H·D), of ``fused_attention_split`` at q,
+    k, v for the output cotangent ``g``.
+
+    CUDA tensors launch the backward kernel (or raise: there is no
+    fallback); CPU tensors run ``attention_split_bwd_reference``.
+    """
+    if _device_type(q, "fused_attention_split_bwd") == "cpu":
+        return attention_split_bwd_reference(q, k, v, g, heads, head_dim,
+                                             scale)
+    return _launch_split_bwd(q, k, v, g, heads, head_dim, scale)
+
+
+class _FusedAttentionSplit(torch.autograd.Function):
+    """The split core with its recompute backward: q, k and v are saved
+    (as ``_split_vjp_fwd`` does, attention_pallas.py:369-371), not the
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, head_dim, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.cfg = (heads, head_dim, scale)
+        if q.device.type == "cpu":
+            return attention_split_reference(q, k, v, heads, head_dim, scale)
+        return _launch_split(q, k, v, heads, head_dim, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = fused_attention_split_bwd(q, k, v, g.contiguous(),
+                                               *ctx.cfg)
+        return dq, dk, dv, None, None, None
+
+
+def fused_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          heads: int, head_dim: int,
+                          scale: float) -> torch.Tensor:
+    """out (B, N, H·D) = multi-head softmax(q kᵀ · scale) v on three (B, N,
+    H·D) operands (views with a unit feature stride, e.g. the chunks of a
+    packed projection); differentiable in q, k and v.
+
+    A CUDA tensor launches the kernels (or raises: there is no fallback);
+    a CPU tensor runs the plain versions.
+    """
+    _device_type(q, "fused_attention_split")
+    return _FusedAttentionSplit.apply(q, k, v, heads, head_dim, scale)
+
+
 fused_attention_qkv.launches = 0  # forward kernel launches, by _launch
 fused_attention_qkv_bwd.launches = 0  # backward launches, by _launch_bwd
+fused_attention_split.launches = 0  # by _launch_split
+fused_attention_split_bwd.launches = 0  # by _launch_split_bwd

@@ -20,6 +20,15 @@ of hgr_tpu/ops/bn_act_pallas.py).
 
 The per-channel vectors (``r = rsqrt(var + eps)``, T1/M, T2/M) are
 computed by the wrapper with the same torch ops on either device.
+
+Under data parallelism (``group``: the mesh's data group, every rank
+with as many rows) the statistics are the global batch's:
+the forward sums y and then (y − mean)² over the ranks, and the backward
+sums T1 and T2 over the ranks between the reduce kernel and the
+elementwise kernel, with M the global row count. dgamma and dbeta stay
+each rank's own T2 and T1: the step's gradient all-reduce adds them.
+(The JAX package leaves its Pallas pair under a mesh only for want of a
+partitioning rule, bn_act_pallas.py:192-208; the function is the same.)
 """
 
 from __future__ import annotations
@@ -29,6 +38,9 @@ import functools
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
+
+from hgr_tpu_torch.parallel.collectives import all_sum
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,14 +52,20 @@ def silu_grads(z: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_chain(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              eps: float, act: bool = True
+              eps: float, act: bool = True, group=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[silu](batchnorm(y)) over the last (channel) axis with batch
-    statistics: (out in y's dtype, mean f32, biased var f32)."""
+    statistics (over ``group`` when given): (out in y's dtype, mean f32,
+    biased var f32)."""
     yf = y.float()
     axes = tuple(range(y.dim() - 1))
-    mean = yf.mean(dim=axes)
-    var = torch.square(yf - mean).mean(dim=axes)
+    if group is None:
+        mean = yf.mean(dim=axes)
+        var = torch.square(yf - mean).mean(dim=axes)
+    else:
+        count = yf[..., 0].numel() * dist.get_world_size(group)
+        mean = all_sum(yf.sum(dim=axes), group) / count
+        var = all_sum(torch.square(yf - mean).sum(dim=axes), group) / count
     r = torch.rsqrt(var + eps)
     z = (yf - mean) * r * gamma + beta
     out = z * torch.sigmoid(z) if act else z
@@ -197,16 +215,21 @@ bn_act_reduce.launches = 0  # reduce kernel launches, counted above
 bn_act_elem.launches = 0  # elementwise kernel launches, counted above
 
 
-def bn_act_bwd(y, gamma, beta, mean, var, g, eps, act=True):
+def bn_act_bwd(y, gamma, beta, mean, var, g, eps, act=True, group=None):
     """The two passes on (M, C) views of y and g: (dy in y's dtype, dgamma
-    = T2, dbeta = T1). Kernels on CUDA tensors, plain versions on CPU."""
+    = T2, dbeta = T1). Kernels on CUDA tensors, plain versions on CPU.
+    With ``group``, T1 and T2 are summed over it before the elementwise
+    pass and M is the global row count; dgamma and dbeta stay local."""
     c = y.shape[-1]
     y2 = y.reshape(-1, c)
     g2 = g.reshape(-1, c)
     r = torch.rsqrt(var + eps)
     t1, t2 = bn_act_reduce(y2, g2, mean, r, gamma, beta, act)
-    m = float(y2.shape[0])
-    dy = bn_act_elem(y2, g2, mean, r, gamma, beta, t1 / m, t2 / m, act)
+    m = float(y2.shape[0] * (1 if group is None
+                             else dist.get_world_size(group)))
+    s1, s2 = (t1, t2) if group is None else all_sum(torch.stack([t1, t2]),
+                                                    group)
+    dy = bn_act_elem(y2, g2, mean, r, gamma, beta, s1 / m, s2 / m, act)
     return dy.reshape(y.shape), t2, t1
 
 
@@ -215,10 +238,10 @@ class _BNAct(torch.autograd.Function):
     no f32 intermediate is kept); backward: ``bn_act_bwd``."""
 
     @staticmethod
-    def forward(ctx, y, gamma, beta, eps, act):
-        out, mean, var = fwd_chain(y, gamma, beta, eps, act)
+    def forward(ctx, y, gamma, beta, eps, act, group):
+        out, mean, var = fwd_chain(y, gamma, beta, eps, act, group)
         ctx.save_for_backward(y, gamma, beta, mean, var)
-        ctx.cfg = (eps, act)
+        ctx.cfg = (eps, act, group)
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -227,15 +250,16 @@ class _BNAct(torch.autograd.Function):
         y, gamma, beta, mean, var = ctx.saved_tensors
         dy, dgamma, dbeta = bn_act_bwd(y.contiguous(), gamma, beta, mean, var,
                                        g.contiguous(), *ctx.cfg)
-        return dy, dgamma, dbeta, None, None
+        return dy, dgamma, dbeta, None, None, None
 
 
 def bn_act(y: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-           eps: float = 1e-5, act: bool = True
+           eps: float = 1e-5, act: bool = True, group=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """[silu](batchnorm(y)) with batch statistics, training mode, over the
     last axis of ``y`` (NHWC): (out in y's dtype, batch mean, biased batch
-    var). Differentiable in y, gamma and beta; mean and var are not."""
+    var), the statistics over the ranks of ``group`` when given.
+    Differentiable in y, gamma and beta; mean and var are not."""
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bn_act runs on cuda or cpu, got {y.device}")
-    return _BNAct.apply(y, gamma, beta, float(eps), bool(act))
+    return _BNAct.apply(y, gamma, beta, float(eps), bool(act), group)

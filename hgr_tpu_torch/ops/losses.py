@@ -6,6 +6,10 @@ train.py:63-75).
 batch mean of the per-sample loss so that ``sample_mask`` can drop padded
 samples. ``classification_loss``: mean softmax cross-entropy.
 ``multitask_loss``: 0.001 · CE + joints MSE.
+
+``count`` replaces the number of valid samples in the denominator: a
+data-parallel rank passes the global count, so its loss is (local sum) /
+(global count) and the ranks' losses add up to the global batch's.
 """
 
 from __future__ import annotations
@@ -16,18 +20,23 @@ import torch
 
 
 def _masked_mean(per_sample: torch.Tensor,
-                 sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Batch mean over samples with mask > 0 (plain mean without mask)."""
-    if sample_mask is None:
+                 sample_mask: Optional[torch.Tensor],
+                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batch mean over samples with mask > 0 (plain mean without mask);
+    ``count`` overrides the number of samples it divides by."""
+    if sample_mask is None and count is None:
         return per_sample.mean()
-    m = sample_mask.float()
-    return torch.sum(per_sample * m) / torch.clamp(torch.sum(m), min=1.0)
+    total = torch.sum(per_sample if sample_mask is None
+                      else per_sample * sample_mask.float())
+    if count is None:
+        count = torch.sum(sample_mask.float())
+    return total / torch.clamp(count, min=1.0)
 
 
 def joints_mse_loss(output: torch.Tensor, target: torch.Tensor,
                     target_weight: Optional[torch.Tensor] = None,
-                    sample_mask: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    sample_mask: Optional[torch.Tensor] = None,
+                    count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, J, H, W) heatmaps, (B, J) or (B, J, 1) visibility weights ->
     scalar float32 loss."""
     output = output.float()
@@ -41,29 +50,31 @@ def joints_mse_loss(output: torch.Tensor, target: torch.Tensor,
         gt = gt * w
     per_sample = 0.5 * torch.mean(torch.mean((pred - gt) ** 2, dim=-1),
                                   dim=-1)
-    return _masked_mean(per_sample, sample_mask)
+    return _masked_mean(per_sample, sample_mask, count)
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
-                        sample_mask: Optional[torch.Tensor] = None
+                        sample_mask: Optional[torch.Tensor] = None,
+                        count: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Mean cross-entropy of (B, C) logits against (B,) integer labels."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    return _masked_mean(nll, sample_mask)
+    return _masked_mean(nll, sample_mask, count)
 
 
 def multitask_loss(logits: torch.Tensor, heatmaps: torch.Tensor,
                    labels: torch.Tensor, target: torch.Tensor,
                    target_weight: Optional[torch.Tensor],
                    class_loss_weight: float = 0.001,
-                   sample_mask: Optional[torch.Tensor] = None
+                   sample_mask: Optional[torch.Tensor] = None,
+                   count: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """total = class_loss_weight · CE + joints MSE, with the parts."""
-    class_loss = classification_loss(logits, labels,
-                                      sample_mask) * class_loss_weight
+    class_loss = classification_loss(logits, labels, sample_mask,
+                                      count) * class_loss_weight
     joints_loss = joints_mse_loss(heatmaps, target, target_weight,
-                                  sample_mask)
+                                  sample_mask, count)
     total = class_loss + joints_loss
     return total, {"total_loss": total, "class_loss": class_loss,
                    "joints_loss": joints_loss}

@@ -6,7 +6,7 @@ caller moves scalars to the host.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -14,7 +14,8 @@ from hgr_tpu_torch.ops.heatmap import get_max_preds
 
 
 def pck_accuracy(output: torch.Tensor, target: torch.Tensor,
-                 thr: float = 0.5, sample_mask: Optional[torch.Tensor] = None
+                 thr: float = 0.5, sample_mask: Optional[torch.Tensor] = None,
+                 reduce: Optional[Callable] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """PCK@thr of (B, J, H, W) heatmaps (reference libs/metrics.py:31-62).
@@ -23,7 +24,9 @@ def pck_accuracy(output: torch.Tensor, target: torch.Tensor,
     to (x, y), the reference's order; a joint counts where its target
     peak has both coords > 1. Returns acc (J + 1,) (acc[0] the average,
     -1 for joints with no valid sample), avg_acc, cnt (int32: joints with
-    a valid sample) and the predicted peaks (B, J, 2).
+    a valid sample) and the predicted peaks (B, J, 2). ``reduce`` maps the
+    (2, J) per-joint counts (valid, below the threshold) to their sum over
+    data-parallel ranks, so the accuracy is the global batch's.
     """
     output = output.float()
     target = target.float()
@@ -39,6 +42,8 @@ def pck_accuracy(output: torch.Tensor, target: torch.Tensor,
     valid_f = valid.float()
     num_valid = valid_f.sum(dim=0)
     below = ((dists < thr) & valid).float().sum(dim=0)
+    if reduce is not None:
+        num_valid, below = reduce(torch.stack([num_valid, below]))
     per_joint = torch.where(num_valid > 0,
                             below / torch.clamp(num_valid, min=1.0),
                             torch.full_like(num_valid, -1.0))

@@ -1,0 +1,99 @@
+"""Sums over a process group, as the layers and ops call them: the
+collectives XLA inserts for the JAX package's mesh, written out.
+
+- ``all_sum`` (no gradient) and ``all_sum_grad`` (``all_reduce`` forward
+  and backward) sum over any group; the data-parallel BatchNorm
+  statistics and the step's metrics use them over the data group.
+- Megatron's pair of ``autograd.Function``s, for the tensor-parallel ViT
+  decoder (``parallel/tp.py``):
+
+  - ``copy_to_model``: identity forward, ``all_reduce`` of the cotangent
+    over the model group backward, before a column-parallel layer
+    (to_qkv, fc1): each rank's shard adds its part of the input's
+    gradient;
+  - ``reduce_from_model``: ``all_reduce`` of the partial products
+    forward, identity backward, after a row-parallel layer (to_out, fc2).
+    fc2's bias is added once, after the reduce.
+
+Rounding of the row-parallel partial sums in bf16: each rank's matmul
+rounds its partial product to bf16, the partials are widened to f32,
+summed in f32 and (after fc2's bias) rounded to bf16 once. Reducing in
+bf16 would add a rounding per summand, in an order gloo chooses; the f32
+sum keeps the result one rounding of the partials' exact sum, closest to
+the single-rank layer, which rounds its full f32 product once.
+
+A group of None is a single rank: every function is then the identity.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+
+def all_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group`` (a new tensor; ``t`` itself when
+    ``group`` is None); carries no gradient."""
+    if group is None:
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _AllSumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_sum(g.contiguous(), ctx.group), None
+
+
+def all_sum_grad(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, differentiable: the cotangent of
+    every rank's copy is summed back (the sum's transpose)."""
+    if group is None:
+        return t
+    return _AllSumGrad.apply(t, group)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_sum(g.contiguous(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity; the backward sums the cotangent over the model group."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(part: torch.Tensor, group,
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sum over the model group of each rank's partial product (in
+    f32), plus ``bias``, in the partial's dtype; the backward passes the
+    cotangent through."""
+    out = _ReduceFromModel.apply(part.float(), group)
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(part.dtype)

@@ -10,6 +10,15 @@ step updates the model and the optimizer state in place, so the copy
 must be taken before the next step), then write on a background thread
 to a temporary file renamed into place. Reading the JAX package's orbax
 checkpoints is not ported (ROADMAP A7).
+
+One file format for every mesh. With a ``mesh``, a save first gathers the
+full state (``parallel/tp.py:gather_state``, a collective over the model
+group, on the calling thread of every rank) and only the coordinator
+writes it; a restore waits for the coordinator's write (a barrier), then
+every rank reads the full file and cuts its own shard. So a checkpoint
+of a 2x2 run restores on one rank, and back. The best metric seeded from
+disk and the answer of ``has`` are the coordinator's on every rank (JAX
+checkpoint.py:49-60, loop.py:398).
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ from typing import Any, Optional
 
 import torch
 
+from hgr_tpu_torch.parallel import distributed
+from hgr_tpu_torch.parallel.tp import gather_state, shard_state
 from hgr_tpu_torch.train.state import TrainState
 
 
@@ -34,11 +45,28 @@ def _to_host(obj: Any) -> Any:
     return obj
 
 
-class CheckpointManager:
-    """``best.pt`` and ``last.pt`` under ``directory``."""
+def state_payload(state: TrainState) -> dict:
+    """The state as a checkpoint holds it (tensors by reference)."""
+    return {"step": int(state.step), "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict()}
 
-    def __init__(self, directory: str):
+
+def load_payload(state: TrainState, payload: dict) -> TrainState:
+    """Load a payload of the state's own shapes into it, in place (the
+    model and the optimizer move the tensors to their device)."""
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    return state
+
+
+class CheckpointManager:
+    """``best.pt`` and ``last.pt`` under ``directory``; ``mesh``: this
+    rank's place on a mesh (the module docstring)."""
+
+    def __init__(self, directory: str, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
         self._writer: Optional[threading.Thread] = None
         self._error: list = []
@@ -53,6 +81,11 @@ class CheckpointManager:
                     self._best_metric = float(f.read().strip())
             except (OSError, ValueError):
                 pass
+        if mesh is not None:
+            seeded = distributed.coordinator_value(
+                float("nan") if self._best_metric is None
+                else self._best_metric)
+            self._best_metric = None if seeded != seeded else seeded
 
     def path(self, name: str) -> str:
         return os.path.join(self.directory, f"{name}.pt")
@@ -62,11 +95,12 @@ class CheckpointManager:
 
     def _save(self, name: str, state: TrainState,
               metric: Optional[float] = None) -> None:
-        payload = {
-            "step": int(state.step),
-            "model": _to_host(state.model.state_dict()),
-            "optimizer": _to_host(state.optimizer.state_dict()),
-        }
+        payload = state_payload(state)
+        if self.mesh is not None:
+            payload = gather_state(payload, self.mesh)
+            if not distributed.is_coordinator():
+                return
+        payload = _to_host(payload)
         self.wait()
         path = self.path(name)
 
@@ -102,8 +136,12 @@ class CheckpointManager:
 
     def maybe_save_best(self, state: TrainState, monitored: float) -> bool:
         """Save as best when ``monitored`` improves (min mode); whether a
-        save happened."""
-        if self._best_metric is not None and monitored >= self._best_metric:
+        save happened (the coordinator's decision on every rank)."""
+        better = self._best_metric is None or monitored < self._best_metric
+        if self.mesh is not None:
+            better = distributed.coordinator_decision(better)
+            monitored = distributed.coordinator_value(monitored)
+        if not better:
             return False
         self._best_metric = float(monitored)
         self._save("best", state, metric=self._best_metric)
@@ -111,17 +149,22 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, name: str = "last") -> TrainState:
         """Load checkpoint ``name`` into ``state`` (model, optimizer, update
-        count), in place; returns it."""
+        count), in place; returns it. With a mesh every rank reads the full
+        file after the coordinator's write and loads its own shard."""
         self.wait()
-        # the model and the optimizer move the tensors to their device
-        payload = torch.load(self.path(name), map_location="cpu",
-                             weights_only=True)
-        state.model.load_state_dict(payload["model"], strict=True)
-        state.optimizer.load_state_dict(payload["optimizer"])
-        state.step = int(payload["step"])
-        return state
+        if self.mesh is None:
+            return load_payload(state, self._read(name))
+        distributed.barrier()
+        return load_payload(state, shard_state(self._read(name), self.mesh))
+
+    def _read(self, name: str) -> dict:
+        return torch.load(self.path(name), map_location="cpu",
+                          weights_only=True)
 
     def has(self, name: str) -> bool:
-        """Whether checkpoint ``name`` exists, counting an in-flight save."""
+        """Whether checkpoint ``name`` exists, counting an in-flight save
+        (the coordinator's answer on every rank)."""
         self.wait()
-        return self.has_file(name)
+        found = self.has_file(name)
+        return (distributed.coordinator_decision(found)
+                if self.mesh is not None else found)

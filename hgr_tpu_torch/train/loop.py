@@ -3,8 +3,11 @@ train.py:24-240): epochs over staged batches with device-side metrics,
 validation each epoch, best (min val total loss) and last checkpoints,
 then the test split from the best checkpoint with a confusion matrix.
 
-Single device. ``fit(mesh=...)`` waits for multi-GPU training (ROADMAP
-A12) and ``debug_images`` for the debug-image dumps (ROADMAP A14).
+``fit(mesh=...)`` runs one rank of a mesh (parallel/): every rank runs
+the same steps on its rows; the coordinator owns metrics.jsonl,
+TensorBoard, stdout, the checkpoint files and run_meta.json (JAX
+loop.py:198-281). ``debug_images`` waits for the debug-image dumps
+(ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -21,6 +24,11 @@ import torch
 from hgr_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from hgr_tpu_torch.models.layers import fused_bn
 from hgr_tpu_torch.ops.metrics import macro_f1_from_confusion
+from hgr_tpu_torch.parallel import distributed
+from hgr_tpu_torch.parallel.steps import (
+    make_parallel_eval_step,
+    make_parallel_train_step,
+)
 from hgr_tpu_torch.train.checkpoint import CheckpointManager
 from hgr_tpu_torch.train.logging import MetricLogger
 from hgr_tpu_torch.train.state import TrainState
@@ -238,42 +246,53 @@ def fit(
     state after the last epoch.
 
     The augment generator of epoch e is seeded with ``seed · 10007 + e``
-    on the state's device. Each epoch logs its train and val metrics,
-    ``epoch_time_s`` (train + val) and ``train_time_s``.
+    on the state's device (alike on every rank). Each epoch logs its train
+    and val metrics, ``epoch_time_s`` (train + val) and ``train_time_s``.
+    With ``mesh`` (this rank's ``parallel.mesh.Mesh``) the state must
+    already be this rank's (``parallel.steps.shard_state``) and the
+    loaders must yield its rows.
     """
-    if mesh is not None or tensor_parallel:
-        raise NotImplementedError(
-            "fit(mesh=...) is not ported yet: multi-GPU training waits for "
-            "ROADMAP A12")
     if debug_images:
         raise NotImplementedError(
             "fit(debug_images=True) is not ported yet (ROADMAP A14)")
+    if tensor_parallel and (mesh is None or not mesh.tensor_parallel):
+        raise ValueError("tensor_parallel needs a mesh with a model axis")
     num_classes = data_cfg.num_classes
+    main = distributed.is_coordinator()
     step_kw = dict(num_classes=num_classes, sigma=train_cfg.sigma,
                    image_size=model_cfg.image_size,
                    heatmap_size=model_cfg.heatmap_size)
     grad_demix = resolve_grad_demix(train_cfg, model_cfg)
-    train_step = make_train_step(
-        data_cfg.augments, class_loss_weight=train_cfg.class_loss_weight,
-        grad_accum=train_cfg.grad_accum, grad_demix=grad_demix, **step_kw)
-    eval_step = make_eval_step(**step_kw)
+    train_kw = dict(class_loss_weight=train_cfg.class_loss_weight,
+                    grad_accum=train_cfg.grad_accum, grad_demix=grad_demix,
+                    **step_kw)
+    if mesh is not None:
+        train_step = make_parallel_train_step(mesh, data_cfg.augments,
+                                              **train_kw)
+        eval_step = make_parallel_eval_step(mesh, **step_kw)
+    else:
+        train_step = make_train_step(data_cfg.augments, **train_kw)
+        eval_step = make_eval_step(**step_kw)
 
-    logger = MetricLogger(log_dir, run_name)
-    ckpt = CheckpointManager(os.path.join(save_path, "weight"))
-    # what the checkpoints are, beside them (infer/weights.py reads it)
-    with open(os.path.join(save_path, "weight", "run_meta.json"), "w") as f:
-        json.dump({
-            "backbone": model_cfg.backbone,
-            "image_size": list(model_cfg.image_size),
-            "num_joints": model_cfg.num_joints,
-            "num_classes": model_cfg.num_classes,
-            "compute_dtype": model_cfg.compute_dtype,
-            "decoder_dtype": model_cfg.decoder_dtype,
-            "early_dtype": model_cfg.early_dtype,
-            "early_units": model_cfg.early_units,
-            "grad_demix": grad_demix,
-            "fused_bn": fused_bn(),
-        }, f, indent=2)
+    logger = MetricLogger(log_dir, run_name) if main else None
+    ckpt = CheckpointManager(os.path.join(save_path, "weight"), mesh=mesh)
+    if main:  # what the checkpoints are (infer/weights.py reads it)
+        with open(os.path.join(save_path, "weight", "run_meta.json"),
+                  "w") as f:
+            json.dump({
+                "backbone": model_cfg.backbone,
+                "image_size": list(model_cfg.image_size),
+                "num_joints": model_cfg.num_joints,
+                "num_classes": model_cfg.num_classes,
+                "compute_dtype": model_cfg.compute_dtype,
+                "decoder_dtype": model_cfg.decoder_dtype,
+                "early_dtype": model_cfg.early_dtype,
+                "early_units": model_cfg.early_units,
+                "grad_demix": grad_demix,
+                "fused_bn": fused_bn(),
+                "mesh": dict(mesh.shape) if mesh is not None else None,
+                "backend": distributed.backend(),
+            }, f, indent=2)
     train_metrics = EpochMetrics(num_classes)
     val_metrics = EpochMetrics(num_classes)
 
@@ -284,40 +303,56 @@ def fit(
             train_cfg.seed * 10007 + epoch)
         state = train_epoch(state, train_step, train_loader, gen,
                             train_metrics, logger, lr_fn=lr_fn,
-                            profile_steps=profile_steps if epoch == 0 else 0,
+                            profile_steps=(profile_steps if epoch == 0
+                                           and main else 0),
                             profile_dir=os.path.join(save_path, "profile"))
         tr = train_metrics.snapshot()  # waits for the epoch's last step
         train_time = time.time() - t0
         val = eval_epoch(state, eval_step, val_loader, val_metrics)
-        logger.log(state.step, {
-            **{f"train/{k}": v for k, v in tr.items()},
-            **{f"val/{k}": v for k, v in val.items()},
-            "epoch": epoch,
-            **({"lr": float(lr_fn(state.step))} if lr_fn is not None
-               else {}),
-            "epoch_time_s": time.time() - t0,
-            "train_time_s": train_time,
-        })
+        if logger is not None:
+            logger.log(state.step, {
+                **{f"train/{k}": v for k, v in tr.items()},
+                **{f"val/{k}": v for k, v in val.items()},
+                "epoch": epoch,
+                **({"lr": float(lr_fn(state.step))} if lr_fn is not None
+                   else {}),
+                "epoch_time_s": time.time() - t0,
+                "train_time_s": train_time,
+            })
         ckpt.save_last(state)
         ckpt.maybe_save_best(state, val["total_loss"])
-        print(f"epoch {epoch}: train_loss={tr['total_loss']:.4f} "
-              f"val_loss={val['total_loss']:.4f} "
-              f"val_f1={val['epoch_f1']:.4f} "
-              f"val_pose_acc={val['pose_acc']:.4f}", flush=True)
+        if main:
+            print(f"epoch {epoch}: train_loss={tr['total_loss']:.4f} "
+                  f"val_loss={val['total_loss']:.4f} "
+                  f"val_f1={val['epoch_f1']:.4f} "
+                  f"val_pose_acc={val['pose_acc']:.4f}", flush=True)
 
     if test_loader is not None:
-        best_state = (ckpt.restore(copy.deepcopy(state), "best")
+        best_state = (ckpt.restore(copy_state(state, mesh), "best")
                       if ckpt.has("best") else state)
         test_metrics = EpochMetrics(num_classes)
         test = eval_epoch(best_state, eval_step, test_loader, test_metrics)
-        print("Test F1 Score: {:.4f}".format(test["epoch_f1"]), flush=True)
-        logger.log(state.step, {f"test/{k}": v for k, v in test.items()})
-        save_confusion(test_metrics.conf.cpu().numpy(),
-                       list(data_cfg.names.keys()),
-                       os.path.join(save_path, "confusion_matrix.png"))
+        if main:
+            print("Test F1 Score: {:.4f}".format(test["epoch_f1"]),
+                  flush=True)
+            logger.log(state.step, {f"test/{k}": v for k, v in test.items()})
+            save_confusion(test_metrics.conf.cpu().numpy(),
+                           list(data_cfg.names.keys()),
+                           os.path.join(save_path, "confusion_matrix.png"))
     ckpt.wait()  # commit the last save before returning
-    logger.close()
+    if logger is not None:
+        logger.close()
     return state
+
+
+def copy_state(state: TrainState, mesh=None) -> TrainState:
+    """A deep copy of ``state`` whose model shares the mesh's process
+    groups (which cannot be copied) with the original."""
+    memo = {}
+    if mesh is not None:
+        memo = {id(g): g for g in (mesh.data_group, mesh.model_group)
+                if g is not None}
+    return copy.deepcopy(state, memo)
 
 
 def save_confusion(conf: np.ndarray, labels, path: str) -> str:

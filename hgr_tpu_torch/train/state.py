@@ -76,6 +76,13 @@ class TrainState:
         return self
 
 
+def adamw(params, lr: float, weight_decay: float = 0.01
+          ) -> torch.optim.Optimizer:
+    """The recipe's AdamW over ``params``."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
 def create_train_state(model: nn.Module, lr: float = 1e-3,
                        milestones_steps: Sequence[int] = (),
                        lr_factor: float = 0.1, weight_decay: float = 0.01,
@@ -84,7 +91,5 @@ def create_train_state(model: nn.Module, lr: float = 1e-3,
     the CPU) and give it AdamW with the MultiStep schedule."""
     model = model.to(resolve_device(device))
     schedule = multistep_lr(lr, milestones_steps, lr_factor)
-    optimizer = torch.optim.AdamW(model.parameters(), lr=schedule(0),
-                                  betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=weight_decay)
+    optimizer = adamw(model.parameters(), schedule(0), weight_decay)
     return TrainState(model=model, optimizer=optimizer, schedule=schedule)

@@ -9,10 +9,17 @@ device. The staged batch is the loader's layout (hgr_tpu/data/
 loader.py:131-160): canvas (B, S, S, 3) uint8, orig_to_canvas (B, 2, 3),
 sizes_hw (B, 2), joints (B, J, 2), joints_vis (B, J), label (B,) and an
 optional valid mask (B,). Only scalar metrics need to leave the device.
+
+``data_ranks`` (``parallel/steps.py``) makes a step one rank's part of a
+data-parallel step on the global batch: the rank draws the global
+batch's augment and takes its rows, divides its loss sums by the global
+valid count, sums its metrics over the data group, and sums the
+gradients over it before the update.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -31,7 +38,6 @@ from hgr_tpu_torch.ops.losses import (
     multitask_loss,
 )
 from hgr_tpu_torch.ops.metrics import (
-    batch_macro_f1,
     confusion_update,
     macro_f1_from_confusion,
     pck_accuracy,
@@ -48,17 +54,33 @@ def _on(batch, device: torch.device) -> Batch:
         v, torch.Tensor) else v).to(device) for k, v in batch.items()}
 
 
+def _draw(generator, batch: Batch, aug_cfg: AugmentConfig, data_ranks):
+    """The augment draw of the batch, or with ``data_ranks`` this rank's
+    rows of the global batch's draw (every rank draws it whole from the
+    same generator; the draw is row-wise in the sizes, so the other rows'
+    sizes do not matter)."""
+    b = batch["canvas"].shape[0]
+    if data_ranks is None:
+        return draw_augment_params(generator, b, batch["sizes_hw"], aug_cfg)
+    lo = data_ranks.index * b
+    sizes = batch["sizes_hw"].new_zeros((b * data_ranks.size, 2))
+    sizes[lo:lo + b] = batch["sizes_hw"]
+    full = draw_augment_params(generator, b * data_ranks.size, sizes, aug_cfg)
+    return dataclasses.replace(full, **{
+        f.name: getattr(full, f.name)[lo:lo + b]
+        for f in dataclasses.fields(full)})
+
+
 def _preprocess(batch: Batch, generator: Optional[torch.Generator],
                 aug_cfg: Optional[AugmentConfig], sigma: float, image_size,
-                heatmap_size, warp_method: str) -> Batch:
+                heatmap_size, warp_method: str, data_ranks=None) -> Batch:
     """Staged batch -> model-ready tensors, on the batch's device.
     A generator and an augment config draw training augments; without
     them the transform is the identity (eval)."""
     b = batch["canvas"].shape[0]
     train_mode = generator is not None and aug_cfg is not None
     if train_mode:
-        params = draw_augment_params(generator, b, batch["sizes_hw"],
-                                     aug_cfg)
+        params = _draw(generator, batch, aug_cfg, data_ranks)
     else:
         params = identity_params(b, batch["canvas"].device)
     out = apply_augment_batch(
@@ -71,27 +93,38 @@ def _preprocess(batch: Batch, generator: Optional[torch.Generator],
     return out
 
 
+def _count(mask: Optional[torch.Tensor], b: int, device, data_ranks):
+    """The valid samples of the batch, over the data ranks when given."""
+    local = (mask.float().sum() if mask is not None else
+             torch.tensor(float(b), device=device))
+    return local if data_ranks is None else data_ranks.sum(local)
+
+
 @torch.no_grad()
 def _step_metrics(data: Batch, parts: Dict[str, torch.Tensor],
                   cls_out: torch.Tensor, hmap: torch.Tensor,
-                  num_classes: int, mask: Optional[torch.Tensor]):
-    """The masked metric set; ``mask`` (B,) drops tail-batch padding."""
+                  num_classes: int, mask: Optional[torch.Tensor],
+                  count: torch.Tensor, data_ranks=None):
+    """The masked metric set; ``mask`` (B,) drops tail-batch padding. With
+    ``data_ranks`` every entry is the global batch's: the loss parts (each
+    rank's is its sum over the global count) and the counts are summed
+    over the ranks, F1 comes from the summed confusion."""
+    total = (lambda t: t) if data_ranks is None else data_ranks.sum
     pred_label = torch.argmax(cls_out, dim=-1)
-    f1 = batch_macro_f1(data["label"], pred_label, num_classes,
-                        sample_mask=mask)
-    _, avg_acc, cnt, _ = pck_accuracy(hmap, data["target"],
-                                      sample_mask=mask)
     dev = cls_out.device
     conf0 = torch.zeros((num_classes, num_classes), device=dev)
+    conf = total(confusion_update(conf0, data["label"], pred_label,
+                                  sample_mask=mask))
+    _, avg_acc, cnt, _ = pck_accuracy(
+        hmap, data["target"], sample_mask=mask,
+        reduce=None if data_ranks is None else lambda t: tuple(total(t)))
     return {
-        **{k: v.detach() for k, v in parts.items()},
-        "cls_f1score": f1,
+        **{k: total(v.detach()) for k, v in parts.items()},
+        "cls_f1score": macro_f1_from_confusion(conf),
         "pose_acc": avg_acc,
         "pose_cnt": cnt,
-        "valid_cnt": (mask.float().sum() if mask is not None else
-                      torch.tensor(float(cls_out.shape[0]), device=dev)),
-        "conf_update": confusion_update(conf0, data["label"], pred_label,
-                                        sample_mask=mask),
+        "valid_cnt": count,
+        "conf_update": conf,
     }, pred_label
 
 
@@ -117,7 +150,7 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
                     heatmap_size=(48, 48), class_loss_weight: float = 0.001,
                     grad_accum: int = 1, grad_demix=False,
                     debug_return_grads: bool = False,
-                    warp_method: str = "auto") -> Callable:
+                    warp_method: str = "auto", data_ranks=None) -> Callable:
     """Build the train step ``step(state, batch, generator) -> (state,
     metrics)``; the state is updated in place. ``generator`` is a
     ``torch.Generator`` on the state's device for the augment draw.
@@ -134,6 +167,11 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
     valid count; each microbatch's forward updates the BatchNorm
     statistics once. ``debug_return_grads`` adds the pre-update
     gradients (name -> f32 tensor) as metrics['_grads'].
+
+    ``data_ranks``: this rank's part of a data-parallel step on the global
+    batch (the module docstring); its gradients are summed over the data
+    ranks in one flat f32 all-reduce after both pullbacks (and after the
+    microbatches), before ``debug_return_grads`` and the update.
     """
     if grad_demix == "batched":
         raise NotImplementedError(
@@ -148,14 +186,16 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
         names, params = zip(*model.named_parameters())
         mask = mbatch.get("valid")
         data = _preprocess(mbatch, generator, aug_cfg, sigma, image_size,
-                           heatmap_size, warp_method)
+                           heatmap_size, warp_method, data_ranks)
         cls_out, hmap, _ = model(data["image"], need_attnmap=False)
         hmap_nchw = heatmaps_to_nchw(hmap)
+        count = _count(mask, cls_out.shape[0], cls_out.device, data_ranks)
+        denom = None if data_ranks is None else count
         if grad_demix:
             # natural-scale CE: the weight is applied at the f32 combine
-            ce = classification_loss(cls_out, data["label"], mask)
+            ce = classification_loss(cls_out, data["label"], mask, denom)
             jl = joints_mse_loss(hmap_nchw, data["target"],
-                                 data["target_weight"], mask)
+                                 data["target_weight"], mask, denom)
             g_ce = _grads(ce, params, retain=True)
             g_jl = _grads(jl, params)
             grads = [b.float() + class_loss_weight * a.float()
@@ -167,10 +207,10 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
             total, parts = multitask_loss(
                 cls_out, hmap_nchw, data["label"], data["target"],
                 data["target_weight"], class_loss_weight=class_loss_weight,
-                sample_mask=mask)
+                sample_mask=mask, count=denom)
             grads = [g.float() for g in _grads(total, params)]
         metrics, _ = _step_metrics(data, parts, cls_out, hmap_nchw,
-                                   num_classes, mask)
+                                   num_classes, mask, count, data_ranks)
         return dict(zip(names, grads)), metrics
 
     def train_step(state: TrainState, batch, generator):
@@ -180,6 +220,8 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
             grads, metrics = one_micro(state, batch, generator)
         else:
             grads, metrics = _accumulate(state, batch, generator)
+        if data_ranks is not None:
+            grads = data_ranks.sum_grads(grads)
         if debug_return_grads:
             metrics["_grads"] = grads
         return state.apply_gradients(grads), metrics
@@ -221,11 +263,12 @@ def make_eval_step(num_classes: int = 19, sigma: float = 2.0,
                    image_size=(192, 192), heatmap_size=(48, 48),
                    return_outputs: bool = False,
                    with_attnmap: Optional[bool] = None,
-                   warp_method: str = "auto") -> Callable:
+                   warp_method: str = "auto", data_ranks=None) -> Callable:
     """Build ``eval_step(state, batch) -> metrics`` (plus the raw outputs
     with ``return_outputs``): the same forward in eval mode, with no
     augment and no update. ``with_attnmap`` defaults to
-    ``return_outputs``."""
+    ``return_outputs``. ``data_ranks``: the global batch's metrics, as in
+    ``make_train_step``."""
     if with_attnmap is None:
         with_attnmap = return_outputs
 
@@ -238,11 +281,14 @@ def make_eval_step(num_classes: int = 19, sigma: float = 2.0,
                            heatmap_size, warp_method)
         cls_out, hmap, attn = model(data["image"], need_attnmap=with_attnmap)
         hmap_nchw = heatmaps_to_nchw(hmap)
-        _, parts = multitask_loss(cls_out, hmap_nchw, data["label"],
-                                  data["target"], data["target_weight"],
-                                  sample_mask=mask)
+        count = _count(mask, cls_out.shape[0], cls_out.device, data_ranks)
+        _, parts = multitask_loss(
+            cls_out, hmap_nchw, data["label"], data["target"],
+            data["target_weight"], sample_mask=mask,
+            count=None if data_ranks is None else count)
         metrics, pred_label = _step_metrics(data, parts, cls_out, hmap_nchw,
-                                            num_classes, mask)
+                                            num_classes, mask, count,
+                                            data_ranks)
         if return_outputs:
             return metrics, {
                 "image": data["image"], "target": data["target"],

@@ -144,3 +144,97 @@ def test_plain_backward_passes_gradcheck_in_float64():
                                   x, g)
     got = A.attention_qkv_bwd_reference(x.detach(), g, 2, 4, scale)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
+
+
+# -- split operands (the tensor-parallel form) -------------------------------
+
+
+def _split(x):
+    """Three (B, N, H·D) operands: q, k, v of the packed projection."""
+    return tuple(x[..., i * H * D:(i + 1) * H * D] for i in range(3))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [H, H // 2])  # full, and a TP head group
+def test_split_reference_matches_pallas_split_impl(dtype, heads):
+    from hgr_tpu.ops.attention_pallas import _split_fwd_impl
+
+    x = _qkv(2, 37, seed=30)[..., :3 * heads * D]
+    qkv = [x[..., i * heads * D:(i + 1) * heads * D] for i in range(3)]
+    js, ts = zip(*(_pair(np.ascontiguousarray(t), dtype) for t in qkv))
+    want = _split_fwd_impl(*js, heads, D, SCALE, interpret=True)
+    got = A.attention_split_reference(*ts, heads, D, SCALE)
+    assert got.dtype == ts[0].dtype and got.shape == (2, 37, heads * D)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_bwd_reference_matches_pallas_split_bwd_impl(dtype):
+    from hgr_tpu.ops.attention_pallas import _split_bwd_impl
+
+    x = _qkv(2, 37, seed=31)
+    g = np.random.RandomState(32).randn(2, 37, H * D).astype(np.float32)
+    js, ts = zip(*(_pair(np.ascontiguousarray(t), dtype) for t in _split(x)))
+    gj, gt = _pair(g, dtype)
+    want = _split_bwd_impl(*js, gj, H, D, SCALE, interpret=True)
+    got = A.attention_split_bwd_reference(*ts, gt, H, D, SCALE)
+    for w, t in zip(want, got):
+        assert t.dtype == ts[0].dtype and t.shape == (2, 37, H * D)
+        np.testing.assert_allclose(_np(t), _np(w), **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_autograd_matches_jax_vjp(dtype):
+    """Gradients of the three operands on the CPU against jax.vjp of the
+    JAX split op with both Pallas kernels in interpret mode."""
+    from hgr_tpu.ops.attention_pallas import (
+        fused_attention_split as jax_fused_attention_split,
+    )
+
+    x = _qkv(2, 37, seed=33)
+    g = np.random.RandomState(34).randn(2, 37, H * D).astype(np.float32)
+    js, ts = zip(*(_pair(np.ascontiguousarray(t), dtype) for t in _split(x)))
+    gj, gt = _pair(g, dtype)
+    out_j, vjp = jax.vjp(lambda q, k, v: jax_fused_attention_split(
+        q, k, v, H, D, SCALE, True), *js)
+    want = vjp(gj)
+    ts = [t.requires_grad_() for t in ts]
+    out_t = A.fused_attention_split(*ts, H, D, SCALE)
+    np.testing.assert_allclose(_np(out_t.detach()), _np(out_j), **TOL[dtype])
+    before = (A.fused_attention_split.launches,
+              A.fused_attention_split_bwd.launches)
+    got = torch.autograd.grad(out_t, ts, gt)
+    assert (A.fused_attention_split.launches,
+            A.fused_attention_split_bwd.launches) == before  # CPU: plain
+    for w, t in zip(want, got):
+        np.testing.assert_allclose(_np(t), _np(w), **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_on_chunk_views_equals_packed_exactly(dtype):
+    """The split op fed the chunk views of a packed projection computes
+    the packed op's output and gradient bit for bit (one plain version,
+    as on the card one kernel body)."""
+    x = torch.from_numpy(_qkv(2, 37, seed=35)).to(getattr(torch, dtype))
+    g = torch.from_numpy(np.random.RandomState(36).randn(2, 37, H * D)
+                         .astype(np.float32)).to(x.dtype)
+    xp = x.clone().requires_grad_()
+    xs = x.clone().requires_grad_()
+    out_p = A.fused_attention_qkv(xp, H, D, SCALE)
+    out_s = A.fused_attention_split(*xs.chunk(3, dim=-1), H, D, SCALE)
+    assert torch.equal(out_p, out_s)
+    (gp,) = torch.autograd.grad(out_p, xp, g)
+    (gs,) = torch.autograd.grad(out_s, xs, g)
+    assert torch.equal(gp, gs)
+
+
+def test_split_operands_are_checked():
+    q = torch.zeros(2, 5, H * D)
+    with pytest.raises(ValueError, match="share shape"):
+        A._check_split((q, torch.zeros(2, 6, H * D), q), H, D)
+    with pytest.raises(ValueError, match="unit feature stride"):
+        A._check_split((q, q, torch.zeros(2, H * D, 5).transpose(1, 2)),
+                       H, D)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        m = torch.empty(1, 10, H * D, device="meta")
+        A.fused_attention_split(m, m, m, H, D, SCALE)

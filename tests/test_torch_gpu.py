@@ -316,3 +316,161 @@ def test_f32_train_step_on_card_matches_cpu(monkeypatch):
 @pytest.mark.gpu
 def test_f32_fused_bn_train_step_on_card_matches_cpu(monkeypatch):
     _card_vs_cpu_step(monkeypatch, fused=True)
+
+
+# -- the split-operand attention kernels (tensor-parallel form) ---------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [H, H // 2])
+@pytest.mark.parametrize("layout", ["views", "contiguous", "unaligned"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_kernels_match_plain_versions_and_packed_kernels(heads, layout,
+                                                              dtype):
+    """Forward and backward against their plain versions, and bit for bit
+    against the packed kernels on the same data (one kernel body). The
+    unaligned operands (views one element into a tensor) take the
+    kernels' element-wise staging instead of the 16-byte loads."""
+    _cuda_or_skip()
+    hd = heads * D
+    rng = np.random.RandomState(heads + len(layout))
+    dt = getattr(torch, dtype)
+    base = torch.from_numpy(rng.randn(3, 37, 3 * hd + 1).astype(
+        np.float32)).to("cuda", dt)
+    qkv = base[..., 1:].contiguous()
+    g = torch.from_numpy(rng.randn(3, 37, hd).astype(np.float32)).to(
+        "cuda", dt)
+    ops = {"views": qkv.chunk(3, dim=-1),
+           "contiguous": tuple(t.contiguous() for t in qkv.chunk(3, dim=-1)),
+           "unaligned": base[..., 1:].chunk(3, dim=-1)}[layout]
+    before = (A.fused_attention_split.launches,
+              A.fused_attention_split_bwd.launches)
+    out = A.fused_attention_split(*ops, heads, D, SCALE)
+    d = A.fused_attention_split_bwd(*ops, g, heads, D, SCALE)
+    torch.cuda.synchronize()
+    assert (A.fused_attention_split.launches,
+            A.fused_attention_split_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        A.attention_split_reference(*ops, heads, D, SCALE).float().cpu()
+        .numpy(), **TOL[dtype])
+    for got, want in zip(d, A.attention_split_bwd_reference(*ops, g, heads,
+                                                            D, SCALE)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **GRAD_TOL[dtype])
+    assert torch.equal(out, A.fused_attention_qkv(qkv, heads, D, SCALE))
+    packed = A.fused_attention_qkv_bwd(qkv, g, heads, D, SCALE)
+    for got, want in zip(d, packed.chunk(3, dim=-1)):
+        assert torch.equal(got, want)
+
+
+# -- multi-rank steps on the card ----------------------------------------------
+
+MESH_B = 8
+
+
+def _mesh_inputs():
+    """A staged batch of MESH_B and its augment draw: 60 px images a third
+    of a pixel off the grid at one canvas pixel per output pixel (the
+    step tests above), so the card and the CPU see the same images."""
+    rng = np.random.RandomState(21)
+    b = MESH_B
+    batch = {
+        "canvas": rng.randint(0, 256, (b, 64, 64, 3)).astype(np.uint8),
+        "orig_to_canvas": np.tile(np.array([[1.0, 0, 1 / 3], [0, 1.0, 1 / 3]],
+                                           np.float32), (b, 1, 1)),
+        "sizes_hw": np.full((b, 2), 60.0, np.float32),
+        "joints": rng.uniform(10, 50, (b, 21, 2)).astype(np.float32),
+        "joints_vis": np.ones((b, 21), np.float32),
+        "label": rng.randint(0, 19, (b,)).astype(np.int64),
+    }
+    params = dict(
+        scale=np.full(b, 48.0 / 21.0, np.float32),
+        rot=np.tile(np.array([0.0, 90.0, 180.0, -90.0], np.float32), b // 4),
+        translate=np.tile(np.array([[1.0, -2.0], [0.0, 0.0], [-1.0, 0.0],
+                                    [2.0, 1.0]], np.float32), (b // 4, 1)),
+        flip=np.tile(np.array([0.0, 1.0], np.float32), b // 2),
+        jitter_gains=np.ones((b, 3), np.float32),
+        do_jitter=np.zeros(b, np.float32))
+    return batch, params
+
+
+def _mesh_step(batch, params, mesh=None):
+    """One f32 de-mixed step at 48x48 (the data ranks' hooks with a mesh):
+    (loss, full gradients on the CPU)."""
+    from hgr_tpu_torch.config import AugmentConfig
+    from hgr_tpu_torch.data import pipeline
+    from hgr_tpu_torch.models import MultiTaskNet
+    from hgr_tpu_torch.parallel import steps as psteps
+    from hgr_tpu_torch.parallel.mesh import shard_batch
+    from hgr_tpu_torch.train import steps
+    from hgr_tpu_torch.train.state import create_train_state
+
+    steps.draw_augment_params = lambda gen, b, sizes, cfg: \
+        pipeline.AugmentParams(**{k: torch.from_numpy(v[:b]).to(sizes.device)
+                                  for k, v in params.items()})
+    state = create_train_state(MultiTaskNet(
+        image_size=(48, 48), generator=torch.Generator().manual_seed(3)),
+        device=torch.device("cuda", torch.cuda.current_device()))
+    kw = dict(image_size=(48, 48), heatmap_size=(12, 12), grad_demix=True,
+              debug_return_grads=True, warp_method="kernel")
+    if mesh is None:
+        step = steps.make_train_step(AugmentConfig(), **kw)
+    else:
+        state = psteps.shard_state(state, mesh)
+        step = psteps.make_parallel_train_step(mesh, AugmentConfig(), **kw)
+        batch = shard_batch(batch, mesh)
+    _, m = step(state, batch, torch.Generator(device=state.device))
+    return float(m["total_loss"]), {k: v.cpu() for k, v in
+                                    m["_grads"].items()}
+
+
+def _dp_rank(rank, world, port, backend, out_path):
+    from hgr_tpu_torch.parallel import distributed
+    from hgr_tpu_torch.parallel.mesh import make_mesh
+
+    _cuda_or_skip()
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend)
+    try:
+        out = _mesh_step(*_mesh_inputs(), make_mesh({"data": world}))
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        distributed.shutdown()
+
+
+def _dp_vs_single(tmp_path, backend):
+    import torch.multiprocessing as mp
+
+    from hgr_tpu_torch.parallel.distributed import free_port
+
+    out_path = str(tmp_path / "rank0.pt")
+    mp.start_processes(_dp_rank, args=(2, free_port(), backend, out_path),
+                       nprocs=2, join=True, start_method="spawn")
+    loss_r, g_r = torch.load(out_path, weights_only=False)
+    loss_1, g_1 = _mesh_step(*_mesh_inputs())
+    np.testing.assert_allclose(loss_r, loss_1, rtol=1e-5)
+    assert g_r.keys() == g_1.keys()
+    for k, w in g_1.items():
+        err = float((g_r[k] - w).norm() / w.norm().clamp_min(1e-12))
+        assert err <= 1e-3, (k, err)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_match_the_single_process_step(tmp_path):
+    """Two data ranks sharing the card over gloo (f32, TF32 off): the
+    step equals the single-process step at the global batch; per-tensor
+    relative gradient error 1e-3 (sums in another order)."""
+    _cuda_or_skip()
+    _dp_vs_single(tmp_path, "gloo")
+
+
+@pytest.mark.gpu
+def test_two_nccl_ranks_on_two_cards_match_the_single_process_step(tmp_path):
+    _cuda_or_skip()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card per rank; this host has fewer than 2")
+    _dp_vs_single(tmp_path, "nccl")

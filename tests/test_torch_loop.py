@@ -90,9 +90,6 @@ def test_cli_adds_only_device_defaulting_to_the_card():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "data=2"], "A12"),
-    (["--distributed", "h:1,2,0"], "A12"),
-    (["--host_device_count", "2"], "A12"),
     (["--remat"], "A13"),
     (["--early_dtype", "float32"], "A13"),
     (["--decoder_dtype", "float32"], "A13"),
@@ -195,8 +192,9 @@ def test_fit_writes_checkpoints_meta_logs_and_profile(data_cfg, tmp_path):
         assert os.path.isfile(os.path.join(weight, name)), name
     with open(os.path.join(weight, "run_meta.json")) as f:
         meta = json.load(f)
-    assert set(meta) == JAX_RUN_META | {"fused_bn"}
+    assert set(meta) == JAX_RUN_META | {"fused_bn", "mesh", "backend"}
     assert meta["grad_demix"] is False and meta["fused_bn"] is False
+    assert meta["mesh"] is None and meta["backend"] is None  # one process
     with open(tmp_path / "logs" / "r" / "metrics.jsonl") as f:
         lines = [json.loads(line) for line in f]
     epoch = [x for x in lines if "epoch" in x]
@@ -305,12 +303,58 @@ def test_nonfinite_loss_raises():
 
 
 def test_fit_refuses_mesh_and_debug_images(data_cfg):
+    """fit runs meshes now (tests/test_torch_parallel.py); it refuses
+    tensor parallelism without a model axis, and the debug images."""
     state = create_train_state(torch.nn.Linear(2, 2), device="cpu")
     args = (ModelConfig(), TrainConfig(), data_cfg, state, [], [])
-    with pytest.raises(NotImplementedError, match="A12"):
-        loop.fit(*args, mesh=object())
+    with pytest.raises(ValueError, match="model axis"):
+        loop.fit(*args, tensor_parallel=True)
     with pytest.raises(NotImplementedError, match="A14"):
         loop.fit(*args, debug_images=True)
+
+
+def test_mesh_flags_parse_as_the_jax_cli_reads_them():
+    from hgr_tpu_torch.parallel.mesh import parse_mesh
+
+    assert parse_mesh("") == {}
+    assert parse_mesh("data=4,model=2") == {"data": 4, "model": 2}
+    args = cli.parse_args(["--data_config", "x", "--mesh", "data=2",
+                           "--host_device_count", "2", "--distributed",
+                           "h:1,2,0"])
+    assert (args.mesh, args.host_device_count, args.distributed) == (
+        "data=2", 2, "h:1,2,0")
+
+
+@pytest.mark.parametrize("spec,want", [
+    ("10.0.0.1:9999,4,2", ("10.0.0.1:9999", 4, 2)),
+    ("h:1,2,0", ("h:1", 2, 0))])
+def test_distributed_spec_matches_jax(spec, want):
+    from hgr_tpu.parallel.distributed import parse_spec as jax_parse_spec
+    from hgr_tpu_torch.parallel.distributed import parse_spec
+
+    assert parse_spec(spec) == jax_parse_spec(spec) == want
+
+
+@pytest.mark.parametrize("spec", ["10.0.0.1:9999,4", "h:1,2,2"])
+def test_distributed_spec_refusals_match_jax(spec):
+    from hgr_tpu.parallel.distributed import parse_spec as jax_parse_spec
+    from hgr_tpu_torch.parallel.distributed import parse_spec
+
+    for fn in (parse_spec, jax_parse_spec):
+        with pytest.raises(ValueError):
+            fn(spec)
+
+
+def test_single_process_helpers_answer_as_one_rank(tmp_path):
+    """Without a process group: one rank, the coordinator, its own
+    decision, a barrier that returns; checkpoints as before."""
+    from hgr_tpu_torch.parallel import distributed
+
+    assert distributed.process_count() == 1
+    assert distributed.process_index() == 0 and distributed.is_coordinator()
+    assert distributed.coordinator_decision(True) is True
+    assert distributed.backend() is None
+    distributed.barrier()
 
 
 def test_confusion_falls_back_to_npy_without_matplotlib(tmp_path,

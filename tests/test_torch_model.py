@@ -332,12 +332,65 @@ def test_unfused_attention_route_matches_fused(jax_model):
         torch.testing.assert_close(u, v, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("train", [False, True])
+def test_split_attention_route_equals_packed_exactly(jax_model, dtype,
+                                                     train):
+    """On one rank 'split' is the packed route bit for bit (the one-card
+    {data: 1, model: 1} run of hgr_tpu/tools/sharded_onechip.py:67-72),
+    outputs and, in train mode, gradients."""
+    _, variables = jax_model("small", 48)
+    x = torch.from_numpy(_images(2, 48, seed=10))
+    models = [_port_model(variables, 48, "small", dtype, fused_attention=f)
+              for f in (True, "split")]
+    outs, grads = [], []
+    for m in models:
+        m.train(train)
+        lo, hm, _ = m(x, need_attnmap=False)
+        outs.append((lo, hm))
+        if train:
+            params = [p for _, p in m.named_parameters()]
+            grads.append(torch.autograd.grad((lo.sum() + hm.sum()), params))
+    for u, v in zip(*outs):
+        assert torch.equal(u, v)
+    for u, v in zip(*grads):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_split_attention_model_matches_jax_split_model(train):
+    """MultiTaskNet(fused_attention='split') against the JAX model built
+    the same way, f32 at Precision.HIGHEST, eval and train mode (batch
+    statistics and their update)."""
+    jm = JaxMultiTaskNet(image_size=(48, 48), precision=HIGHEST,
+                         fused_attention="split")
+    variables = _perturb_bn(jm.init(jax.random.PRNGKey(1),
+                                    jnp.zeros((1, 48, 48, 3)), train=False),
+                            seed=3)
+    x = _images(2, 48, seed=11)
+    tm = _port_model(variables, 48, "small", fused_attention="split")
+    tm.train(train)
+    with torch.no_grad():
+        tl, th, _ = tm(torch.from_numpy(x), need_attnmap=False)
+    if train:
+        (jl, jh, _), mutated = jm.apply(variables, x, train=True,
+                                        need_attnmap=False,
+                                        mutable=["batch_stats"])
+        want = from_flax({"params": {}, **mutated})
+        for k, w in want.items():
+            np.testing.assert_allclose(_np(tm.state_dict()[k]), w.numpy(),
+                                       atol=1e-5, rtol=1e-5, err_msg=k)
+    else:
+        jl, jh, _ = jm.apply(variables, x, train=False, need_attnmap=False)
+    np.testing.assert_allclose(_np(tl), _np(jl), **F32_TOL)
+    np.testing.assert_allclose(_np(th), _np(jh), **F32_TOL)
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("stride2_impl", "s2d", "A13"),
     ("remat", True, "A13"),
     ("early_dtype", torch.float32, "A13"),
     ("decoder_dtype", torch.float32, "A13"),
-    ("fused_attention", "split", "A12"),
 ])
 def test_unported_fields_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):

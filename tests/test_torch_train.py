@@ -367,7 +367,7 @@ def test_training_entry_points_refuse_a_missing_card(monkeypatch):
 @pytest.mark.parametrize("field", [
     "batch_size", "epochs", "lr", "lr_step", "lr_factor", "sigma", "seed",
     "class_loss_weight", "num_workers", "log_dir", "save_dir",
-    "canvas_size", "grad_accum", "grad_demix"])
+    "canvas_size", "grad_accum", "grad_demix", "mesh_shape"])
 def test_train_config_field_matches_jax(field):
     from hgr_tpu import config as jax_config
 
@@ -376,17 +376,18 @@ def test_train_config_field_matches_jax(field):
 
 
 def test_train_config_has_every_jax_field_but_the_mesh():
-    """Every JAX field that something in the port reads: ``mesh_shape``
-    waits for multi-GPU training (ROADMAP A12), ``debug_every`` for the
-    debug images (A14), and the JAX package reads no ``steps_per_epoch``
-    either."""
+    """Every JAX field that something in the port reads, ``mesh_shape``
+    (multi-rank training) included: ``debug_every`` waits for the debug
+    images (ROADMAP A14), and the JAX package reads no
+    ``steps_per_epoch`` either."""
     import dataclasses
 
     from hgr_tpu import config as jax_config
 
     want = {f.name for f in dataclasses.fields(jax_config.TrainConfig)}
     got = {f.name for f in dataclasses.fields(TrainConfig)}
-    assert got == want - {"mesh_shape", "debug_every", "steps_per_epoch"}
+    assert got == want - {"debug_every", "steps_per_epoch"}
+    assert TrainConfig().mesh_shape == jax_config.TrainConfig().mesh_shape
 
 
 def test_train_config_and_grad_demix_resolution_match_jax():
