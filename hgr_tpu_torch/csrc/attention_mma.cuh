@@ -1,0 +1,267 @@
+// Tensor-core building blocks of the bf16 attention kernels
+// (attention_qkv_fwd.cu, attention_qkv_bwd.cu): cp.async staging of one
+// head's rows into shared memory, ldmatrix fragment loads, and the
+// mma.sync.aligned.m16n8k16 bf16 -> f32 product, for head dimension 32.
+//
+// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for a
+// lane with group g = lane / 4 and thread-in-group t = lane % 4:
+//   A (16 x 16, row-major): a[0] = (g, 2t..2t+1), a[1] = (g + 8, 2t..),
+//                           a[2] = (g, 2t+8..),   a[3] = (g + 8, 2t+8..)
+//   B (16 x 8, column n):   b[0] = (rows 2t..2t+1, column g),
+//                           b[1] = (rows 2t+8..2t+9, column g)
+//   C (16 x 8, f32):        c[0], c[1] = (g, 2t..2t+1),
+//                           c[2], c[3] = (g + 8, 2t..2t+1)
+// so the four lanes of a quad hold one row of C between them (a row
+// reduction is two xor shuffles), and the C tiles of 16 consecutive
+// columns, rounded to bf16 in pairs, are the A fragment of a product over
+// those 16 columns without a trip through shared memory.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace attn_mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kHeadDim = 32;
+// A staged row: 32 bf16 features and 8 of padding, 80 bytes. ldmatrix
+// reads 8 rows of 16 bytes at a time; at 80 bytes a row those start in 8
+// distinct 16-byte bank groups (64 bytes would give a 4-way conflict).
+constexpr int kRowPad = 40;
+constexpr int kMaxWarps = 8;
+constexpr unsigned kFull = 0xffffffffu;
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+
+// Warps per block for ``tiles`` 16-row tiles: at most ``most`` (up to
+// kMaxWarps), and as few as give every warp the same number of rounds.
+inline int warps_for(int tiles, int most) {
+  const int rounds = (tiles + most - 1) / most;
+  return (tiles + rounds - 1) / rounds;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// commits and waits for every cp.async of this thread
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Stage rows 0..n-1 of one head (32 features, row stride ``row``
+// elements) into ``dst`` as rows of kRowPad bf16, and zero rows n..npad-1,
+// so that products over the padded tile see zeros and never stale shared
+// memory (0 x NaN is NaN). 16-byte cp.async copies when the rows allow
+// them (16-byte aligned, row stride a multiple of 8 elements), else one
+// element per thread into the same layout. The caller waits
+// (cp_async_wait_all) and synchronises the block.
+__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
+                                           int64_t row, bf16* dst, int n,
+                                           int npad) {
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % 8 == 0) {
+    for (int idx = threadIdx.x; idx < n * 4; idx += blockDim.x) {
+      const int j = idx >> 2;
+      const int c = (idx & 3) * 8;
+      cp_async16(dst + j * kRowPad + c, src + j * row + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n * kHeadDim; idx += blockDim.x) {
+      const int j = idx / kHeadDim;
+      const int d = idx - j * kHeadDim;
+      dst[j * kRowPad + d] = src[j * row + d];
+    }
+  }
+  for (int idx = threadIdx.x; idx < (npad - n) * 4; idx += blockDim.x) {
+    const int j = n + (idx >> 2);
+    *reinterpret_cast<uint4*>(dst + j * kRowPad + (idx & 3) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16 bf16) . b (16 x 8 bf16), f32 accumulation
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (nearest even), x0 in the low half
+__device__ __forceinline__ uint32_t pack(float x0, float x1) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x0, x1);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x0, x1 as K bf16 pairs whose sum carries 8 K bits of each value: each
+// part the rounding of what the parts before it leave out (differences
+// exact in f32). K = 3 holds all 24 bits of an f32 value.
+template <int K>
+__device__ __forceinline__ void pack_split(float x0, float x1,
+                                           uint32_t (&part)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    part[k] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= hf.x;
+    x1 -= hf.y;
+  }
+}
+
+// The A fragments of the 16 x 32 tile of staged rows r0..r0+15: a[s] for
+// features 16s..16s+15. Lane l addresses row r0 + l % 16, column
+// 8 * (l / 16): its four 8 x 8 matrices are a[s][0..3] in order.
+__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* rows,
+                                       int r0, int lane) {
+  const bf16* p = rows + (r0 + (lane & 15)) * kRowPad + (lane >> 4) * 8;
+  ldsm_x4(a[0], p);
+  ldsm_x4(a[1], p + 16);
+}
+
+// c = A . X[r0..r0+7]^T for the 16 x 32 A tile ``a`` and staged rows X:
+// the B fragments of X^T are X's rows as stored (lane l addresses row
+// r0 + l % 8, features 8 * (l / 8)), one matrix per 8 features.
+__device__ __forceinline__ void product_t(float (&c)[4],
+                                          const uint32_t (&a)[2][4],
+                                          const bf16* rows, int r0,
+                                          int lane) {
+  uint32_t b[4];
+  ldsm_x4(b, rows + (r0 + (lane & 7)) * kRowPad + (lane >> 3) * 8);
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  mma(c, a[0], b[0], b[1]);
+  mma(c, a[1], b[2], b[3]);
+}
+
+// c[j] = A . X[r0 + 8j .. r0 + 8j + 7]^T, the raw f32 products of the
+// 16 x 32 A tile ``a`` with NT 8-row tiles of staged rows X from r0 on;
+// tiles at or past npad are not computed (zero).
+template <int NT>
+__device__ __forceinline__ void products(float (&c)[NT][4],
+                                         const uint32_t (&a)[2][4],
+                                         const bf16* rows, int r0, int npad,
+                                         int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (r0 + 8 * j < npad) {
+      product_t(c[j], a, rows, r0 + 8 * j, lane);
+    } else {
+      c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+    }
+  }
+}
+
+// s = the scores of the query tile ``qa`` against NT 8-key tiles of the
+// staged keys from key0 on: the f32 dot, then __fmul_rn by scale (never
+// contracted into what follows); keys at or beyond n, and tiles at or
+// past npad (not computed), at -inf.
+template <int NT>
+__device__ __forceinline__ void masked_scores(float (&s)[NT][4],
+                                              const uint32_t (&qa)[2][4],
+                                              const bf16* ks, int key0,
+                                              int n, int npad, float scale,
+                                              int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int k0 = key0 + 8 * j;
+    if (k0 < npad) {
+      product_t(s[j], qa, ks, k0, lane);
+      const int c = k0 + 2 * t;
+      s[j][0] = c < n ? __fmul_rn(s[j][0], scale) : -INFINITY;
+      s[j][1] = c + 1 < n ? __fmul_rn(s[j][1], scale) : -INFINITY;
+      s[j][2] = c < n ? __fmul_rn(s[j][2], scale) : -INFINITY;
+      s[j][3] = c + 1 < n ? __fmul_rn(s[j][3], scale) : -INFINITY;
+    } else {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
+    }
+  }
+}
+
+// acc (16 x 32, four 16 x 8 C tiles) += (A_0 + ... + A_{K-1}) .
+// X[r0..r0+15] for the K 16 x 16 A fragments ``a`` (over rows r0..r0+15
+// of X) and staged rows X: the B fragments come through ldmatrix.trans
+// once for all K, lane l addressing row r0 + l % 16, features
+// f0 + 8 * (l / 16).
+template <int K>
+__device__ __forceinline__ void accumulate(float (&acc)[4][4],
+                                           const uint32_t (&a)[K][4],
+                                           const bf16* rows, int r0,
+                                           int lane) {
+  const bf16* p = rows + (r0 + (lane & 15)) * kRowPad + (lane >> 4) * 8;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, p + 16 * f);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      mma(acc[2 * f], a[k], b[0], b[1]);
+      mma(acc[2 * f + 1], a[k], b[2], b[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// Store the 16 x 32 f32 tile ``acc`` (rows r0.., C layout) as bf16 rows
+// of ``dst`` (row stride ``row`` elements), rows at or beyond n skipped.
+__device__ __forceinline__ void store_rows(const float (&acc)[4][4],
+                                           bf16* dst, int64_t row, int r0,
+                                           int n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool pairs = reinterpret_cast<uintptr_t>(dst) % 4 == 0 && row % 2 == 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = r0 + g + 8 * half;
+    if (i >= n) continue;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      bf16* p = dst + i * row + 8 * f + 2 * t;
+      const float x0 = acc[f][2 * half], x1 = acc[f][2 * half + 1];
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(p) = pack(x0, x1);
+      } else {
+        p[0] = __float2bfloat16(x0);
+        p[1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+}  // namespace attn_mma

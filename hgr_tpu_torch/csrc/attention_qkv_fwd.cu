@@ -28,25 +28,55 @@
 // written once, 4.75 MB), 5.7 us at 3.35 TB/s, against 1.38 GFLOP for
 // the two products, 1.4 us at 989 TFLOP/s. The kernel is memory-bound.
 //
-// Design (simple first): one block per (row group of 32 queries, head,
-// image). The block stages that head's K and V (N x D, widened to f32)
-// from their operands' rows into shared memory by 16-byte loads; rows
-// are padded to D + 1 floats so that lane j reading row j (and the
-// staging stores) hit 32 distinct banks. Each warp owns one query row at
-// a time: lane j computes the scores of keys j, j + 32, ... into the
-// warp's own row of shared memory, the warp reduces max and sum with
-// shuffles, and lane d then accumulates output feature d over all keys.
-// Both products run on the CUDA cores in f32; the K/V staging is
-// repeated by the ceil(N / 32) row groups of a head (served from L2).
-// Left for later: mma / wgmma tensor-core tiles for the two products,
-// one block per (image, head) with K/V staged once.
+// Two bodies, chosen by the compute type.
+//
+// bf16 (every train and serve path): Hopper's tensor cores through
+// mma.sync.aligned.m16n8k16 bf16 -> f32 (attention_mma.cuh). One block per
+// (head, image), so K and V are read from device memory once per head.
+// The block stages the head's Q, K and V as bf16 rows of 80 bytes (32
+// features and 8 of padding, so ldmatrix meets no bank conflict) with
+// 16-byte cp.async copies (element by element into the same layout where
+// an operand is not 16-byte aligned or its row stride is not a multiple
+// of 8), the row count padded to a multiple of 16 with zero rows. Each
+// warp owns one 16-row query tile at a time:
+//   S = Q K^T by mma into registers, a chunk of 160 keys (80 f32 a
+//   thread) at a time; __fmul_rn(., scale); keys at or beyond n at -inf;
+//   the row max and sum across the four lanes of a quad by shuffles
+//   (with more than one chunk the sum is rescaled when a later chunk
+//   raises the max; the output never is);
+//   P = exp(s - max) times the rounded reciprocal of the sum (exp on the
+//   SFU, softmax_exp), normalised first and then rounded to bf16,
+//   repacked from the S accumulators straight into the A fragments of
+//   P V, with V's B fragments from ldmatrix.trans: P never touches
+//   shared memory;
+//   out rounded to bf16 and stored by row stride, pad rows not written.
+// At N <= 160 one chunk holds the whole row and S is computed once;
+// above, the keys are swept twice (max and sum, then P and P V).
+// Shared memory: 240 bytes per padded row (38,400 at N = 145). A
+// per-element division and expf cost more than the products here, hence
+// the reciprocal and the SFU exp. tools/tune_attention.py times the body
+// at other chunk and block sizes.
+//
+// f32 (the check paths' type; tensor cores could not keep it at its 1e-5
+// tolerance without a three-way operand split) keeps the CUDA-core body:
+// one block per (row group of 32 queries, head, image). The block stages
+// that head's K and V (N x D, widened to f32) into shared memory by
+// 16-byte loads; rows are padded to D + 1 floats so that lane j reading
+// row j hits 32 distinct banks. Each warp owns one query row at a time:
+// lane j computes the scores of keys j, j + 32, ... into the warp's own
+// row of shared memory, the warp reduces max and sum with shuffles, and
+// lane d then accumulates output feature d over all keys.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_mma.cuh"
+
 namespace {
+
+namespace tc = attn_mma;
 
 constexpr int kHeadDim = 32;             // one lane per output feature
 constexpr int kWarps = 8;                // warps per block
@@ -183,13 +213,155 @@ attention_fwd_kernel(const Operand<T> q_op, const Operand<T> k_op,
   }
 }
 
+constexpr int kChunkTiles = 20;  // 8-key C tiles of S in registers
+constexpr int kChunk = 8 * kChunkTiles;
+// Most warps per block. At its ~160 registers a thread an SM holds 12 of
+// this body's warps: blocks of 3 fill it 4 at a time, so the serving
+// batch (B = 64, 512 blocks) runs in one wave; at N = 145 the 10 query
+// tiles go 4, 3, 3 to the warps.
+constexpr int kFwdWarps = 3;
+
+// e^x for the softmax, as 2^(x log2 e) on the SFU. P is rounded to bf16
+// (8 bits) right after, so this exp's ~1e-6 relative error moves P across
+// a rounding boundary about once in 4,000 values and the output by less
+// than its own rounding. (The backward keeps expf: its dS stays in f32.)
+__device__ __forceinline__ float softmax_exp(float x) {
+  return exp2f(x * 1.4426950408889634f);
+}
+
+// The bf16 body: one block per (head, image), one 16-row query tile per
+// warp at a time (see the note at the top).
+__global__ void __launch_bounds__(tc::kMaxWarps * 32)
+attention_fwd_mma_kernel(const Operand<tc::bf16> q_op,
+                         const Operand<tc::bf16> k_op,
+                         const Operand<tc::bf16> v_op,
+                         tc::bf16* __restrict__ out, int n, int heads,
+                         float scale) {
+  extern __shared__ uint4 smem_tc[];
+  const int npad = tc::pad16(n);
+  tc::bf16* qs = reinterpret_cast<tc::bf16*>(smem_tc);
+  tc::bf16* ks = qs + npad * tc::kRowPad;
+  tc::bf16* vs = ks + npad * tc::kRowPad;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int64_t hd = static_cast<int64_t>(heads) * kHeadDim;
+
+  tc::stage_rows(q_op.head(b, h), q_op.row, qs, n, npad);
+  tc::stage_rows(k_op.head(b, h), k_op.row, ks, n, npad);
+  tc::stage_rows(v_op.head(b, h), v_op.row, vs, n, npad);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  tc::bf16* outh = out + static_cast<int64_t>(b) * n * hd + h * kHeadDim;
+  const int chunks = (npad + kChunk - 1) / kChunk;
+  for (int r0 = 16 * warp; r0 < npad; r0 += 16 * warps) {
+    uint32_t qa[2][4];
+    tc::load_a(qa, qs, r0, lane);
+    float s[kChunkTiles][4];
+    // rows g and g + 8 of the tile: max and sum of exp(s - max)
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int c = 0; c < chunks; ++c) {
+      tc::masked_scores(s, qa, ks, c * kChunk, n, npad, scale, lane);
+      float mc[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j) {
+        mc[0] = fmaxf(mc[0], fmaxf(s[j][0], s[j][1]));
+        mc[1] = fmaxf(mc[1], fmaxf(s[j][2], s[j][3]));
+      }
+      mc[0] = tc::quad_max(mc[0]);
+      mc[1] = tc::quad_max(mc[1]);
+#pragma unroll
+      for (int j = 0; j < kChunkTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = softmax_exp(s[j][e] - mc[e >> 1]);
+          sum[e >> 1] += x;
+          if (chunks == 1) s[j][e] = x;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // every chunk holds a key below n, so mc is finite; the first
+        // chunk's factor is exp(-inf) = 0
+        l[r] = l[r] * softmax_exp(m[r] - mc[r]) + tc::quad_sum(sum[r]);
+        m[r] = mc[r];
+      }
+    }
+
+    // P normalised by the rounded reciprocal of the sum
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    float o[4][4] = {};
+    for (int c = 0; c < chunks; ++c) {
+      const int key0 = c * kChunk;
+      if (chunks > 1) {
+        tc::masked_scores(s, qa, ks, key0, n, npad, scale, lane);
+#pragma unroll
+        for (int j = 0; j < kChunkTiles; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = softmax_exp(s[j][e] - m[e >> 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < kChunkTiles / 2; ++p) {
+        const int k0 = key0 + 16 * p;
+        if (k0 >= npad) continue;
+        // P normalised, then rounded to bf16: the A fragment of P V
+        const uint32_t pa[1][4] = {{
+            tc::pack(s[2 * p][0] * inv[0], s[2 * p][1] * inv[0]),
+            tc::pack(s[2 * p][2] * inv[1], s[2 * p][3] * inv[1]),
+            tc::pack(s[2 * p + 1][0] * inv[0], s[2 * p + 1][1] * inv[0]),
+            tc::pack(s[2 * p + 1][2] * inv[1], s[2 * p + 1][3] * inv[1])}};
+        tc::accumulate(o, pa, vs, k0, lane);
+      }
+    }
+    tc::store_rows(o, outh, hd, r0, n, lane);
+  }
+}
+
+size_t smem_bytes(int n, int dtype) {
+  if (dtype == 1) {
+    return sizeof(tc::bf16) * 3 * static_cast<size_t>(tc::pad16(n)) *
+           tc::kRowPad;
+  }
+  return sizeof(float) * static_cast<size_t>(n) * (2 * kKStride + kWarps);
+}
+
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const int64_t* strides, void* out, int batch, int n,
+                       int heads, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n, 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fwd_mma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  using tc::bf16;
+  const Operand<bf16> q_op{static_cast<const bf16*>(q), strides[0],
+                           strides[1]};
+  const Operand<bf16> k_op{static_cast<const bf16*>(k), strides[2],
+                           strides[3]};
+  const Operand<bf16> v_op{static_cast<const bf16*>(v), strides[4],
+                           strides[5]};
+  const dim3 grid(heads, batch);
+  const int threads = 32 * tc::warps_for(tc::pad16(n) / 16, kFwdWarps);
+  attention_fwd_mma_kernel<<<grid, threads, smem, stream>>>(
+      q_op, k_op, v_op, static_cast<bf16*>(out), n, heads, scale);
+  return cudaGetLastError();
+}
+
 // strides: element strides (image, row) of q, k and v, in that order
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int64_t* strides, void* out, int batch, int n,
                    int heads, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * static_cast<size_t>(n) * (2 * kKStride + kWarps);
+  const size_t smem = smem_bytes(n, 0);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         attention_fwd_kernel<T>,
@@ -219,8 +391,8 @@ int dispatch(const void* q, const void* k, const void* v,
       return static_cast<int>(
           launch<float>(q, k, v, strides, out, batch, n, heads, scale, s));
     case 1:
-      return static_cast<int>(launch<__nv_bfloat16>(
-          q, k, v, strides, out, batch, n, heads, scale, s));
+      return static_cast<int>(
+          launch_mma(q, k, v, strides, out, batch, n, heads, scale, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -230,9 +402,10 @@ int dispatch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Shared memory one block needs for sequence length n, in bytes.
-int attention_qkv_fwd_smem_bytes(int n) {
-  return static_cast<int>(sizeof(float)) * n * (2 * kKStride + kWarps);
+// Shared memory one block of the body for ``dtype`` (0 = float32,
+// 1 = bfloat16) needs at sequence length n, in bytes.
+int attention_qkv_fwd_smem_bytes(int n, int dtype) {
+  return static_cast<int>(smem_bytes(n, dtype));
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the

@@ -24,6 +24,10 @@ hgr_tpu/ops/attention_pallas.py).
   versions ``attention_split_reference`` and
   ``attention_split_bwd_reference`` run, which the packed plain versions
   call on the three thirds.
+* On CUDA tensors each kernel runs one body per compute type: bf16 on
+  Hopper's tensor cores (``mma.sync``), float32 on the CUDA cores; the
+  shared memory a block needs, and so the longest sequence admitted,
+  depends on the body (``_admit``).
 * ``attention_core`` — the unfused chain on heads-first tensors that can
   also return the post-softmax map (``_xla_attention_core`` :139); the
   model's need-map path and ``fused_attention=False`` use it.
@@ -152,7 +156,8 @@ def attention_qkv_bwd_reference(qkv: torch.Tensor, g: torch.Tensor,
 def _declare(lib: ctypes.CDLL, name: str, argtypes) -> ctypes.CDLL:
     getattr(lib, name).argtypes = argtypes
     getattr(lib, name).restype = ctypes.c_int
-    getattr(lib, f"{name}_smem_bytes").argtypes = [ctypes.c_int]
+    getattr(lib, f"{name}_smem_bytes").argtypes = [ctypes.c_int,
+                                                   ctypes.c_int]
     getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_int
     getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
@@ -212,14 +217,21 @@ def _check(qkv: torch.Tensor, heads: int, head_dim: int) -> None:
         raise ValueError(f"batch {b} / heads {heads} outside [1, 65535]")
 
 
+def _admit(smem_bytes, n: int, dtype: torch.dtype) -> None:
+    """Raise unless one block of the kernel body for ``dtype`` fits in
+    shared memory at sequence length ``n`` (``smem_bytes`` is the
+    library's ``*_smem_bytes``)."""
+    if n < 1 or smem_bytes(n, _DTYPE_CODES[dtype]) > _SMEM_LIMIT:
+        raise ValueError(f"sequence length {n} needs more shared memory "
+                         f"than a block has ({dtype})")
+
+
 def _launch(qkv: torch.Tensor, heads: int, head_dim: int,
             scale: float) -> torch.Tensor:
     _check(qkv, heads, head_dim)
     b, n, _ = qkv.shape
     lib = _kernel()
-    if n < 1 or lib.attention_qkv_fwd_smem_bytes(n) > _SMEM_LIMIT:
-        raise ValueError(
-            f"sequence length {n} needs more shared memory than a block has")
+    _admit(lib.attention_qkv_fwd_smem_bytes, n, qkv.dtype)
     out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype,
                       device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -247,9 +259,7 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     if not g.is_contiguous():
         raise ValueError("attention backward kernel needs a contiguous g")
     lib = _bwd_kernel()
-    if n < 1 or lib.attention_qkv_bwd_smem_bytes(n) > _SMEM_LIMIT:
-        raise ValueError(
-            f"sequence length {n} needs more shared memory than a block has")
+    _admit(lib.attention_qkv_bwd_smem_bytes, n, qkv.dtype)
     out = torch.empty_like(qkv)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
@@ -303,9 +313,7 @@ def _launch_split(q, k, v, heads: int, head_dim: int,
                   scale: float) -> torch.Tensor:
     b, n = _check_split((q, k, v), heads, head_dim)
     lib = _kernel()
-    if lib.attention_qkv_fwd_smem_bytes(n) > _SMEM_LIMIT:
-        raise ValueError(
-            f"sequence length {n} needs more shared memory than a block has")
+    _admit(lib.attention_qkv_fwd_smem_bytes, n, q.dtype)
     out = torch.empty((b, n, heads * head_dim), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -324,9 +332,7 @@ def _launch_split_bwd(q, k, v, g, heads: int, head_dim: int, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, n = _check_split((q, k, v, g), heads, head_dim)
     lib = _bwd_kernel()
-    if lib.attention_qkv_bwd_smem_bytes(n) > _SMEM_LIMIT:
-        raise ValueError(
-            f"sequence length {n} needs more shared memory than a block has")
+    _admit(lib.attention_qkv_bwd_smem_bytes, n, q.dtype)
     outs = tuple(torch.empty((b, n, heads * head_dim), dtype=q.dtype,
                              device=q.device) for _ in range(3))
     ts = (q, k, v, g) + outs

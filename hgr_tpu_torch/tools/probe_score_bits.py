@@ -1,0 +1,126 @@
+"""Do the two phases of the bf16 attention backward see the same scores?
+
+Phase 1 of ``csrc/attention_qkv_bwd.cu`` (bf16 body) takes S = Q Kᵀ with
+Q as the mma's A operand; phase 2 takes Sᵀ = K Qᵀ with K as A. This probe
+builds a small kernel from the same building blocks
+(``csrc/attention_mma.cuh``), computes both products for every head of
+random bf16 operands, and counts the scores whose f32 bits differ. Equal
+bits give equal P and dS in both phases (the rest is the same
+instructions); unequal ones differ by the tensor core's summation order,
+within the gradient tolerances either way.
+
+    python -m hgr_tpu_torch.tools.probe_score_bits [--batch 64] [--n 145]
+
+Needs the card and nvcc; prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+
+_SOURCE = r"""
+#include "attention_mma.cuh"
+namespace tc = attn_mma;
+
+// s[bh, i, j] = q_i . k_j with Q as A; st[bh, j, i] = k_j . q_i with K as A
+__global__ void probe(const tc::bf16* q, const tc::bf16* k, long long img,
+                      long long row, int n, float* s, float* st) {
+  extern __shared__ uint4 smem[];
+  const int npad = tc::pad16(n);
+  tc::bf16* qs = reinterpret_cast<tc::bf16*>(smem);
+  tc::bf16* ks = qs + npad * tc::kRowPad;
+  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
+  const long long off = b * img + h * tc::kHeadDim;
+  tc::stage_rows(q + off, row, qs, n, npad);
+  tc::stage_rows(k + off, row, ks, n, npad);
+  tc::cp_async_wait_all();
+  __syncthreads();
+  const long long base = (static_cast<long long>(b) * gridDim.x + h) *
+                         npad * npad;
+  const int g = lane >> 2, t = lane & 3;
+  for (int pass = 0; pass < 2; ++pass) {
+    const tc::bf16* a_rows = pass == 0 ? qs : ks;
+    const tc::bf16* b_rows = pass == 0 ? ks : qs;
+    float* out = (pass == 0 ? s : st) + base;
+    for (int r0 = 0; r0 < npad; r0 += 16) {
+      uint32_t a[2][4];
+      tc::load_a(a, a_rows, r0, lane);
+      for (int c0 = 0; c0 < npad; c0 += 8) {
+        float c[4];
+        tc::product_t(c, a, b_rows, c0, lane);
+        for (int e = 0; e < 4; ++e) {
+          out[(r0 + g + 8 * (e >> 1)) * npad + c0 + 2 * t + (e & 1)] = c[e];
+        }
+      }
+    }
+  }
+}
+
+extern "C" int probe_scores(const void* q, const void* k, long long img,
+                            long long row, int batch, int n, int heads,
+                            float* s, float* st) {
+  const int npad = tc::pad16(n);
+  probe<<<dim3(heads, batch), 32, 2 * npad * tc::kRowPad * 2>>>(
+      static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k), img,
+      row, n, s, st);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+
+
+def _build() -> ctypes.CDLL:
+    from hgr_tpu_torch.utils.cuda_build import (
+        BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc)
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = BUILD_DIR / "probe_score_bits.cu"
+    lib = BUILD_DIR / "libprobe_score_bits.so"
+    src.write_text(_SOURCE)
+    subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o",
+                    str(lib), str(src)], check=True, capture_output=True)
+    out = ctypes.CDLL(str(lib))
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    out.probe_scores.argtypes = [p, p, ll, ll, i, i, i, p, p]
+    out.probe_scores.restype = i
+    return out
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--n", type=int, default=145)
+    ap.add_argument("--heads", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("probe_score_bits needs a CUDA card")
+    lib = _build()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    b, n, h = args.batch, args.n, args.heads
+    qkv = torch.randn(b, n, 3 * h * 32, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    npad = -(-n // 16) * 16
+    s, st = (torch.empty(b, h, npad, npad, device="cuda") for _ in range(2))
+    rc = lib.probe_scores(qkv.data_ptr(), qkv[..., h * 32:].data_ptr(),
+                          qkv.stride(0), qkv.stride(1), b, n, h,
+                          s.data_ptr(), st.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"probe kernel failed ({rc})")
+    s = s[..., :n, :n].contiguous()
+    st = st[..., :n, :n].transpose(-1, -2).contiguous()
+    differ = s.view(torch.int32) != st.view(torch.int32)
+    print(json.dumps({
+        "probe": "score_bits", "shape": [b, n, h], "scores": s.numel(),
+        "bits_differ": int(differ.sum()),
+        "max_abs_diff": (s - st).abs().max().item(),
+        "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

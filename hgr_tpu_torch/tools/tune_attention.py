@@ -1,0 +1,170 @@
+"""Time the bf16 attention bodies at other tile and block sizes.
+
+Builds copies of ``csrc/attention_qkv_{fwd,bwd}.cu`` in which one of the
+compile-time sizes of the tensor-core body is changed (the chunk of keys
+a forward warp holds in registers, the warps per block, the rows a
+backward warp sweeps at a time, the bf16 terms that carry dS), and times
+each against the source as it is on the same inputs, in turns, with its
+worst error against the plain version:
+
+    python -m hgr_tpu_torch.tools.tune_attention [--batch 64 256]
+
+Needs the card and nvcc. Prints one JSON line per (variant, batch) and,
+first, one per build (registers, spills).
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import subprocess
+
+# knob -> (source, the start of the line that sets it)
+KNOBS = {
+    "fwd_chunk_tiles": ("attention_qkv_fwd", "constexpr int kChunkTiles = "),
+    "fwd_warps": ("attention_qkv_fwd", "constexpr int kFwdWarps = "),
+    "bwd_tiles": ("attention_qkv_bwd", "constexpr int kBwdTiles = "),
+    "bwd_warps": ("attention_qkv_bwd", "constexpr int kBwdWarps = "),
+    "bwd_split": ("attention_qkv_bwd", "constexpr int kSplit = "),
+}
+DEFAULT_GRID = ["fwd_chunk_tiles=10", "fwd_warps=2", "fwd_warps=4",
+                "fwd_warps=8", "bwd_tiles=4", "bwd_warps=8", "bwd_split=2"]
+SCALE = 32 ** -0.5
+
+
+def _variant_source(spec: str) -> tuple:
+    """(source name, its text with the knob set) for ``knob=value``; the
+    unchanged source for 'as-is:<source>'."""
+    from hgr_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    if spec.startswith("as-is:"):
+        name = spec.split(":", 1)[1]
+        return name, (CSRC_DIR / f"{name}.cu").read_text()
+    knob, value = spec.split("=")
+    name, prefix = KNOBS[knob]
+    text = (CSRC_DIR / f"{name}.cu").read_text()
+    found = re.search(re.escape(prefix) + r"\d+;", text)
+    if found is None:
+        raise ValueError(f"{prefix!r} not in csrc/{name}.cu")
+    return name, text.replace(found.group(0), f"{prefix}{int(value)};")
+
+
+def _build(specs) -> dict:
+    """spec -> (source name, loaded library, ptxas lines); all nvcc runs
+    started together."""
+    from hgr_tpu_torch.utils.cuda_build import (
+        BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc)
+
+    out_dir = BUILD_DIR / "tune"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, spec in enumerate(specs):
+        name, text = _variant_source(spec)
+        src = out_dir / f"v{i}_{name}.cu"
+        src.write_text(text)
+        lib = src.with_suffix(".so")
+        procs[spec] = (name, lib, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    built = {}
+    for spec, (name, lib, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
+        ptxas = [f"{used}; {spills}" for entry, spills, used in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+ bytes spill stores)"
+            r".*?(Used \d+ registers)", log, flags=re.S) if "mma" in entry]
+        built[spec] = (name, ctypes.CDLL(str(lib)), ptxas)
+    return built
+
+
+def _call(name: str, lib, qkv, g, out, stream) -> None:
+    b, n, f = qkv.shape
+    heads = f // 96
+    c = ctypes
+    if name == "attention_qkv_fwd":
+        fn = lib.attention_qkv_fwd
+        fn.argtypes = [c.c_void_p, c.c_void_p] + [c.c_int] * 4 + [
+            c.c_float, c.c_int, c.c_void_p]
+        rc = fn(qkv.data_ptr(), out.data_ptr(), b, n, heads, 32, SCALE, 1,
+                stream)
+    else:
+        fn = lib.attention_qkv_bwd
+        fn.argtypes = [c.c_void_p] * 3 + [c.c_int] * 4 + [
+            c.c_float, c.c_int, c.c_void_p]
+        rc = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, heads,
+                32, SCALE, 1, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed ({rc})")
+
+
+def _time_ms(torch, fn, iters: int) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from hgr_tpu_torch.ops import attention as A
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, nargs="+", default=[64, 256])
+    ap.add_argument("--n", type=int, default=145)
+    ap.add_argument("--variants", nargs="+", default=DEFAULT_GRID,
+                    help="knob=value, knobs: " + ", ".join(KNOBS))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tune_attention needs a CUDA card")
+    specs = ["as-is:attention_qkv_fwd", "as-is:attention_qkv_bwd",
+             *args.variants]
+    built = _build(specs)
+    for spec, (_, _, ptxas) in built.items():
+        print(json.dumps({"build": spec, "ptxas": ptxas}), flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b in args.batch:
+        qkv = torch.randn(b, args.n, 768, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        g = torch.randn(b, args.n, 256, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        refs = {"attention_qkv_fwd": A.attention_qkv_reference(
+                    qkv, 8, 32, SCALE),
+                "attention_qkv_bwd": A.attention_qkv_bwd_reference(
+                    qkv, g, 8, 32, SCALE)}
+        rows = {}
+        # in turns: every variant, then every variant again in reverse
+        for spec in specs + specs[::-1]:
+            name, lib, _ = built[spec]
+            out = torch.empty_like(refs[name])
+
+            def fn():
+                _call(name, lib, qkv, g, out, stream)
+
+            ms = _time_ms(torch, fn, 50 if name.endswith("fwd") else 20)
+            row = rows.setdefault(spec, {"variant": spec, "kernel": name,
+                                         "batch": b, "runs_ms": []})
+            row["runs_ms"].append(ms)
+            row["max_abs_err"] = (out.float() - refs[name].float()).abs(
+            ).max().item()
+        for row in rows.values():
+            row["ms"] = sum(row["runs_ms"]) / len(row["runs_ms"])
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -4,7 +4,8 @@ Each kernel source under ``hgr_tpu_torch/csrc/`` has a plain C interface.
 On first use in a process it is compiled with ``nvcc`` for ``sm_90a``
 into a shared library and loaded with ``ctypes``. Libraries are cached in
 ``build/kernels/`` at the repository root (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source rebuilds
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds
 and concurrent processes never load a half-written file.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -78,8 +79,12 @@ def load_kernels(names: List[str]) -> Dict[str, BuiltKernel]:
                 continue
             src = CSRC_DIR / f"{name}.cu"
             flags = NVCC_FLAGS + KERNEL_FLAGS.get(name, [])
+            # the headers a source may include count as part of it
+            headers = b"".join(h.read_bytes()
+                               for h in sorted(CSRC_DIR.glob("*.cuh")))
             digest = hashlib.sha256(
-                src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+                src.read_bytes() + headers + " ".join(flags).encode()
+            ).hexdigest()[:16]
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
             libs[name] = lib_path

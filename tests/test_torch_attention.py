@@ -238,3 +238,82 @@ def test_split_operands_are_checked():
     with pytest.raises(ValueError, match="cuda or cpu"):
         m = torch.empty(1, 10, H * D, device="meta")
         A.fused_attention_split(m, m, m, H, D, SCALE)
+
+
+# -- numerics of the bf16 tensor-core backward --------------------------------
+
+
+def _tensor_core_bwd_model(q, k, v, g, scale, parts=3):
+    """The arithmetic of the bf16 body of csrc/attention_qkv_bwd.cu on
+    heads-first operands (B, H, N, D) holding bf16 values: f32 scores on a
+    grid padded to a multiple of 16 with zero rows, keys at or beyond n
+    masked; P normalised, then rounded to bf16 for dv; dS split into
+    ``parts`` bf16 terms (each the rounding of what the terms before it
+    leave out) for dq and dk, each product an f32 sum of exact bf16
+    products; P and dS zeroed at the pad query rows.
+
+    Returns dq, dk, dv before their bf16 rounding, and the products of
+    dS with K and Q (dq, dk) from 1, 2 and 3 terms and in float64."""
+    n = q.shape[2]
+    npad = -(-n // 16) * 16
+
+    def pad(t):
+        return torch.nn.functional.pad(t.float(), (0, 0, 0, npad - n))
+
+    qp, kp, vp, gp = (pad(t) for t in (q, k, v, g))
+    valid = torch.arange(npad) < n
+    s = (qp @ kp.transpose(-1, -2)) * scale
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    da = gp @ vp.transpose(-1, -2)
+    ds = p * (da - (da * p).sum(-1, keepdim=True)) * scale
+    ds = ds.masked_fill(~valid[:, None], 0.0)
+    p = p.masked_fill(~valid[:, None], 0.0)
+    terms, rest = [], ds
+    for _ in range(3):
+        terms.append(rest.to(torch.bfloat16).float())
+        rest = rest - terms[-1]
+
+    def dq_dk(x, y=(kp, qp)):
+        return x @ y[0], x.transpose(-1, -2) @ y[1]
+
+    def split(count):
+        return tuple(sum(ts) for ts in zip(*(dq_dk(t) for t in
+                                              terms[:count])))
+
+    dq, dk = split(parts)
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ gp
+    cut = (lambda ts: tuple(t[:, :, :n] for t in ts))
+    products = {count: cut(split(count)) for count in (1, 2, 3)}
+    products["f64"] = cut(dq_dk(ds.double(), (kp.double(), qp.double())))
+    return cut((dq, dk, dv)), products
+
+
+@pytest.mark.parametrize("n", [145, 37])
+def test_tensor_core_bwd_numerics_match_pallas_bwd_kernel(n):
+    """A model of the bf16 tensor-core backward's arithmetic, held against
+    the Pallas backward kernel in interpret mode at the bf16 gradient
+    tolerance. dS enters the tensor cores as three bf16 terms: rounded
+    once to bf16 its products with K and Q miss the exact ones by ~3e-3,
+    as hi + lo by ~5e-6 (enough to flip the bf16 rounding of a gradient
+    near 1 now and then over a training batch), as three terms by no more
+    than an f32 product's own error."""
+    from hgr_tpu.ops.attention_pallas import _attention_qkv_bwd_impl
+
+    xj, xt = _pair(_qkv(2, n, seed=40 + n), "bfloat16")
+    g = np.random.RandomState(41 + n).randn(2, n, H * D).astype(np.float32)
+    gj, gt = _pair(g, "bfloat16")
+    want = _attention_qkv_bwd_impl(xj, gj, H, D, SCALE, interpret=True)
+
+    grads, products = _tensor_core_bwd_model(
+        *A.split_heads(xt, H, D), A._heads_first(gt, H, D), SCALE)
+    got = torch.cat([A.merge_heads(t).to(torch.bfloat16) for t in grads],
+                    dim=-1)
+    np.testing.assert_allclose(_np(got), _np(want), **GRAD_TOL["bfloat16"])
+
+    def err(count):
+        return max((a.double() - b).abs().max().item()
+                   for a, b in zip(products[count], products["f64"]))
+
+    assert err(1) > 1e-3
+    assert 1e-6 < err(2) <= 1e-5
+    assert err(3) <= 1e-6

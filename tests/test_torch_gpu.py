@@ -366,6 +366,154 @@ def test_split_kernels_match_plain_versions_and_packed_kernels(heads, layout,
         assert torch.equal(got, want)
 
 
+# -- the bf16 tensor-core bodies ---------------------------------------------
+
+
+def _bf16(shape, seed):
+    x = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    return torch.from_numpy(x).to("cuda", torch.bfloat16)
+
+
+def _assert_fwd_bwd_match_plain(ops, g, heads):
+    """Split forward and backward on ``ops`` against their plain versions,
+    outputs finite; returns the kernels' (out, (dq, dk, dv))."""
+    out = A.fused_attention_split(*ops, heads, D, SCALE)
+    d = A.fused_attention_split_bwd(*ops, g, heads, D, SCALE)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and all(torch.isfinite(t).all()
+                                             for t in d)
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        A.attention_split_reference(*ops, heads, D, SCALE).float().cpu()
+        .numpy(), **TOL["bfloat16"])
+    for got, want in zip(d, A.attention_split_bwd_reference(*ops, g, heads,
+                                                            D, SCALE)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **GRAD_TOL["bfloat16"])
+    return out, d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 37, 145, 160, 161, 384])
+@pytest.mark.parametrize("heads", [4, 8])
+@pytest.mark.parametrize("b", [1, 3])
+def test_bf16_bodies_match_plain_versions_and_split_equals_packed(n, heads,
+                                                                  b):
+    """Every padding case of the 16-row tiles (n below, at and above a
+    multiple of 16, one and several 160-key chunks of the forward): the
+    packed kernels against their plain versions, and the split kernels on
+    the chunk views equal to them bit for bit."""
+    _cuda_or_skip()
+    qkv = _bf16((b, n, 3 * heads * D), seed=n + 10 * heads + b)
+    g = _bf16((b, n, heads * D), seed=n + 10 * heads + b + 1)
+    out = A.fused_attention_qkv(qkv, heads, D, SCALE)
+    d = A.fused_attention_qkv_bwd(qkv, g, heads, D, SCALE)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        A.attention_qkv_reference(qkv, heads, D, SCALE).float().cpu()
+        .numpy(), **TOL["bfloat16"])
+    np.testing.assert_allclose(
+        d.float().cpu().numpy(),
+        A.attention_qkv_bwd_reference(qkv, g, heads, D, SCALE).float().cpu()
+        .numpy(), **GRAD_TOL["bfloat16"])
+    s_out, s_d = _assert_fwd_bwd_match_plain(qkv.chunk(3, dim=-1), g, heads)
+    assert torch.equal(s_out, out)
+    for got, want in zip(s_d, d.chunk(3, dim=-1)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [17, 145])
+def test_bf16_unaligned_operands_stage_element_wise_to_the_same_bits(n):
+    """Operands one element into their storage (not 16-byte aligned, odd
+    row stride) take the element-wise staging into the same shared layout
+    as the cp.async copies: the same outputs bit for bit."""
+    _cuda_or_skip()
+    base = _bf16((2, n, 3 * H * D + 1), seed=n)
+    g = _bf16((2, n, H * D), seed=n + 1)
+    unaligned = base[..., 1:].chunk(3, dim=-1)
+    aligned = tuple(t.contiguous() for t in unaligned)
+    out_u, d_u = _assert_fwd_bwd_match_plain(unaligned, g, H)
+    out_a, d_a = _assert_fwd_bwd_match_plain(aligned, g, H)
+    assert torch.equal(out_u, out_a)
+    for got, want in zip(d_u, d_a):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [15, 145])
+def test_bf16_views_never_read_past_row_n(n):
+    """q, k, v and g as views of the first n rows of buffers that hold NaN
+    in every row beyond: the kernels read rows below n only and zero their
+    own pad rows, so the outputs are finite and equal those of contiguous
+    copies."""
+    _cuda_or_skip()
+    pad = 16
+    qkv = _bf16((3, n, 3 * H * D), seed=2 * n)
+    g = _bf16((3, n, H * D), seed=2 * n + 1)
+    big = torch.full((3, n + pad, 3 * H * D), float("nan"), device="cuda",
+                     dtype=torch.bfloat16)
+    big[:, :n] = qkv
+    big_g = torch.full((3, n + pad, H * D), float("nan"), device="cuda",
+                       dtype=torch.bfloat16)
+    big_g[:, :n] = g
+    views = big[:, :n].chunk(3, dim=-1)
+    out, d = _assert_fwd_bwd_match_plain(views, big_g[:, :n], H)
+    assert torch.equal(out, A.fused_attention_qkv(qkv, H, D, SCALE))
+    for got, want in zip(d, A.fused_attention_qkv_bwd(qkv, g, H, D, SCALE)
+                         .chunk(3, dim=-1)):
+        assert torch.equal(got, want)
+
+
+def _largest_admitted(smem_bytes, code):
+    n = 1
+    while smem_bytes(n + 1, code) <= A._SMEM_LIMIT:
+        n += 1
+    return n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_wrappers_admit_up_to_the_shared_memory_limit_and_raise_above(dtype):
+    """At the largest n whose block fits in shared memory each kernel runs
+    and matches its plain version (the forward's bf16 body over several
+    key chunks); one more row raises before any launch. Each admits at
+    least the n the CUDA-core bodies did (785 forward, 384 backward)."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    code = A._DTYPE_CODES[dt]
+    fwd, bwd = A._kernel(), A._bwd_kernel()
+    n_fwd = _largest_admitted(fwd.attention_qkv_fwd_smem_bytes, code)
+    n_bwd = _largest_admitted(bwd.attention_qkv_bwd_smem_bytes, code)
+    assert n_fwd >= 785 and n_bwd >= 384
+    x = _qkv(1, n_fwd, 3, dtype)[..., :3 * D].contiguous()
+    np.testing.assert_allclose(
+        A.fused_attention_qkv(x, 1, D, SCALE).float().cpu().numpy(),
+        A.attention_qkv_reference(x, 1, D, SCALE).float().cpu().numpy(),
+        **TOL[dtype])
+    x = _qkv(1, n_bwd, 4, dtype)[..., :3 * D].contiguous()
+    g = torch.randn(1, n_bwd, D, device="cuda").to(dt)
+    np.testing.assert_allclose(
+        A.fused_attention_qkv_bwd(x, g, 1, D, SCALE).float().cpu().numpy(),
+        A.attention_qkv_bwd_reference(x, g, 1, D, SCALE).float().cpu()
+        .numpy(), **GRAD_TOL[dtype])
+    before = (A.fused_attention_qkv.launches,
+              A.fused_attention_qkv_bwd.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        A.fused_attention_qkv(torch.zeros(1, n_fwd + 1, 3 * D, device="cuda",
+                                          dtype=dt), 1, D, SCALE)
+    with pytest.raises(ValueError, match="shared memory"):
+        z = torch.zeros(1, n_bwd + 1, 3 * D, device="cuda", dtype=dt)
+        A.fused_attention_qkv_bwd(z, z[..., :D].contiguous(), 1, D, SCALE)
+    with pytest.raises(ValueError, match="shared memory"):
+        z = torch.zeros(1, n_bwd + 1, D, device="cuda", dtype=dt)
+        A.fused_attention_split_bwd(z, z, z, z, 1, D, SCALE)
+    assert (A.fused_attention_qkv.launches,
+            A.fused_attention_qkv_bwd.launches) == before
+
+
 # -- multi-rank steps on the card ----------------------------------------------
 
 MESH_B = 8
