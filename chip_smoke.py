@@ -25,7 +25,10 @@ random weights:
   each writes its launch counts beside the run and this script sums
   them. Then a 2x2 f32 step against the single-process step on the card,
   and the TP run's best checkpoint restored on one rank against the four
-  ranks' eval forward.
+  ranks' eval forward;
+- longer sequences: a bf16 train step at 448 px (N = 785, the attention
+  backward key-chunked) and an f32 step at 320 px (N = 401), each with
+  fused BN off and on, and the bf16 serving forward at 448 px.
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -121,6 +124,8 @@ BN_EPS = 1e-5
 # accumulates 3, the elementwise pass combines 4.
 BN_OPS = {("reduce", True): 17, ("reduce", False): 5,
           ("elem", True): 18, ("elem", False): 6}
+# launches a turn of each warp timing (kernel alone, wrapper, plain)
+WARP_ITERS = 200
 # the loop phase: synthetic splits at the writer's 224 px
 LOOP_SPLITS = (("train", 2048), ("val", 512), ("test", 512))
 # the multi-rank phase: the global batch, and the f32 parity step's
@@ -169,10 +174,16 @@ def build_phase():
     t0 = time.perf_counter()
     built = load_kernels(list(SOURCES))
     wall = time.perf_counter() - t0
-    # dynamic shared memory per block at N=145, which ptxas does not see,
-    # by body: float32 (CUDA cores), bfloat16 (tensor cores)
-    smem = {name: {dtype: getattr(built[name].lib, f"{name}_smem_bytes")(
-        145, code) for dtype, code in (("float32", 0), ("bfloat16", 1))}
+    # dynamic shared memory per block, which ptxas does not see, and the
+    # route (0 whole sequence, 1 key-chunked), by body: float32 (CUDA
+    # cores), bfloat16 (tensor cores); at N=145 and at 448 px's N=785
+    smem = {name: {f"{dtype}_n{n}": {
+        "route": getattr(built[name].lib, f"{name}_route")(n, code,
+                                                           HEAD_DIM),
+        "bytes": getattr(built[name].lib, f"{name}_smem_bytes")(n, code,
+                                                                HEAD_DIM)}
+        for dtype, code in (("float32", 0), ("bfloat16", 1))
+        for n in (145, 785)}
         for name in ("attention_qkv_fwd", "attention_qkv_bwd")}
     for name in SOURCES:
         b = built[name]
@@ -188,7 +199,7 @@ def build_phase():
                           r"(\d+ bytes spill stores, \d+ bytes spill loads)"
                           r".*?(Used \d+ registers[^\n]*)",
                           b.ptxas_log, flags=re.S)],
-            "dynamic_smem_bytes_per_block_n145": smem.get(name, 0),
+            "dynamic_smem_per_block": smem.get(name, {}),
         }})
 
 
@@ -259,7 +270,7 @@ def _alternate(torch, fns, iters: int = 50) -> dict:
                             for n, v in t.items()}}
 
 
-def _sdpa(torch, q, k, v, g=None) -> dict:
+def _sdpa(torch, q, k, v, g=None, scale=SCALE) -> dict:
     """scaled_dot_product_attention on heads-first q, k, v (its backward
     for the cotangent ``g``, when given), the yardstick of the attention
     kernels, under each of its flash, memory-efficient and cuDNN backends
@@ -279,14 +290,14 @@ def _sdpa(torch, q, k, v, g=None) -> dict:
             t.detach().requires_grad_() for t in (q, k, v))
         try:
             with sdpa_kernel(backend):
-                o = F.scaled_dot_product_attention(*ins, scale=SCALE)
+                o = F.scaled_dot_product_attention(*ins, scale=scale)
         except RuntimeError:  # this backend does not take these inputs
             continue
         if g is None:
             def fn(backend=backend):
                 with sdpa_kernel(backend):
                     return F.scaled_dot_product_attention(q, k, v,
-                                                          scale=SCALE)
+                                                          scale=scale)
         else:
             def fn(o=o, ins=ins):
                 return torch.autograd.grad(o, ins, g, retain_graph=True)
@@ -468,6 +479,196 @@ def split_kernel_phase(torch):
     return main
 
 
+# C2: the attention kernels at the sizes the 448 px and 320 px paths give
+# them, past each body's whole-sequence route, and at the other padded head
+# widths (kernel level only; the model's width is 32):
+# (batch, n, heads, head_dim, dtype)
+C2_SHAPES = [
+    (64, 785, 8, 32, "bfloat16"),   # 448 px: serving forward, train step
+    (16, 401, 8, 32, "float32"),    # 320 px, the f32 train step
+    (64, 1025, 8, 32, "bfloat16"),  # past the bf16 forward's whole route
+    (64, 145, 16, 16, "bfloat16"), (64, 145, 4, 48, "bfloat16"),
+    (64, 145, 4, 64, "bfloat16"), (64, 145, 2, 128, "bfloat16"),
+    (16, 785, 16, 16, "bfloat16"), (16, 785, 4, 48, "bfloat16"),
+    (16, 785, 4, 64, "bfloat16"), (16, 785, 2, 128, "bfloat16"),
+    (16, 401, 16, 16, "float32"), (16, 401, 4, 48, "float32"),
+    (16, 401, 4, 64, "float32"), (16, 401, 2, 128, "float32"),
+]
+# the long paths: 448 px bf16 (N = 785) and 320 px f32 (N = 401) training,
+# their staged canvases 64 px wider than the crop
+LONG_BF16, LONG_F32 = 448, 320
+LONG_BF16_BATCH, LONG_F32_BATCH = 64, 16
+
+
+def c2_kernel_phase(torch) -> list:
+    """The packed kernels against their plain versions at C2_SHAPES, the
+    split kernels on the chunk views equal to them bit for bit, each
+    kernel's route, and times of kernel, plain version and SDPA under each
+    backend in the row's dtype, with the bound."""
+    from hgr_tpu_torch.ops import attention as A
+
+    rows = []
+    for b, n, h, d, dtype in C2_SHAPES:
+        dt = getattr(torch, dtype)
+        scale, hd = d**-0.5, h * d
+        gen = torch.Generator(device="cuda").manual_seed(n * 131 + d)
+        qkv = torch.randn(b, n, 3 * hd, device="cuda", generator=gen).to(dt)
+        g = torch.randn(b, n, hd, device="cuda", generator=gen).to(dt)
+        out = A.fused_attention_qkv(qkv, h, d, scale)
+        ref = A.attention_qkv_reference(qkv, h, d, scale)
+        dx = A.fused_attention_qkv_bwd(qkv, g, h, d, scale)
+        dref = A.attention_qkv_bwd_reference(qkv, g, h, d, scale)
+        ops = qkv.chunk(3, dim=-1)
+        s_out = A.fused_attention_split(*ops, h, d, scale)
+        s_d = A.fused_attention_split_bwd(*ops, g, h, d, scale)
+        torch.cuda.synchronize()
+        fwd_err = (out.float() - ref.float()).abs().max().item()
+        atol, rtol = GRAD_TOL[dtype]
+        diff = (dx.float() - dref.float()).abs()
+        bwd_excess = (diff - atol - rtol * dref.float().abs()).max().item()
+        split_same = bool(torch.equal(s_out, out) and all(
+            torch.equal(x, y) for x, y in zip(s_d, dx.chunk(3, dim=-1))))
+        base = {"shape": [b, n, 3 * hd], "heads": h, "head_dim": d,
+                "dtype": dtype, "split_equals_packed": split_same}
+        check(fwd_err <= KERNEL_TOL[dtype],
+              f"C2 fwd kernel vs plain {base}: {fwd_err}")
+        check(bwd_excess <= 0, f"C2 bwd kernel vs plain {base}: "
+                               f"{diff.max().item()}")
+        check(split_same, f"C2 split kernels vs packed {base}")
+        qh, kh, vh = A.split_heads(qkv, h, d)
+        g_h = g.reshape(b, n, h, d).transpose(1, 2)
+        es = qkv.element_size()
+        fwd = {**base, "kernel": "attention_qkv_fwd",
+               "route": A.kernel_route("fwd", n, d, dt),
+               "max_abs_err": fwd_err, "tol": KERNEL_TOL[dtype],
+               **_alternate(torch, {
+                   "plain": lambda: A.attention_qkv_reference(qkv, h, d,
+                                                              scale),
+                   "kernel": lambda: A.fused_attention_qkv(qkv, h, d, scale),
+                   **_sdpa(torch, qh, kh, vh, scale=scale)}, iters=20),
+               **_bound((qkv.numel() + out.numel()) * es,
+                        4 * b * h * n * n * d, dtype)}
+        bwd = {**base, "kernel": "attention_qkv_bwd",
+               "route": A.kernel_route("bwd", n, d, dt),
+               "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol,
+               **_alternate(torch, {
+                   "plain": lambda: A.attention_qkv_bwd_reference(
+                       qkv, g, h, d, scale),
+                   "kernel": lambda: A.fused_attention_qkv_bwd(qkv, g, h, d,
+                                                               scale),
+                   **_sdpa(torch, qh, kh, vh, g_h, scale=scale)}, iters=10),
+               **_bound((2 * qkv.numel() + g.numel()) * es,
+                        10 * b * h * n * n * d, dtype)}
+        for row in (fwd, bwd):
+            row["ms"] = row.pop("kernel_ms")
+            _pick_library(row)
+        rows += [fwd, bwd]
+        del qkv, g, out, ref, dx, dref, diff, s_out, s_d
+        torch.cuda.empty_cache()
+    emit({"kernel_checks_c2": rows})
+    return rows
+
+
+def long_path_phase(torch, n_bn: int) -> dict:
+    """C2's paths through the entry points a user calls, MultiTaskNet
+    small at full width with seeded random weights: one bf16 train step
+    at 448 px (N = 785, B = 64, the CLI defaults: de-mixed pullbacks) with
+    the fused BN route off and on, one f32 step at 320 px (N = 401, B =
+    16) off and on, and the bf16 serving forward at 448 px (B = 64). Each
+    checks its launches per step or forward against the counts the code
+    gives, finite losses and outputs, and that the step moved every
+    parameter. Returns the launches of the whole phase."""
+    from hgr_tpu_torch.config import AugmentConfig, ModelConfig, TrainConfig
+    from hgr_tpu_torch.models import MultiTaskNet, layers
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_train_step, resolve_grad_demix
+
+    c0 = _counts()
+    steps = []
+    for px, dtype, batch_size in ((LONG_BF16, "bfloat16", LONG_BF16_BATCH),
+                                  (LONG_F32, "float32", LONG_F32_BATCH)):
+        dt = getattr(torch, dtype)
+        demix = resolve_grad_demix(TrainConfig(),
+                                   ModelConfig(compute_dtype=dtype))
+        pullbacks = 2 if demix else 1
+        model = MultiTaskNet(image_size=(px, px), dtype=dt,
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, device="cuda")
+        step = make_train_step(AugmentConfig(), image_size=(px, px),
+                               heatmap_size=(px // 4, px // 4),
+                               grad_demix=demix)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in _staged_batch(
+            batch_size, seed=7, canvas=px + 64).items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        turns = []
+        try:
+            for route in ("off", "on"):
+                layers._FUSED_BN = route == "on"
+                torch.cuda.synchronize()
+                k0 = _counts()
+                t0 = time.perf_counter()
+                state, m = step(state, batch, gen)
+                loss = float(m["total_loss"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                got = _delta(_counts(), k0)
+                want = {"attention_qkv_fwd": 4,
+                        "attention_qkv_bwd": 4 * pullbacks,
+                        "attention_split_fwd": 0, "attention_split_bwd": 0,
+                        "warp_twopass": 1,
+                        "bn_act_reduce": n_bn * pullbacks * (route == "on"),
+                        "bn_act_elem": n_bn * pullbacks * (route == "on")}
+                check(got == want, f"{px} px {dtype} step, fused BN {route}: "
+                                   f"launches {got} != {want}")
+                check(np.isfinite(loss), f"{px} px step loss {loss}")
+                turns.append({"fused_bn": route, "loss": loss,
+                              "seconds_first_step": seconds,
+                              "launches": got})
+        finally:
+            layers._FUSED_BN = None
+        after = model.state_dict()
+        moved = sum(not torch.equal(before[k], after[k])
+                    for k, _ in model.named_parameters())
+        n_params = sum(1 for _ in model.named_parameters())
+        check(moved == n_params, f"{px} px: params moved {moved}/{n_params}")
+        steps.append({"image": px, "n": (px // 16) ** 2 + 1, "dtype": dtype,
+                      "batch": batch_size, "canvas": px + 64,
+                      "grad_demix": demix, "turns": turns})
+        del model, state, step, batch, before, after
+        torch.cuda.empty_cache()
+
+    # the bf16 serving forward at 448 px
+    model = MultiTaskNet(image_size=(LONG_BF16, LONG_BF16),
+                         dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(0))
+    model = model.eval().to("cuda")
+    x = torch.from_numpy(np.random.RandomState(8).randn(
+        SERVE_BATCH, LONG_BF16, LONG_BF16, 3).astype(np.float32)).cuda()
+    k0 = _counts()
+    with torch.inference_mode():
+        ms = cuda_time_ms(torch, lambda: model(x, need_attnmap=False),
+                          iters=5, warmup=1)
+        logits, hmap, _ = model(x, need_attnmap=False)
+        torch.cuda.synchronize()
+    forwards = _delta(_counts(), k0)["attention_qkv_fwd"] // 4
+    check(forwards == 7, f"448 px serving: {forwards} forwards' launches")
+    check(tuple(logits.shape) == (SERVE_BATCH, 19) and tuple(hmap.shape) == (
+        SERVE_BATCH, LONG_BF16 // 4, LONG_BF16 // 4, 21)
+        and bool(torch.isfinite(logits).all() and torch.isfinite(hmap)
+                 .all()), "448 px serving outputs: shapes and finite")
+    launches = _delta(_counts(), c0)
+    emit({"long_paths": {
+        "model": "MultiTaskNet small (dim 256, depth 4, 8x32 heads), "
+                 "seeded random weights",
+        "train_steps": steps,
+        "serving_448_bf16": {"batch": SERVE_BATCH, "n": 785,
+                             "ms_per_forward": ms,
+                             "crops_per_s": SERVE_BATCH / ms * 1e3},
+        "launches": launches}})
+    return launches
+
+
 def _warp_inputs(torch, b, rot, seed):
     from hgr_tpu_torch.ops.affine import build_affine
 
@@ -488,9 +689,11 @@ def _warp_inputs(torch, b, rot, seed):
 def warp_kernel_phase(torch):
     """Warp kernel vs plain version at B=256, S=256 -> 192: uint8 canvases
     with jitter at 0° and 90° (the transpose route), f32 and bf16
-    canvases; times for each. No single PyTorch call computes this
+    canvases; times for each, of the kernel alone and of its wrapper,
+    with the spread of their turns. No single PyTorch call computes this
     function (grid_sample has no jitter and no two-pass taps), so there
     is no library time."""
+    from hgr_tpu_torch.ops import warp_fused as W
     from hgr_tpu_torch.ops.warp_fused import (
         warp_twopass,
         warp_twopass_reference,
@@ -515,12 +718,20 @@ def warp_kernel_phase(torch):
                "tol": WARP_TOL}
         check(row["max_abs_err"] <= 1.0 and row["frac_above_tol"] < 0.01,
               f"warp kernel vs plain {dtype} rot {rot}: {row}")
+        # the kernel alone (its parameters built outside the timing) and
+        # the wrapper (which builds them, a dozen small torch ops, each
+        # call), WARP_ITERS launches a turn in alternating turns
+        params = W._kernel_params(m, gains, do_j)
         row.update(_alternate(torch, {
             "plain": lambda: warp_twopass_reference(canvas, m, (IMAGE, IMAGE),
                                                     **kw),
-            "kernel": lambda: warp_twopass(canvas, m, (IMAGE, IMAGE), **kw),
-        }))
+            "wrapper": lambda: warp_twopass(canvas, m, (IMAGE, IMAGE), **kw),
+            "kernel": lambda: W.launch_with_params(canvas, params, IMAGE,
+                                                   IMAGE, True, True),
+        }, iters=WARP_ITERS))
         row["ms"] = row.pop("kernel_ms")
+        row["spread"] = {name: (max(t) - min(t)) / float(np.mean(t))
+                         for name, t in row["runs_ms"].items()}
         out_px = TRAIN_BATCH * IMAGE * IMAGE
         row.update(_bound(
             canvas.numel() * canvas.element_size() + out.numel() * 4,
@@ -535,17 +746,17 @@ def warp_kernel_phase(torch):
     return main
 
 
-def _staged_batch(b: int, seed: int) -> dict:
+def _staged_batch(b: int, seed: int, canvas: int = CANVAS) -> dict:
     """A staged training batch in the loader's layout, made with numpy:
-    random uint8 canvases holding images of 200-400 px scaled into the
-    canvas, joints inside the central window, valid all ones."""
+    random uint8 canvases of side ``canvas`` holding images of 200-400 px
+    scaled into them, joints inside the central window, valid all ones."""
     rng = np.random.RandomState(seed)
     sizes = rng.uniform(200, 400, (b, 2)).astype(np.float32)
-    scale = CANVAS / sizes.max(axis=1)
+    scale = canvas / sizes.max(axis=1)
     a = np.zeros((b, 2, 3), np.float32)
     a[:, 0, 0] = a[:, 1, 1] = scale
     return {
-        "canvas": rng.randint(0, 256, (b, CANVAS, CANVAS, 3), np.uint8),
+        "canvas": rng.randint(0, 256, (b, canvas, canvas, 3), np.uint8),
         "orig_to_canvas": a,
         "sizes_hw": sizes,
         "joints": (rng.uniform(0.35, 0.65, (b, 21, 2))
@@ -570,6 +781,25 @@ def _zero_counts():
 
 def _delta(after, before):
     return {k: after[k] - before[k] for k in after}
+
+
+def _device_kernels_per_call(torch, fn):
+    """The names of the device kernels one call of ``fn`` runs, from a
+    torch.profiler trace of it (after a warm call); None when the trace
+    sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    return [e.name for e in kernels] or None
 
 
 def _path_bn_layers(torch):
@@ -705,6 +935,15 @@ def bn_kernel_phase(torch, path_layers):
             row.setdefault("library_ms", None)
             if row.get("library_ms"):
                 row["ms_over_library_ms"] = row["ms"] / row["library_ms"]
+        if "library_reduce_call_ms" in red:  # torch.batch_norm_backward_reduce
+            red["ms_over_reduce_call_ms"] = (red["ms"]
+                                             / red["library_reduce_call_ms"])
+        red["device_kernels_per_call"] = _device_kernels_per_call(
+            torch, reduce_fns["kernel"])
+        check(red["device_kernels_per_call"] is None
+              or len(red["device_kernels_per_call"]) == 1,
+              f"bn_act_reduce at {base}: device kernels a call "
+              f"{red['device_kernels_per_call']}")
         if lib is not None:  # the whole backward, for the pair's yardstick
             elem["library_whole_backward_ms"] = cuda_time_ms(
                 torch, lib([True, True, True]), iters=20, warmup=3)
@@ -1522,6 +1761,7 @@ def main() -> int:
     rows["bn_act_reduce"], rows["bn_act_elem"], _ = bn_kernel_phase(
         torch, path_layers)
     rows.update(split_kernel_phase(torch))
+    c2_kernel_phase(torch)
     single_path = [k for k in KERNELS if "split" not in k]
 
     # main path 1, serving: counts at 0 just before, read just after
@@ -1559,13 +1799,20 @@ def main() -> int:
         check(meshed[name] > 0, f"the multi-rank runs launched {name}")
     mesh_checks_phase(torch, tp_save, work)
 
+    # main path 5, C2's lengths: 448 px bf16 and 320 px f32 train steps and
+    # the 448 px serving forward
+    _zero_counts()
+    longer = long_path_phase(torch, n_bn)
+    for name in single_path:
+        check(longer[name] > 0, f"the 448 / 320 px paths launched {name}")
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"hgr_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
         "launches": served[name] + trained[name] + looped[name]
-        + meshed[name],
+        + meshed[name] + longer[name],
         "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],

@@ -1,7 +1,10 @@
 // Tensor-core building blocks of the bf16 attention kernels
 // (attention_qkv_fwd.cu, attention_qkv_bwd.cu): cp.async staging of one
 // head's rows into shared memory, ldmatrix fragment loads, and the
-// mma.sync.aligned.m16n8k16 bf16 -> f32 product, for head dimension 32.
+// mma.sync.aligned.m16n8k16 bf16 -> f32 product, for a padded head width
+// Dp in {16, 32, 64, 128} (the true width d <= Dp is a runtime value;
+// staged columns d..Dp-1 are zero, so every product over Dp features
+// equals the one over d).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for a
 // lane with group g = lane / 4 and thread-in-group t = lane % 4:
@@ -27,15 +30,20 @@ namespace attn_mma {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 32;
-// A staged row: 32 bf16 features and 8 of padding, 80 bytes. ldmatrix
-// reads 8 rows of 16 bytes at a time; at 80 bytes a row those start in 8
-// distinct 16-byte bank groups (64 bytes would give a 4-way conflict).
-constexpr int kRowPad = 40;
+// A staged row: Dp bf16 features and 8 of padding. ldmatrix reads 8 rows
+// of 16 bytes at a time; at (Dp + 8) * 2 bytes a row (48, 80, 144 or 272)
+// those start in 8 distinct 16-byte bank groups (at Dp * 2 bytes a row
+// they would conflict up to 8 ways).
+__host__ __device__ constexpr int row_pad(int dp) { return dp + 8; }
 constexpr int kMaxWarps = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
+
+// The padded head width of the bodies for a head width d (1..128).
+__host__ __device__ inline int padded_width(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+}
 
 // Warps per block for ``tiles`` 16-row tiles: at most ``most`` (up to
 // kMaxWarps), and as few as give every warp the same number of rounds.
@@ -59,32 +67,54 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Stage rows 0..n-1 of one head (32 features, row stride ``row``
-// elements) into ``dst`` as rows of kRowPad bf16, and zero rows n..npad-1,
-// so that products over the padded tile see zeros and never stale shared
-// memory (0 x NaN is NaN). 16-byte cp.async copies when the rows allow
-// them (16-byte aligned, row stride a multiple of 8 elements), else one
-// element per thread into the same layout. The caller waits
-// (cp_async_wait_all) and synchronises the block.
+// closes this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most ``kPending`` of this thread's groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Stage rows 0..n-1 of one head (d features, row stride ``row`` elements)
+// into ``dst`` as rows of row_pad(Dp) bf16, zero its columns d..Dp-1, and
+// zero rows n..npad-1, so that products over the padded tile see zeros and
+// never stale shared memory (0 x NaN is NaN). 16-byte cp.async copies when
+// the rows allow them (16-byte aligned, row stride and d multiples of 8
+// elements), else one element per thread into the same layout. The caller
+// waits (cp_async_wait_all or a group wait) and synchronises the block.
+template <int Dp>
 __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
                                            int64_t row, bf16* dst, int n,
-                                           int npad) {
-  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % 8 == 0) {
-    for (int idx = threadIdx.x; idx < n * 4; idx += blockDim.x) {
-      const int j = idx >> 2;
-      const int c = (idx & 3) * 8;
-      cp_async16(dst + j * kRowPad + c, src + j * row + c);
+                                           int npad, int d) {
+  constexpr int kPad = row_pad(Dp);
+  constexpr int kChunks = Dp / 8;  // 16-byte chunks of a staged row
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % 8 == 0 &&
+      d % 8 == 0) {
+    const int dc = d >> 3;
+    for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
+      const int j = idx / kChunks;
+      const int c = idx - j * kChunks;
+      if (c < dc) {
+        cp_async16(dst + j * kPad + c * 8, src + j * row + c * 8);
+      } else {
+        *reinterpret_cast<uint4*>(dst + j * kPad + c * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   } else {
-    for (int idx = threadIdx.x; idx < n * kHeadDim; idx += blockDim.x) {
-      const int j = idx / kHeadDim;
-      const int d = idx - j * kHeadDim;
-      dst[j * kRowPad + d] = src[j * row + d];
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int idx = threadIdx.x; idx < n * Dp; idx += blockDim.x) {
+      const int j = idx / Dp;
+      const int f = idx - j * Dp;
+      dst[j * kPad + f] = f < d ? src[j * row + f] : zero;
     }
   }
-  for (int idx = threadIdx.x; idx < (npad - n) * 4; idx += blockDim.x) {
-    const int j = n + (idx >> 2);
-    *reinterpret_cast<uint4*>(dst + j * kRowPad + (idx & 3) * 8) =
+  for (int idx = threadIdx.x; idx < (npad - n) * kChunks; idx += blockDim.x) {
+    const int j = n + idx / kChunks;
+    *reinterpret_cast<uint4*>(dst + j * kPad + (idx % kChunks) * 8) =
         make_uint4(0u, 0u, 0u, 0u);
   }
 }
@@ -93,6 +123,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// two 8 x 8 matrices, addressed by lanes 0..15
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_addr(p)));
 }
 
@@ -137,42 +175,60 @@ __device__ __forceinline__ void pack_split(float x0, float x1,
   }
 }
 
-// The A fragments of the 16 x 32 tile of staged rows r0..r0+15: a[s] for
+// The A fragments of the 16 x Dp tile of staged rows r0..r0+15: a[s] for
 // features 16s..16s+15. Lane l addresses row r0 + l % 16, column
 // 8 * (l / 16): its four 8 x 8 matrices are a[s][0..3] in order.
-__device__ __forceinline__ void load_a(uint32_t (&a)[2][4], const bf16* rows,
-                                       int r0, int lane) {
-  const bf16* p = rows + (r0 + (lane & 15)) * kRowPad + (lane >> 4) * 8;
-  ldsm_x4(a[0], p);
-  ldsm_x4(a[1], p + 16);
+template <int Dp>
+__device__ __forceinline__ void load_a(uint32_t (&a)[Dp / 16][4],
+                                       const bf16* rows, int r0, int lane) {
+  const bf16* p =
+      rows + (r0 + (lane & 15)) * row_pad(Dp) + (lane >> 4) * 8;
+#pragma unroll
+  for (int s = 0; s < Dp / 16; ++s) ldsm_x4(a[s], p + 16 * s);
 }
 
-// c = A . X[r0..r0+7]^T for the 16 x 32 A tile ``a`` and staged rows X:
+// c = A . X[r0..r0+7]^T for the 16 x Dp A tile ``a`` and staged rows X:
 // the B fragments of X^T are X's rows as stored (lane l addresses row
-// r0 + l % 8, features 8 * (l / 8)), one matrix per 8 features.
+// r0 + l % 8, features 8 * (l / 8)), one matrix per 8 features, four at a
+// time (two at Dp = 16), all loaded before the products run.
+template <int Dp>
 __device__ __forceinline__ void product_t(float (&c)[4],
-                                          const uint32_t (&a)[2][4],
+                                          const uint32_t (&a)[Dp / 16][4],
                                           const bf16* rows, int r0,
                                           int lane) {
-  uint32_t b[4];
-  ldsm_x4(b, rows + (r0 + (lane & 7)) * kRowPad + (lane >> 3) * 8);
+  const bf16* p = rows + (r0 + (lane & 7)) * row_pad(Dp) + (lane >> 3) * 8;
+  uint32_t b[Dp / 32 + (Dp % 32 != 0)][4];
+#pragma unroll
+  for (int s = 0; s + 32 <= Dp; s += 32) ldsm_x4(b[s / 32], p + s);
+  if constexpr (Dp % 32 != 0) {
+    uint32_t h[2];
+    ldsm_x2(h, p + Dp - 16);
+    b[Dp / 32][0] = h[0];
+    b[Dp / 32][1] = h[1];
+  }
   c[0] = c[1] = c[2] = c[3] = 0.f;
-  mma(c, a[0], b[0], b[1]);
-  mma(c, a[1], b[2], b[3]);
+#pragma unroll
+  for (int s = 0; s + 32 <= Dp; s += 32) {
+    mma(c, a[s / 16], b[s / 32][0], b[s / 32][1]);
+    mma(c, a[s / 16 + 1], b[s / 32][2], b[s / 32][3]);
+  }
+  if constexpr (Dp % 32 != 0) {
+    mma(c, a[Dp / 16 - 1], b[Dp / 32][0], b[Dp / 32][1]);
+  }
 }
 
 // c[j] = A . X[r0 + 8j .. r0 + 8j + 7]^T, the raw f32 products of the
-// 16 x 32 A tile ``a`` with NT 8-row tiles of staged rows X from r0 on;
+// 16 x Dp A tile ``a`` with NT 8-row tiles of staged rows X from r0 on;
 // tiles at or past npad are not computed (zero).
-template <int NT>
+template <int Dp, int NT>
 __device__ __forceinline__ void products(float (&c)[NT][4],
-                                         const uint32_t (&a)[2][4],
+                                         const uint32_t (&a)[Dp / 16][4],
                                          const bf16* rows, int r0, int npad,
                                          int lane) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
     if (r0 + 8 * j < npad) {
-      product_t(c[j], a, rows, r0 + 8 * j, lane);
+      product_t<Dp>(c[j], a, rows, r0 + 8 * j, lane);
     } else {
       c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
     }
@@ -182,10 +238,12 @@ __device__ __forceinline__ void products(float (&c)[NT][4],
 // s = the scores of the query tile ``qa`` against NT 8-key tiles of the
 // staged keys from key0 on: the f32 dot, then __fmul_rn by scale (never
 // contracted into what follows); keys at or beyond n, and tiles at or
-// past npad (not computed), at -inf.
-template <int NT>
+// past npad (not computed), at -inf. (For a chunk of keys staged on its
+// own, key0 counts from the chunk's first key and n is the number of keys
+// left from it.)
+template <int Dp, int NT>
 __device__ __forceinline__ void masked_scores(float (&s)[NT][4],
-                                              const uint32_t (&qa)[2][4],
+                                              const uint32_t (&qa)[Dp / 16][4],
                                               const bf16* ks, int key0,
                                               int n, int npad, float scale,
                                               int lane) {
@@ -194,7 +252,7 @@ __device__ __forceinline__ void masked_scores(float (&s)[NT][4],
   for (int j = 0; j < NT; ++j) {
     const int k0 = key0 + 8 * j;
     if (k0 < npad) {
-      product_t(s[j], qa, ks, k0, lane);
+      product_t<Dp>(s[j], qa, ks, k0, lane);
       const int c = k0 + 2 * t;
       s[j][0] = c < n ? __fmul_rn(s[j][0], scale) : -INFINITY;
       s[j][1] = c + 1 < n ? __fmul_rn(s[j][1], scale) : -INFINITY;
@@ -206,19 +264,20 @@ __device__ __forceinline__ void masked_scores(float (&s)[NT][4],
   }
 }
 
-// acc (16 x 32, four 16 x 8 C tiles) += (A_0 + ... + A_{K-1}) .
+// acc (16 x Dp, Dp / 8 C tiles of 16 x 8) += (A_0 + ... + A_{K-1}) .
 // X[r0..r0+15] for the K 16 x 16 A fragments ``a`` (over rows r0..r0+15
 // of X) and staged rows X: the B fragments come through ldmatrix.trans
 // once for all K, lane l addressing row r0 + l % 16, features
 // f0 + 8 * (l / 16).
-template <int K>
-__device__ __forceinline__ void accumulate(float (&acc)[4][4],
+template <int Dp, int K>
+__device__ __forceinline__ void accumulate(float (&acc)[Dp / 8][4],
                                            const uint32_t (&a)[K][4],
                                            const bf16* rows, int r0,
                                            int lane) {
-  const bf16* p = rows + (r0 + (lane & 15)) * kRowPad + (lane >> 4) * 8;
+  const bf16* p =
+      rows + (r0 + (lane & 15)) * row_pad(Dp) + (lane >> 4) * 8;
 #pragma unroll
-  for (int f = 0; f < 2; ++f) {
+  for (int f = 0; f < Dp / 16; ++f) {
     uint32_t b[4];
     ldsm_x4_trans(b, p + 16 * f);
 #pragma unroll
@@ -239,26 +298,31 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-// Store the 16 x 32 f32 tile ``acc`` (rows r0.., C layout) as bf16 rows
-// of ``dst`` (row stride ``row`` elements), rows at or beyond n skipped.
-__device__ __forceinline__ void store_rows(const float (&acc)[4][4],
+// Store columns 0..d-1 of the 16 x Dp f32 tile ``acc`` (rows r0.., C
+// layout) as bf16 rows of ``dst`` (row stride ``row`` elements), rows at
+// or beyond n skipped.
+template <int Dp>
+__device__ __forceinline__ void store_rows(const float (&acc)[Dp / 8][4],
                                            bf16* dst, int64_t row, int r0,
-                                           int n, int lane) {
+                                           int n, int d, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  const bool pairs = reinterpret_cast<uintptr_t>(dst) % 4 == 0 && row % 2 == 0;
+  // every column stored in pairs (the model's widths), or one by one
+  const bool pairs = reinterpret_cast<uintptr_t>(dst) % 4 == 0 &&
+                     row % 2 == 0 && d == Dp;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int i = r0 + g + 8 * half;
     if (i >= n) continue;
 #pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      bf16* p = dst + i * row + 8 * f + 2 * t;
+    for (int f = 0; f < Dp / 8; ++f) {
+      const int col = 8 * f + 2 * t;
+      bf16* p = dst + i * row + col;
       const float x0 = acc[f][2 * half], x1 = acc[f][2 * half + 1];
       if (pairs) {
         *reinterpret_cast<uint32_t*>(p) = pack(x0, x1);
       } else {
-        p[0] = __float2bfloat16(x0);
-        p[1] = __float2bfloat16(x1);
+        if (col < d) p[0] = __float2bfloat16(x0);
+        if (col + 1 < d) p[1] = __float2bfloat16(x1);
       }
     }
   }

@@ -188,6 +188,15 @@ def identity_params(batch: int, device="cpu") -> AugmentParams:
                          do_jitter=full((batch,), 0.0))
 
 
+def auto_warp_method(device_type: str, canvas_shape: Tuple[int, ...]) -> str:
+    """The warp 'auto' takes for a (B, S_h, S_w, 3) canvas on
+    ``device_type``: the two-pass kernel on CUDA when the canvas is
+    square (the kernel's layout), else the exact warp, as the JAX
+    package's ``kernel_ok`` guard routes (pipeline.py:266-269)."""
+    square = canvas_shape[1] == canvas_shape[2]
+    return "kernel" if device_type == "cuda" and square else "exact"
+
+
 def apply_augment_batch(canvas: torch.Tensor, orig_to_canvas: torch.Tensor,
                         sizes_hw: torch.Tensor, joints: torch.Tensor,
                         joints_vis: torch.Tensor, params: AugmentParams,
@@ -201,10 +210,11 @@ def apply_augment_batch(canvas: torch.Tensor, orig_to_canvas: torch.Tensor,
     device. canvas (B, S, S, 3) uint8; orig_to_canvas (B, 2, 3); sizes_hw
     (B, 2) (h, w); joints (B, J, 2) in original pixels; joints_vis (B, J).
 
-    ``warp_method``: 'auto' takes the exact 4-tap warp on the CPU and the
-    fused jitter + warp kernel on CUDA (as the JAX package routes,
-    pipeline.py:266-269); 'exact'; 'kernel' (``warp_twopass``: the
-    kernel on CUDA, its plain version on the CPU).
+    ``warp_method``: 'auto' takes the fused jitter + warp kernel on CUDA
+    for a square canvas and the exact 4-tap warp otherwise (as the JAX
+    package routes, pipeline.py:266-269; ``auto_warp_method``); 'exact';
+    'kernel' (``warp_twopass``: the kernel on CUDA, its plain version on
+    the CPU; square canvases only).
 
     Returns image (B, H, W, 3) f32, target (B, J, Hh, Hw), target_weight
     (B, J) and joints (B, J, 2) in crop space.
@@ -241,7 +251,7 @@ def apply_augment_batch(canvas: torch.Tensor, orig_to_canvas: torch.Tensor,
     m_canvas = compose_affine(m_orig, invert_affine(orig_to_canvas))
 
     if warp_method == "auto":
-        warp_method = "kernel" if dev.type == "cuda" else "exact"
+        warp_method = auto_warp_method(dev.type, tuple(canvas.shape))
     gains = params.jitter_gains if enable_jitter else None
     if warp_method == "kernel":
         crop = warp_twopass(canvas, m_canvas, (out_h, out_w),

@@ -25,9 +25,14 @@ hgr_tpu/ops/attention_pallas.py).
   ``attention_split_bwd_reference`` run, which the packed plain versions
   call on the three thirds.
 * On CUDA tensors each kernel runs one body per compute type: bf16 on
-  Hopper's tensor cores (``mma.sync``), float32 on the CUDA cores; the
-  shared memory a block needs, and so the longest sequence admitted,
-  depends on the body (``_admit``).
+  Hopper's tensor cores (``mma.sync``), float32 on the CUDA cores, each
+  templated over the padded head width (16, 32, 64 or 128: any head_dim
+  up to 128; above it the kernels raise, naming ROADMAP C2). Every
+  sequence length runs: while a head's whole sequence fits in one block's
+  shared memory the kernels take it whole, past that they stream the keys
+  (and, in the backward, the queries) through shared memory in chunks
+  (``kernel_route``). The chunked backward keeps the rows' softmax
+  statistics in a scratch the wrapper allocates.
 * ``attention_core`` — the unfused chain on heads-first tensors that can
   also return the post-softmax map (``_xla_attention_core`` :139); the
   model's need-map path and ``fused_attention=False`` use it.
@@ -42,8 +47,7 @@ from typing import Tuple
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL_HEAD_DIM = 32
-_SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+_MAX_HEAD_DIM = 128  # the widest padded head width the bodies take
 
 
 def split_heads(qkv: torch.Tensor, heads: int, head_dim: int
@@ -156,9 +160,9 @@ def attention_qkv_bwd_reference(qkv: torch.Tensor, g: torch.Tensor,
 def _declare(lib: ctypes.CDLL, name: str, argtypes) -> ctypes.CDLL:
     getattr(lib, name).argtypes = argtypes
     getattr(lib, name).restype = ctypes.c_int
-    getattr(lib, f"{name}_smem_bytes").argtypes = [ctypes.c_int,
-                                                   ctypes.c_int]
-    getattr(lib, f"{name}_smem_bytes").restype = ctypes.c_int
+    for query in ("smem_bytes", "route"):
+        getattr(lib, f"{name}_{query}").argtypes = [ctypes.c_int] * 3
+        getattr(lib, f"{name}_{query}").restype = ctypes.c_int
     getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     return lib
@@ -185,15 +189,22 @@ def _bwd_kernel() -> ctypes.CDLL:
     """The built backward kernel library with its C signatures declared."""
     from hgr_tpu_torch.utils.cuda_build import load_kernel
 
-    lib = _declare(load_kernel("attention_qkv_bwd").lib, "attention_qkv_bwd",
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.attention_split_bwd.argtypes = [p, p, i, i, i, i, ctypes.c_float, i,
-                                        p]
+    lib = _declare(load_kernel("attention_qkv_bwd").lib, "attention_qkv_bwd",
+                   [p, p, p, p, i, i, i, i, ctypes.c_float, i, p])
+    lib.attention_split_bwd.argtypes = [p, p, p, i, i, i, i, ctypes.c_float,
+                                        i, p]
     lib.attention_split_bwd.restype = i
+    lib.attention_qkv_bwd_scratch_floats.argtypes = [i] * 5
+    lib.attention_qkv_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
+
+
+def _check_head_dim(head_dim: int) -> None:
+    if not 1 <= head_dim <= _MAX_HEAD_DIM:
+        raise ValueError(
+            f"attention kernels take head_dim 1..{_MAX_HEAD_DIM}, got "
+            f"{head_dim} (wider heads: ROADMAP C2)")
 
 
 def _check(qkv: torch.Tensor, heads: int, head_dim: int) -> None:
@@ -207,23 +218,33 @@ def _check(qkv: torch.Tensor, heads: int, head_dim: int) -> None:
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(
             f"attention kernel takes float32 or bfloat16, got {qkv.dtype}")
-    if head_dim != _KERNEL_HEAD_DIM:
-        raise ValueError(
-            f"attention kernel supports head_dim {_KERNEL_HEAD_DIM}, "
-            f"got {head_dim}")
+    _check_head_dim(head_dim)
     if not qkv.is_contiguous():
         raise ValueError("attention kernel needs a contiguous qkv")
     if not 1 <= b <= 65535 or not 1 <= heads <= 65535:
         raise ValueError(f"batch {b} / heads {heads} outside [1, 65535]")
 
 
-def _admit(smem_bytes, n: int, dtype: torch.dtype) -> None:
-    """Raise unless one block of the kernel body for ``dtype`` fits in
-    shared memory at sequence length ``n`` (``smem_bytes`` is the
-    library's ``*_smem_bytes``)."""
-    if n < 1 or smem_bytes(n, _DTYPE_CODES[dtype]) > _SMEM_LIMIT:
-        raise ValueError(f"sequence length {n} needs more shared memory "
-                         f"than a block has ({dtype})")
+def kernel_route(kernel: str, n: int, head_dim: int,
+                 dtype: torch.dtype) -> int:
+    """The route ``kernel`` ('fwd' or 'bwd') takes on the card at sequence
+    length ``n`` and ``head_dim`` in ``dtype``: 0 = the whole sequence of
+    a head in one block's shared memory, 1 = key-chunked. Builds the
+    kernel library (needs nvcc)."""
+    lib = _kernel() if kernel == "fwd" else _bwd_kernel()
+    return getattr(lib, f"attention_qkv_{kernel}_route")(
+        n, _DTYPE_CODES[dtype], head_dim)
+
+
+def _bwd_scratch(lib, b: int, n: int, heads: int, head_dim: int,
+                 t: torch.Tensor):
+    """The f32 statistics scratch of the chunked backward (None on the
+    whole-sequence route, which needs none)."""
+    count = lib.attention_qkv_bwd_scratch_floats(b, n, heads, head_dim,
+                                                 _DTYPE_CODES[t.dtype])
+    if count == 0:
+        return None
+    return torch.empty(count, dtype=torch.float32, device=t.device)
 
 
 def _launch(qkv: torch.Tensor, heads: int, head_dim: int,
@@ -231,7 +252,6 @@ def _launch(qkv: torch.Tensor, heads: int, head_dim: int,
     _check(qkv, heads, head_dim)
     b, n, _ = qkv.shape
     lib = _kernel()
-    _admit(lib.attention_qkv_fwd_smem_bytes, n, qkv.dtype)
     out = torch.empty((b, n, heads * head_dim), dtype=qkv.dtype,
                       device=qkv.device)
     with torch.cuda.device(qkv.device):
@@ -259,12 +279,15 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     if not g.is_contiguous():
         raise ValueError("attention backward kernel needs a contiguous g")
     lib = _bwd_kernel()
-    _admit(lib.attention_qkv_bwd_smem_bytes, n, qkv.dtype)
     out = torch.empty_like(qkv)
+    scratch = _bwd_scratch(lib, b, n, heads, head_dim, qkv)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = lib.attention_qkv_bwd(qkv.data_ptr(), g.data_ptr(),
-                                   out.data_ptr(), b, n, heads, head_dim,
+                                   out.data_ptr(),
+                                   None if scratch is None
+                                   else scratch.data_ptr(),
+                                   b, n, heads, head_dim,
                                    float(scale), _DTYPE_CODES[qkv.dtype],
                                    stream)
     if rc != 0:
@@ -294,9 +317,7 @@ def _check_split(ts, heads: int, head_dim: int) -> Tuple[int, int]:
     if first.dtype not in _DTYPE_CODES:
         raise TypeError(
             f"attention kernel takes float32 or bfloat16, got {first.dtype}")
-    if head_dim != _KERNEL_HEAD_DIM:
-        raise ValueError(f"attention kernel supports head_dim "
-                         f"{_KERNEL_HEAD_DIM}, got {head_dim}")
+    _check_head_dim(head_dim)
     b, n, _ = first.shape
     if not 1 <= b <= 65535 or not 1 <= heads <= 65535 or n < 1:
         raise ValueError(f"batch {b} / heads {heads} / length {n} outside "
@@ -313,7 +334,6 @@ def _launch_split(q, k, v, heads: int, head_dim: int,
                   scale: float) -> torch.Tensor:
     b, n = _check_split((q, k, v), heads, head_dim)
     lib = _kernel()
-    _admit(lib.attention_qkv_fwd_smem_bytes, n, q.dtype)
     out = torch.empty((b, n, heads * head_dim), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -332,14 +352,16 @@ def _launch_split_bwd(q, k, v, g, heads: int, head_dim: int, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, n = _check_split((q, k, v, g), heads, head_dim)
     lib = _bwd_kernel()
-    _admit(lib.attention_qkv_bwd_smem_bytes, n, q.dtype)
     outs = tuple(torch.empty((b, n, heads * head_dim), dtype=q.dtype,
                              device=q.device) for _ in range(3))
+    scratch = _bwd_scratch(lib, b, n, heads, head_dim, q)
     ts = (q, k, v, g) + outs
     ptrs = (ctypes.c_void_p * 7)(*(t.data_ptr() for t in ts))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.attention_split_bwd(ptrs, _strides(ts), b, n, heads,
+        rc = lib.attention_split_bwd(ptrs, _strides(ts),
+                                     None if scratch is None
+                                     else scratch.data_ptr(), b, n, heads,
                                      head_dim, float(scale),
                                      _DTYPE_CODES[q.dtype], stream)
     if rc != 0:

@@ -9,7 +9,8 @@ of hgr_tpu/ops/bn_act_pallas.py).
   ``T1 = Σ dz``, ``T2 = Σ dz·x̂``, then ``dy = r·γ·(dz − T1/M − x̂·T2/M)``
   with ``dz = g·silu′(z)`` (or ``g`` without the activation). On a CUDA
   tensor each launches its kernel of ``csrc/bn_act_bwd.cu`` (ports of
-  ``_reduce_kernel`` :102 and ``_elem_kernel`` :129) and counts it in
+  ``_reduce_kernel`` :102 and ``_elem_kernel`` :129), one launch a call
+  with the per-channel vectors passed by pointer, and counts it in
   ``bn_act_reduce.launches`` / ``bn_act_elem.launches``; on a CPU tensor
   each runs its plain version (``bn_act_reduce_reference``,
   ``bn_act_elem_reference``). ``bn_act_bwd`` chains the two.
@@ -102,12 +103,11 @@ def _kernel() -> ctypes.CDLL:
 
     lib = load_kernel("bn_act_bwd").lib
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.bn_act_reduce_chunks.argtypes = [i64, i32, i32, i32]
-    lib.bn_act_reduce_chunks.restype = i32
-    lib.bn_act_reduce.argtypes = [p, p, p, p, p, p, i64, i32, i32, i32, i32,
-                                  p]
+    lib.bn_act_reduce_workspace.argtypes = [i64, i32, i32, i32, i32, p, p]
+    lib.bn_act_reduce_workspace.restype = i32
+    lib.bn_act_reduce.argtypes = [p] * 10 + [i64, i32, i32, i32, i32, p]
     lib.bn_act_reduce.restype = i32
-    lib.bn_act_elem.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, p]
+    lib.bn_act_elem.argtypes = [p] * 9 + [i64, i32, i32, i32, i32, p]
     lib.bn_act_elem.restype = i32
     lib.bn_act_error_string.argtypes = [i32]
     lib.bn_act_error_string.restype = ctypes.c_char_p
@@ -149,8 +149,58 @@ def _raise_on(rc: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
-def _stack(*vecs: torch.Tensor) -> torch.Tensor:
-    return torch.stack([v.float() for v in vecs]).contiguous()
+def _ptrs(*vecs: torch.Tensor):
+    """The data pointers of the (C,) f32 vectors (converted only where
+    one is not contiguous f32 already), and the tensors to keep alive."""
+    vecs = tuple(v if v.dtype is torch.float32 and v.is_contiguous()
+                 else v.float().contiguous() for v in vecs)
+    return [v.data_ptr() for v in vecs], vecs
+
+
+def _on_device(dev: torch.device, launch):
+    """``launch(stream)`` with ``dev`` the current device (kernels launch
+    on the current device) and its current stream as an int; the device
+    is switched, and restored, only when it is not current already (the
+    cheap case is every call of a one-card process)."""
+    if dev.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _reduce_workspace(device: int, m: int, c: int, code: int, vec: int,
+                      act: bool) -> Tuple[int, int]:
+    """(f32 elements of the partial-sum scratch, channel tiles) of the
+    reduce kernel's grid for these rows on card ``device``."""
+    lib = _kernel()
+    floats, tiles = ctypes.c_int64(), ctypes.c_int()
+    with torch.cuda.device(device):
+        rc = lib.bn_act_reduce_workspace(m, c, code, vec, int(act),
+                                         ctypes.byref(floats),
+                                         ctypes.byref(tiles))
+    if rc != 0:
+        raise ValueError(f"bn_act_reduce takes no rows ({m}, {c})")
+    return floats.value, tiles.value
+
+
+# (device, stream) -> (f32 partial-sum scratch, int32 counters): reused by
+# every reduce launch on that stream, which runs them one after another;
+# the counters are 0 between launches (the kernel resets them)
+_WORKSPACES = {}
+
+
+def _workspace(dev: torch.device, stream: int, floats: int, tiles: int):
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < tiles:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(floats, have[0]), dtype=torch.float32,
+                          device=dev),
+              torch.zeros(max(tiles, have[1], 64), dtype=torch.int32,
+                          device=dev))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def bn_act_reduce(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
@@ -168,20 +218,22 @@ def bn_act_reduce(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
     lib = _kernel()
     vec = _vectorized(c, y2, g2)
     code = _DTYPE_CODES[y2.dtype]
-    chunks = lib.bn_act_reduce_chunks(m, c, code, vec)
-    vecs = _stack(mean, r, gamma, beta)
-    partial = torch.empty((2, chunks, c), dtype=torch.float32,
-                          device=y2.device)
-    t = torch.empty((2, c), dtype=torch.float32, device=y2.device)
-    with torch.cuda.device(y2.device):
-        stream = torch.cuda.current_stream(y2.device).cuda_stream
-        rc = lib.bn_act_reduce(y2.data_ptr(), g2.data_ptr(), vecs.data_ptr(),
-                               partial.data_ptr(), t[0].data_ptr(),
-                               t[1].data_ptr(), m, c, code, vec, int(act),
-                               stream)
-    _raise_on(rc, lib, "bn_act_reduce")
+    dev = y2.device
+    floats, tiles = _reduce_workspace(dev.index, m, c, code, vec, act)
+    ptrs, _keep = _ptrs(mean, r, gamma, beta)
+    t1 = torch.empty(c, dtype=torch.float32, device=dev)
+    t2 = torch.empty(c, dtype=torch.float32, device=dev)
+
+    def launch(stream):
+        partial, counters = _workspace(dev, stream, floats, tiles)
+        return lib.bn_act_reduce(y2.data_ptr(), g2.data_ptr(), *ptrs,
+                                 partial.data_ptr(), counters.data_ptr(),
+                                 t1.data_ptr(), t2.data_ptr(), m, c, code,
+                                 vec, int(act), stream)
+
+    _raise_on(_on_device(dev, launch), lib, "bn_act_reduce")
     bn_act_reduce.launches += 1
-    return t[0], t[1]
+    return t1, t2
 
 
 def bn_act_elem(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
@@ -200,12 +252,11 @@ def bn_act_elem(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
     lib = _kernel()
     dy = torch.empty_like(y2)
     vec = _vectorized(c, y2, g2, dy)
-    vecs = _stack(mean, r, gamma, beta, t1m, t2m)
-    with torch.cuda.device(y2.device):
-        stream = torch.cuda.current_stream(y2.device).cuda_stream
-        rc = lib.bn_act_elem(y2.data_ptr(), g2.data_ptr(), vecs.data_ptr(),
-                             dy.data_ptr(), m, c, _DTYPE_CODES[y2.dtype], vec,
-                             int(act), stream)
+    ptrs, _keep = _ptrs(mean, r, gamma, beta, t1m, t2m)
+    code = _DTYPE_CODES[y2.dtype]
+    rc = _on_device(y2.device, lambda stream: lib.bn_act_elem(
+        y2.data_ptr(), g2.data_ptr(), *ptrs, dy.data_ptr(), m, c, code, vec,
+        int(act), stream))
     _raise_on(rc, lib, "bn_act_elem")
     bn_act_elem.launches += 1
     return dy

@@ -134,6 +134,18 @@ def _launch(canvas, m, out_h, out_w, jitter_gains, do_jitter,
             raise ValueError(f"{name} on {t.device}, canvas on "
                              f"{canvas.device}")
     params = _kernel_params(m, jitter_gains, do_jitter)
+    return launch_with_params(canvas, params, out_h, out_w,
+                              jitter_gains is not None, round_output)
+
+
+def launch_with_params(canvas: torch.Tensor, params: torch.Tensor,
+                       out_h: int, out_w: int, jitter: bool,
+                       round_output: bool) -> torch.Tensor:
+    """The kernel's launch alone, on a checked contiguous CUDA canvas and
+    its (B, 17) parameters from ``_kernel_params`` (the wrapper's host-side
+    part, a dozen small torch ops, done beforehand): what a timing of the
+    kernel without that part calls."""
+    b, s = canvas.shape[0], canvas.shape[1]
     out = torch.empty((b, out_h, out_w, 3), dtype=torch.float32,
                       device=canvas.device)
     lib = _kernel()
@@ -141,8 +153,8 @@ def _launch(canvas, m, out_h, out_w, jitter_gains, do_jitter,
         stream = torch.cuda.current_stream(canvas.device).cuda_stream
         rc = lib.warp_twopass(
             canvas.data_ptr(), params.data_ptr(), out.data_ptr(), b, s,
-            out_h, out_w, _DTYPE_CODES[canvas.dtype],
-            int(jitter_gains is not None), int(round_output), stream)
+            out_h, out_w, _DTYPE_CODES[canvas.dtype], int(jitter),
+            int(round_output), stream)
     if rc != 0:
         msg = lib.warp_twopass_error_string(rc).decode()
         raise RuntimeError(f"warp_twopass launch failed: {msg} ({rc})")

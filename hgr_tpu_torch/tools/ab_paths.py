@@ -6,9 +6,10 @@ at the serving batch (B = 64) and the train step at B = 256 with fused BN
 off and on. The checkouts run in the order given, then in reverse, so a
 parent and a change compare within one call:
 
-    python -m hgr_tpu_torch.tools.ab_paths build/parent .
+    python -m hgr_tpu_torch.tools.ab_paths build/parent . [--bits-only]
 
-Needs the card. Prints each run's model and train lines, then one JSON
+First each checkout's attention kernels run on the same seeded inputs and
+the outputs are compared bit for bit (``same_bits``). Needs the card. Prints each run's model and train lines, then one JSON
 summary line.
 """
 
@@ -42,6 +43,126 @@ cs.train_phase(torch, len(layers))
 """
 
 
+# one side's attention kernel outputs at fixed seeded inputs (argv[2] =
+# output file): the bf16 bodies at the main path's shapes and the serving
+# forward's at 448 px (N = 785), which must keep their bits, and the f32
+# bodies at the serving shape
+_BITS = """
+import os, sys
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+os.chdir(tree)
+import torch
+from hgr_tpu_torch.ops import attention as A
+out, calls = {}, {}
+for b, n in ((64, 145), (256, 145), (64, 785)):
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
+    qkv = torch.randn(b, n, 768, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    g = torch.randn(b, n, 256, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    calls[f"fwd_{b}_{n}"] = (lambda qkv=qkv: A.fused_attention_qkv(
+        qkv, 8, 32, 32 ** -0.5))
+    if n == 145:
+        calls[f"bwd_{b}_{n}"] = (lambda qkv=qkv, g=g:
+                                 A.fused_attention_qkv_bwd(qkv, g, 8, 32,
+                                                           32 ** -0.5))
+# the f32 bodies at the serving shape
+gen = torch.Generator(device="cuda").manual_seed(32)
+x32 = torch.randn(64, 145, 768, device="cuda", generator=gen)
+g32 = torch.randn(64, 145, 256, device="cuda", generator=gen)
+calls["fwd_64_145_f32"] = lambda: A.fused_attention_qkv(x32, 8, 32,
+                                                        32 ** -0.5)
+calls["bwd_64_145_f32"] = lambda: A.fused_attention_qkv_bwd(x32, g32, 8,
+                                                            32, 32 ** -0.5)
+for name, fn in calls.items():
+    out[name] = fn()
+# the bn pair at every ConvBnAct shape of the 192 px path, B = 256 bf16
+from hgr_tpu_torch.ops import bn_act as B
+bn = {}
+for h, w, c, act in {(96, 96, 64, True), (48, 48, 128, True),
+                     (48, 48, 64, True), (48, 48, 64, False),
+                     (24, 24, 256, True), (24, 24, 128, True),
+                     (24, 24, 128, False), (12, 12, 512, True),
+                     (12, 12, 256, True), (12, 12, 256, False)}:
+    gen = torch.Generator(device="cuda").manual_seed(h * 1000 + c)
+    y = (torch.randn(256 * h * w, c, device="cuda", generator=gen) * 2
+         ).to(torch.bfloat16)
+    g = torch.randn(256 * h * w, c, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
+    beta = torch.randn(c, device="cuda", generator=gen) * 0.1
+    _, mean, var = B.fwd_chain(y, gamma, beta, 1e-5, act)
+    r = torch.rsqrt(var + 1e-5)
+    t1, t2 = B.bn_act_reduce(y, g, mean, r, gamma, beta, act)
+    m = float(y.shape[0])
+    key = f"{h}x{w}x{c}_{'silu' if act else 'id'}"
+    calls[f"bn_reduce_{key}"] = (
+        lambda y=y, g=g, mean=mean, r=r, gamma=gamma, beta=beta, act=act:
+        B.bn_act_reduce(y, g, mean, r, gamma, beta, act))
+    calls[f"bn_elem_{key}"] = (
+        lambda y=y, g=g, mean=mean, r=r, gamma=gamma, beta=beta, act=act,
+        t1=t1 / m, t2=t2 / m: B.bn_act_elem(y, g, mean, r, gamma, beta, t1,
+                                             t2, act))
+# each case's time: CUDA events over 50 back-to-back calls after 5
+times = {}
+for name, fn in calls.items():
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(50):
+        fn()
+    end.record()
+    end.synchronize()
+    times[name] = start.elapsed_time(end) / 50
+torch.save({"out": {k: v.cpu() for k, v in out.items()}, "ms": times},
+           sys.argv[2])
+"""
+
+
+# how many of MultiTaskNet small's 22 ConvBnAct layers at 192 px take
+# each (H x W x C, SiLU or not)
+_PATH_BN = {"96x96x64_silu": 1, "48x48x128_silu": 3, "48x48x64_silu": 2,
+            "48x48x64_id": 2, "24x24x256_silu": 3, "24x24x128_silu": 2,
+            "24x24x128_id": 2, "12x12x512_silu": 3, "12x12x256_silu": 2,
+            "12x12x256_id": 2}
+
+
+def bits(trees, out_dir: str) -> dict:
+    """Whether the attention kernels of the two checkouts give the same
+    bits on the same inputs (_BITS), case by case, and their times, each
+    checkout run in the order given and then in reverse."""
+    os.makedirs(out_dir, exist_ok=True)
+    import torch
+
+    order = list(trees) + list(trees)[::-1]
+    runs = []
+    for i, tree in enumerate(order):
+        path = os.path.abspath(os.path.join(out_dir, f"run{i}.pt"))
+        subprocess.run([sys.executable, "-c", _BITS, os.path.abspath(tree),
+                        path], check=True)
+        runs.append(torch.load(path))
+    first, second = runs[0]["out"], runs[1]["out"]
+    ms = {tree: {} for tree in trees}
+    for tree, run in zip(order, runs):
+        for k, t in run["ms"].items():
+            ms[tree].setdefault(k, []).append(t)
+    # the bn pair per fused step: 22 layers (their shapes, _PATH_BN) x 2
+    # pullbacks, each kernel's mean over the turns
+    per_step = {}
+    for tree in trees:
+        mean = {k: sum(v) / len(v) for k, v in ms[tree].items()}
+        per_step[tree] = 2 * sum(
+            count * (mean[f"bn_reduce_{key}"] + mean[f"bn_elem_{key}"])
+            for key, count in _PATH_BN.items())
+    return {"same_bits": {k: bool(torch.equal(first[k], second[k]))
+                          for k in first}, "kernel_ms": ms,
+            "bn_pair_ms_per_step": per_step}
+
+
 def _side(tree: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", _SIDE, tree],
                           capture_output=True, text=True, check=True)
@@ -56,7 +177,13 @@ def _side(tree: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs=2, help="two checkouts (parent, change)")
+    ap.add_argument("--bits-only", action="store_true",
+                    help="only compare the attention kernels' output bits")
     args = ap.parse_args(argv)
+    print(json.dumps(bits(args.trees, os.path.join("build", "ab_bits"))),
+          flush=True)
+    if args.bits_only:
+        return 0
     order = args.trees + args.trees[::-1]
     runs = [_side(os.path.abspath(t)) for t in order]
     summary = {}

@@ -31,11 +31,11 @@ __global__ void probe(const tc::bf16* q, const tc::bf16* k, long long img,
   extern __shared__ uint4 smem[];
   const int npad = tc::pad16(n);
   tc::bf16* qs = reinterpret_cast<tc::bf16*>(smem);
-  tc::bf16* ks = qs + npad * tc::kRowPad;
+  tc::bf16* ks = qs + npad * tc::row_pad(32);
   const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x;
-  const long long off = b * img + h * tc::kHeadDim;
-  tc::stage_rows(q + off, row, qs, n, npad);
-  tc::stage_rows(k + off, row, ks, n, npad);
+  const long long off = b * img + h * 32;
+  tc::stage_rows<32>(q + off, row, qs, n, npad, 32);
+  tc::stage_rows<32>(k + off, row, ks, n, npad, 32);
   tc::cp_async_wait_all();
   __syncthreads();
   const long long base = (static_cast<long long>(b) * gridDim.x + h) *
@@ -47,10 +47,10 @@ __global__ void probe(const tc::bf16* q, const tc::bf16* k, long long img,
     float* out = (pass == 0 ? s : st) + base;
     for (int r0 = 0; r0 < npad; r0 += 16) {
       uint32_t a[2][4];
-      tc::load_a(a, a_rows, r0, lane);
+      tc::load_a<32>(a, a_rows, r0, lane);
       for (int c0 = 0; c0 < npad; c0 += 8) {
         float c[4];
-        tc::product_t(c, a, b_rows, c0, lane);
+        tc::product_t<32>(c, a, b_rows, c0, lane);
         for (int e = 0; e < 4; ++e) {
           out[(r0 + g + 8 * (e >> 1)) * npad + c0 + 2 * t + (e & 1)] = c[e];
         }
@@ -63,7 +63,7 @@ extern "C" int probe_scores(const void* q, const void* k, long long img,
                             long long row, int batch, int n, int heads,
                             float* s, float* st) {
   const int npad = tc::pad16(n);
-  probe<<<dim3(heads, batch), 32, 2 * npad * tc::kRowPad * 2>>>(
+  probe<<<dim3(heads, batch), 32, 2 * npad * tc::row_pad(32) * 2>>>(
       static_cast<const tc::bf16*>(q), static_cast<const tc::bf16*>(k), img,
       row, n, s, st);
   return static_cast<int>(cudaDeviceSynchronize());

@@ -81,6 +81,19 @@ def _build(specs) -> dict:
     return built
 
 
+def _scratch(lib, b: int, n: int, heads: int, qkv):
+    """The backward's statistics scratch at lengths past the
+    whole-sequence route (None below)."""
+    import torch
+
+    fn = lib.attention_qkv_bwd_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    count = fn(b, n, heads, 32, 1)
+    return (torch.empty(count, dtype=torch.float32, device=qkv.device)
+            if count else None)
+
+
 def _call(name: str, lib, qkv, g, out, stream) -> None:
     b, n, f = qkv.shape
     heads = f // 96
@@ -93,9 +106,11 @@ def _call(name: str, lib, qkv, g, out, stream) -> None:
                 stream)
     else:
         fn = lib.attention_qkv_bwd
-        fn.argtypes = [c.c_void_p] * 3 + [c.c_int] * 4 + [
+        fn.argtypes = [c.c_void_p] * 4 + [c.c_int] * 4 + [
             c.c_float, c.c_int, c.c_void_p]
-        rc = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, heads,
+        scratch = _scratch(lib, b, n, heads, qkv)
+        rc = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), b, n, heads,
                 32, SCALE, 1, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed ({rc})")

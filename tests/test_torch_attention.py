@@ -317,3 +317,65 @@ def test_tensor_core_bwd_numerics_match_pallas_bwd_kernel(n):
     assert err(1) > 1e-3
     assert 1e-6 < err(2) <= 1e-5
     assert err(3) <= 1e-6
+
+
+# -- long sequences and other head widths -----------------------------------
+
+# (n, head_dim, heads): lengths the card's kernels take key-chunked (401
+# in the f32 backward, 785 in the bf16 backward) and the padded widths
+# 16, 64, 128 (48 pads to 64); B·H kept to 1-2 for interpret mode
+LONG_CASES = [(n, hd, 2 if hd == 16 else 1) for n in (401, 785)
+              for hd in (16, 48, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,head_dim,heads", LONG_CASES)
+def test_plain_versions_match_pallas_at_long_n_and_other_widths(
+        n, head_dim, heads, dtype):
+    """The packed and split plain versions (what a CPU tensor runs and
+    what the card's kernels are held to) against the Pallas kernels in
+    interpret mode: ``_attention_qkv_impl``, ``_attention_qkv_bwd_impl``
+    and the split impls, at sequence lengths past the card's
+    whole-sequence route and at head widths other than the model's 32."""
+    from hgr_tpu.ops.attention_pallas import (
+        _attention_qkv_bwd_impl,
+        _attention_qkv_impl,
+        _split_bwd_impl,
+        _split_fwd_impl,
+    )
+
+    hd = heads * head_dim
+    rng = np.random.RandomState(n + head_dim)
+    x = rng.randn(1, n, 3 * hd).astype(np.float32)
+    g = rng.randn(1, n, hd).astype(np.float32)
+    xj, xt = _pair(x, dtype)
+    gj, gt = _pair(g, dtype)
+    scale = head_dim**-0.5
+    out = A.attention_qkv_reference(xt, heads, head_dim, scale)
+    np.testing.assert_allclose(
+        _np(out), _np(_attention_qkv_impl(xj, heads, head_dim, scale,
+                                          interpret=True)), **TOL[dtype])
+    d = A.attention_qkv_bwd_reference(xt, gt, heads, head_dim, scale)
+    want_d = _attention_qkv_bwd_impl(xj, gj, heads, head_dim, scale,
+                                     interpret=True)
+    np.testing.assert_allclose(_np(d), _np(want_d), **GRAD_TOL[dtype])
+    # the split form on three contiguous operands
+    js, ts = zip(*(_pair(np.ascontiguousarray(x[..., i * hd:(i + 1) * hd]),
+                         dtype) for i in range(3)))
+    out_s = A.attention_split_reference(*ts, heads, head_dim, scale)
+    np.testing.assert_allclose(
+        _np(out_s), _np(_split_fwd_impl(*js, heads, head_dim, scale,
+                                        interpret=True)), **TOL[dtype])
+    d_s = A.attention_split_bwd_reference(*ts, gt, heads, head_dim, scale)
+    for got, want in zip(d_s, _split_bwd_impl(*js, gj, heads, head_dim,
+                                              scale, interpret=True)):
+        np.testing.assert_allclose(_np(got), _np(want), **GRAD_TOL[dtype])
+
+
+def test_head_width_above_128_raises_naming_the_roadmap_item():
+    with pytest.raises(ValueError, match="ROADMAP C2"):
+        A._check(torch.zeros(1, 5, 3 * 160), 1, 160)
+    with pytest.raises(ValueError, match="ROADMAP C2"):
+        q = torch.zeros(1, 5, 160)
+        A._check_split((q, q, q), 1, 160)
+    A._check(torch.zeros(1, 5, 3 * 2 * 128), 2, 128)  # 128 is taken

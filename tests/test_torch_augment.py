@@ -362,3 +362,43 @@ def test_draw_params_distributions():
         gen, 64, torch.full((64, 2), 224.0),
         AugmentConfig(horizontal_flip=False, color_jittering=False))
     assert float(off.flip.sum()) == 0 and float(off.do_jitter.sum()) == 0
+
+
+@pytest.mark.parametrize("device_type,shape,want", [
+    ("cuda", (4, 64, 64, 3), "kernel"),
+    ("cuda", (4, 64, 80, 3), "exact"),
+    ("cuda", (4, 80, 64, 3), "exact"),
+    ("cpu", (4, 64, 64, 3), "exact"),
+    ("cpu", (4, 64, 80, 3), "exact"),
+])
+def test_auto_warp_takes_the_kernel_only_for_square_cuda_canvases(
+        device_type, shape, want):
+    """'auto' follows the JAX package's guard (pipeline.py:266-269): the
+    two-pass kernel needs a square canvas, so a non-square one takes the
+    exact warp on the card too."""
+    assert pipeline.auto_warp_method(device_type, shape) == want
+
+
+def test_auto_warp_on_a_non_square_canvas_matches_jax():
+    """A non-square canvas through 'auto' on both sides: the exact warp,
+    the same crop as the JAX package's."""
+    b = 4
+    batch = _staged_batch()
+    rng = np.random.RandomState(31)
+    batch["canvas"] = rng.randint(0, 256, (b, 64, 80, 3)).astype(np.uint8)
+    p = _params(b)
+    kw = dict(image_size=(48, 48), heatmap_size=(12, 12))
+    names = ("canvas", "orig_to_canvas", "sizes_hw", "joints", "joints_vis")
+    want = jax_pipeline.apply_augment_batch(
+        *(jnp.asarray(batch[k]) for k in names),
+        jax_pipeline.AugmentParams(**{k: jnp.asarray(v)
+                                      for k, v in p.items()}),
+        warp_method="auto", **kw)
+    got = pipeline.apply_augment_batch(
+        *(_t(batch[k]) for k in names),
+        pipeline.AugmentParams(**{k: _t(v) for k, v in p.items()}),
+        warp_method="auto", **kw)
+    level = 1.0 / 255.0 / 0.224
+    diff = np.abs(_np(got["image"]) - _np(want["image"]))
+    assert diff.max() <= level + 1e-4, diff.max()
+    assert (diff > 1e-4).mean() < 0.01, (diff > 1e-4).mean()

@@ -248,3 +248,39 @@ def test_f32_train_step_with_fused_bn_matches_jax(jax_variables, monkeypatch,
                    rtol=1e-4)
     _compare_metrics(m_p, m_j)
     _compare_state(ps, tx_state)
+
+
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pass_wrappers_cpu_route_matches_jax_pallas_pair(monkeypatch, dtype,
+                                                         act):
+    """``bn_act_reduce`` and ``bn_act_elem`` themselves (the wrappers the
+    card's kernels sit behind, which now take the per-channel vectors one
+    pointer each) on CPU tensors: their plain versions, no launch counted,
+    against the Pallas pair in interpret mode; the vectors may be any
+    strided float32 view."""
+    from jax.experimental import pallas as pl
+
+    real_call = pl.pallas_call
+    monkeypatch.setattr(bna.pl, "pallas_call",
+                        lambda *a, **k: real_call(*a, **{"interpret": True,
+                                                         **k}))
+    shape = (2, 12, 12, 64)
+    (jy, jgam, jbet, jg), (ty, tgam, tbet, tg) = _inputs(shape, dtype, 4)
+    _, j_mean, j_var = bna._fwd_chain(jy, jgam, jbet, EPS, act)
+    want_dy, want_t2, want_t1 = bna._bwd_pallas(jy, jgam, jbet, j_mean,
+                                                j_var, jg, EPS, act)
+    _, mean, var = B.fwd_chain(ty, tgam, tbet, EPS, act)
+    r = torch.rsqrt(var + EPS)
+    gamma = torch.stack([tgam, tgam])[:, None].expand(2, 3, 64)[1, 2]
+    y2, g2 = ty.reshape(-1, 64), tg.reshape(-1, 64)
+    before = (B.bn_act_reduce.launches, B.bn_act_elem.launches)
+    t1, t2 = B.bn_act_reduce(y2, g2, mean, r, gamma, tbet, act)
+    m = float(y2.shape[0])
+    dy = B.bn_act_elem(y2, g2, mean, r, gamma, tbet, t1 / m, t2 / m, act)
+    assert (B.bn_act_reduce.launches, B.bn_act_elem.launches) == before
+    assert t1.dtype == t2.dtype == torch.float32 and dy.dtype == ty.dtype
+    np.testing.assert_allclose(_np(t1), _np(want_t1), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(_np(t2), _np(want_t2), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(_np(dy.reshape(shape)), _np(want_dy),
+                               atol=DY_TOL[dtype], rtol=DY_TOL[dtype])

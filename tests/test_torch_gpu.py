@@ -60,9 +60,9 @@ def test_kernel_matches_plain_version(b, n, dtype):
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take():
     _cuda_or_skip()
-    with pytest.raises(ValueError, match="head_dim"):
-        A.fused_attention_qkv(torch.zeros(2, 10, 3 * H * 16, device="cuda"),
-                              H, 16, SCALE)
+    with pytest.raises(ValueError, match="head_dim.*ROADMAP C2"):
+        A.fused_attention_qkv(torch.zeros(2, 10, 3 * H * 160, device="cuda"),
+                              H, 160, SCALE)
     with pytest.raises(TypeError):
         A.fused_attention_qkv(torch.zeros(2, 10, 3 * H * D, device="cuda",
                                           dtype=torch.float16), H, D, SCALE)
@@ -467,51 +467,186 @@ def test_bf16_views_never_read_past_row_n(n):
         assert torch.equal(got, want)
 
 
-def _largest_admitted(smem_bytes, code):
+def _last_whole(kernel, dtype):
+    """The largest n the whole-sequence route of ``kernel`` takes at
+    head_dim 32 in ``dtype``."""
     n = 1
-    while smem_bytes(n + 1, code) <= A._SMEM_LIMIT:
+    while A.kernel_route(kernel, n + 1, D, dtype) == 0:
         n += 1
     return n
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-def test_wrappers_admit_up_to_the_shared_memory_limit_and_raise_above(dtype):
-    """At the largest n whose block fits in shared memory each kernel runs
-    and matches its plain version (the forward's bf16 body over several
-    key chunks); one more row raises before any launch. Each admits at
-    least the n the CUDA-core bodies did (785 forward, 384 backward)."""
+def test_every_length_routes_and_matches(dtype):
+    """No length is refused: at the largest n whose head fits in one
+    block's shared memory each kernel takes the whole-sequence route, one
+    row more takes the key-chunked route, and both match their plain
+    versions, with a launch counted each. The whole-sequence route
+    reaches at least the lengths the CUDA-core bodies took (785 forward,
+    384 backward)."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
-    code = A._DTYPE_CODES[dt]
-    fwd, bwd = A._kernel(), A._bwd_kernel()
-    n_fwd = _largest_admitted(fwd.attention_qkv_fwd_smem_bytes, code)
-    n_bwd = _largest_admitted(bwd.attention_qkv_bwd_smem_bytes, code)
+    n_fwd, n_bwd = _last_whole("fwd", dt), _last_whole("bwd", dt)
     assert n_fwd >= 785 and n_bwd >= 384
-    x = _qkv(1, n_fwd, 3, dtype)[..., :3 * D].contiguous()
+    for n in (n_fwd, n_fwd + 1):
+        x = _qkv(1, n, 3, dtype)[..., :3 * D].contiguous()
+        before = A.fused_attention_qkv.launches
+        got = A.fused_attention_qkv(x, 1, D, SCALE)
+        assert A.fused_attention_qkv.launches == before + 1
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(),
+            A.attention_qkv_reference(x, 1, D, SCALE).float().cpu().numpy(),
+            **TOL[dtype])
+    assert A.kernel_route("fwd", n_fwd + 1, D, dt) == 1
+    for n in (n_bwd, n_bwd + 1):
+        x = _qkv(1, n, 4, dtype)[..., :3 * D].contiguous()
+        g = torch.randn(1, n, D, device="cuda").to(dt)
+        before = A.fused_attention_qkv_bwd.launches
+        got = A.fused_attention_qkv_bwd(x, g, 1, D, SCALE)
+        assert A.fused_attention_qkv_bwd.launches == before + 1
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(),
+            A.attention_qkv_bwd_reference(x, g, 1, D, SCALE).float().cpu()
+            .numpy(), **GRAD_TOL[dtype])
+    assert A.kernel_route("bwd", n_bwd + 1, D, dt) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("head_dim", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("n", [385, 401, 689, 785, 961, 1025])
+def test_kernels_match_plain_versions_at_any_length_and_width(n, head_dim,
+                                                               dtype):
+    """Packed and split, forward and backward, against the plain versions
+    at lengths on both sides of each body's shared-memory limit and at
+    every padded head width (48 pads to 64); the split kernels on the
+    chunk views equal the packed ones bit for bit."""
+    _cuda_or_skip()
+    heads = 2
+    hd = heads * head_dim
+    scale = head_dim**-0.5
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(n * 7 + head_dim)
+    qkv = torch.from_numpy(rng.randn(2, n, 3 * hd).astype(np.float32)).to(
+        "cuda", dt)
+    g = torch.from_numpy(rng.randn(2, n, hd).astype(np.float32)).to(
+        "cuda", dt)
+    out = A.fused_attention_qkv(qkv, heads, head_dim, scale)
+    d = A.fused_attention_qkv_bwd(qkv, g, heads, head_dim, scale)
+    ops = qkv.chunk(3, dim=-1)
+    s_out = A.fused_attention_split(*ops, heads, head_dim, scale)
+    s_d = A.fused_attention_split_bwd(*ops, g, heads, head_dim, scale)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(d).all()
     np.testing.assert_allclose(
-        A.fused_attention_qkv(x, 1, D, SCALE).float().cpu().numpy(),
-        A.attention_qkv_reference(x, 1, D, SCALE).float().cpu().numpy(),
-        **TOL[dtype])
-    x = _qkv(1, n_bwd, 4, dtype)[..., :3 * D].contiguous()
-    g = torch.randn(1, n_bwd, D, device="cuda").to(dt)
+        out.float().cpu().numpy(),
+        A.attention_qkv_reference(qkv, heads, head_dim, scale).float().cpu()
+        .numpy(), **TOL[dtype])
     np.testing.assert_allclose(
-        A.fused_attention_qkv_bwd(x, g, 1, D, SCALE).float().cpu().numpy(),
-        A.attention_qkv_bwd_reference(x, g, 1, D, SCALE).float().cpu()
-        .numpy(), **GRAD_TOL[dtype])
+        d.float().cpu().numpy(),
+        A.attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale)
+        .float().cpu().numpy(), **GRAD_TOL[dtype])
+    assert torch.equal(s_out, out)
+    for got, want in zip(s_d, d.chunk(3, dim=-1)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_head_width_above_128_raises_naming_c2_before_any_launch():
+    _cuda_or_skip()
     before = (A.fused_attention_qkv.launches,
-              A.fused_attention_qkv_bwd.launches)
-    with pytest.raises(ValueError, match="shared memory"):
-        A.fused_attention_qkv(torch.zeros(1, n_fwd + 1, 3 * D, device="cuda",
-                                          dtype=dt), 1, D, SCALE)
-    with pytest.raises(ValueError, match="shared memory"):
-        z = torch.zeros(1, n_bwd + 1, 3 * D, device="cuda", dtype=dt)
-        A.fused_attention_qkv_bwd(z, z[..., :D].contiguous(), 1, D, SCALE)
-    with pytest.raises(ValueError, match="shared memory"):
-        z = torch.zeros(1, n_bwd + 1, D, device="cuda", dtype=dt)
-        A.fused_attention_split_bwd(z, z, z, z, 1, D, SCALE)
+              A.fused_attention_split_bwd.launches)
+    with pytest.raises(ValueError, match="ROADMAP C2"):
+        A.fused_attention_qkv(torch.zeros(1, 9, 3 * 160, device="cuda"), 1,
+                              160, SCALE)
+    z = torch.zeros(1, 9, 160, device="cuda")
+    with pytest.raises(ValueError, match="ROADMAP C2"):
+        A.fused_attention_split_bwd(z, z, z, z, 1, 160, SCALE)
     assert (A.fused_attention_qkv.launches,
-            A.fused_attention_qkv_bwd.launches) == before
+            A.fused_attention_split_bwd.launches) == before
+
+
+# -- the bn reduce kernel at the path's shapes ---------------------------------
+
+# the distinct (H, W, C) of MultiTaskNet small's 22 ConvBnAct layers at
+# 192 px (chip_smoke.py's _path_bn_layers lists them in order); each with
+# and without the SiLU, as chip_smoke.py checks them
+PATH_BN_SHAPES = [(96, 96, 64), (48, 48, 128), (48, 48, 64), (24, 24, 256),
+                  (24, 24, 128), (12, 12, 512), (12, 12, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("h,w,c", PATH_BN_SHAPES)
+def test_bn_reduce_matches_plain_version_at_path_shapes_deterministically(
+        h, w, c, act, dtype):
+    """The one-launch reduce at B=256 against its plain version (1e-6 of
+    the sum of the terms' magnitudes), and the same bits from two calls."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.ops import bn_act as B
+
+    gen = torch.Generator(device="cuda").manual_seed(h * 1000 + c)
+    dt = getattr(torch, dtype)
+    m = 256 * h * w
+    y = (torch.randn(m, c, device="cuda", generator=gen) * 2 + 0.3).to(dt)
+    g = torch.randn(m, c, device="cuda", generator=gen).to(dt)
+    gamma = torch.rand(c, device="cuda", generator=gen) + 0.5
+    beta = torch.randn(c, device="cuda", generator=gen) * 0.1
+    _, mean, var = B.fwd_chain(y, gamma, beta, 1e-5, act)
+    r = torch.rsqrt(var + 1e-5)
+    before = B.bn_act_reduce.launches
+    t1, t2 = B.bn_act_reduce(y, g, mean, r, gamma, beta, act)
+    u1, u2 = B.bn_act_reduce(y, g, mean, r, gamma, beta, act)
+    torch.cuda.synchronize()
+    assert B.bn_act_reduce.launches == before + 2
+    assert torch.equal(t1, u1) and torch.equal(t2, u2)
+    p1, p2 = B.bn_act_reduce_reference(y, g, mean, r, gamma, beta, act)
+    dz, xhat = B._dz_xhat(y, g, mean, r, gamma, beta, act)
+    for got, want, mag in ((t1, p1, dz.abs().sum(0)),
+                           (t2, p2, (dz * xhat).abs().sum(0))):
+        assert bool(((got - want).abs() <= 1e-6 * mag + 1e-30).all())
+
+
+# -- the warp routing (C1) -----------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_auto_warp_on_the_card_takes_exact_for_non_square_kernel_for_square():
+    """'auto' on a non-square CUDA canvas equals 'exact' (no warp kernel
+    launch); on a square one it launches the kernel once."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.data import pipeline
+    from hgr_tpu_torch.ops import warp_fused as W
+
+    rng = np.random.RandomState(41)
+    b = 4
+    p = pipeline.AugmentParams(
+        scale=torch.full((b,), 1.1), rot=torch.tensor([0.0, 25.0, -80, 95]),
+        translate=torch.zeros(b, 2), flip=torch.tensor([0.0, 1.0, 1.0, 0.0]),
+        jitter_gains=torch.from_numpy(rng.uniform(0.8, 1.2, (b, 3)).astype(
+            np.float32)), do_jitter=torch.tensor([1.0, 0.0, 1.0, 1.0]))
+    p = pipeline.AugmentParams(**{k: v.cuda() for k, v in vars(p).items()})
+
+    def run(canvas, method):
+        return pipeline.apply_augment_batch(
+            canvas, torch.eye(2, 3, device="cuda").expand(b, 2, 3),
+            torch.full((b, 2), 60.0, device="cuda"),
+            torch.full((b, 21, 2), 30.0, device="cuda"),
+            torch.ones(b, 21, device="cuda"), p, image_size=(48, 48),
+            heatmap_size=(12, 12), warp_method=method)
+
+    wide = torch.from_numpy(rng.randint(0, 256, (b, 64, 80, 3)).astype(
+        np.uint8)).cuda()
+    before = W.warp_twopass.launches
+    got, want = run(wide, "auto"), run(wide, "exact")
+    assert W.warp_twopass.launches == before
+    for k in got:
+        assert torch.equal(got[k], want[k]), k
+    square = wide[:, :, :64].contiguous()
+    run(square, "auto")
+    assert W.warp_twopass.launches == before + 1
 
 
 # -- multi-rank steps on the card ----------------------------------------------
