@@ -2,9 +2,15 @@
 // (attention_qkv_fwd.cu, attention_qkv_bwd.cu): cp.async staging of one
 // head's rows into shared memory, ldmatrix fragment loads, and the
 // mma.sync.aligned.m16n8k16 bf16 -> f32 product, for a padded head width
-// Dp in {16, 32, 64, 128} (the true width d <= Dp is a runtime value;
+// Dp in {16, 32, 64, 128, 256} (the true width d <= Dp is a runtime value;
 // staged columns d..Dp-1 are zero, so every product over Dp features
 // equals the one over d).
+//
+// At Dp = 256 a warp's 16 x Dp output tile alone takes 128 f32 registers a
+// lane, and the 16 x Dp A fragments another 64: together past what one
+// thread may hold. There the A tile stays in shared memory (it is staged
+// there anyway) and ldmatrix brings 32 of its features at a time into the
+// product (products_smem), in the same mma order as the register form.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for a
 // lane with group g = lane / 4 and thread-in-group t = lane % 4:
@@ -40,10 +46,16 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
 
-// The padded head width of the bodies for a head width d (1..128).
+// The padded head width of the bodies for a head width d (1..256).
 __host__ __device__ inline int padded_width(int d) {
-  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
+
+// Whether the bodies at padded width Dp read their A tiles from shared
+// memory (products_smem) instead of holding them in registers; at those
+// widths only the key-chunked kernels exist (the whole-sequence bodies
+// keep a tile's fragments in registers).
+__host__ __device__ constexpr bool a_in_smem(int dp) { return dp > 128; }
 
 // Warps per block for ``tiles`` 16-row tiles: at most ``most`` (up to
 // kMaxWarps), and as few as give every warp the same number of rounds.
@@ -214,6 +226,61 @@ __device__ __forceinline__ void product_t(float (&c)[4],
   }
   if constexpr (Dp % 32 != 0) {
     mma(c, a[Dp / 16 - 1], b[Dp / 32][0], b[Dp / 32][1]);
+  }
+}
+
+// products<Dp, NT> with the 16 x Dp A tile read from the staged rows
+// ``a_rows`` (tile rows a0..a0+15) 32 features at a time, for Dp = 256:
+// each C tile takes its mma steps in the register form's order.
+template <int Dp, int NT>
+__device__ __forceinline__ void products_smem(float (&c)[NT][4],
+                                              const bf16* a_rows, int a0,
+                                              const bf16* rows, int r0,
+                                              int npad, int lane) {
+  static_assert(Dp % 32 == 0, "32 features a step");
+  const bf16* pa = a_rows + (a0 + (lane & 15)) * row_pad(Dp) + (lane >> 4) * 8;
+  const bf16* pb = rows + (r0 + (lane & 7)) * row_pad(Dp) + (lane >> 3) * 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int f = 0; f < Dp; f += 32) {
+    uint32_t a0f[4], a1f[4];
+    ldsm_x4(a0f, pa + f);
+    ldsm_x4(a1f, pa + f + 16);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (r0 + 8 * j < npad) {
+        uint32_t b[4];
+        ldsm_x4(b, pb + 8 * j * row_pad(Dp) + f);
+        mma(c[j], a0f, b[0], b[1]);
+        mma(c[j], a1f, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// masked_scores<Dp, NT> with the query tile read from the staged rows
+// ``q_rows`` (tile rows q0..q0+15), for Dp = 256.
+template <int Dp, int NT>
+__device__ __forceinline__ void masked_scores_smem(float (&s)[NT][4],
+                                                   const bf16* q_rows, int q0,
+                                                   const bf16* ks, int key0,
+                                                   int n, int npad,
+                                                   float scale, int lane) {
+  products_smem<Dp>(s, q_rows, q0, ks, key0, npad, lane);
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int k0 = key0 + 8 * j;
+    if (k0 < npad) {
+      const int c = k0 + 2 * t;
+      s[j][0] = c < n ? __fmul_rn(s[j][0], scale) : -INFINITY;
+      s[j][1] = c + 1 < n ? __fmul_rn(s[j][1], scale) : -INFINITY;
+      s[j][2] = c < n ? __fmul_rn(s[j][2], scale) : -INFINITY;
+      s[j][3] = c + 1 < n ? __fmul_rn(s[j][3], scale) : -INFINITY;
+    } else {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
+    }
   }
 }
 

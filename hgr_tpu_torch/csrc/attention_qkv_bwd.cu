@@ -10,7 +10,7 @@
 // executed, from q, k, v and the output cotangent g (B, N, H*D), without
 // any saved N x N tensor.
 //
-// What it computes, per image b and head h (head width D, 1..128), all
+// What it computes, per image b and head h (head width D, 1..256), all
 // in f32:
 //   s[i, j]  = (q_i . k_j) * scale, P = softmax_j(s)   (recomputed)
 //   dA[i, j] = g_i . v_j
@@ -31,8 +31,15 @@
 // attention_split_bwd passes its caller's operands as they are. The two
 // entry points compute bit-identical gradients on the same data. Head
 // widths are handled as in the forward: bodies templated over the padded
-// width Dp in {16, 32, 64, 128}, staged features D..Dp-1 zero, output
-// columns beyond D never written.
+// width Dp in {16, 32, 64, 128, 256}, staged features D..Dp-1 zero, output
+// columns beyond D never written. At Dp = 256 every length takes the
+// key-chunked route (a warp's A fragments and its 16 x Dp gradient tiles
+// do not fit one thread's registers in the whole-sequence bodies): the
+// query-tile kernel reads Q's and G's A fragments from shared memory
+// (attention_mma.cuh, products_smem) beside its 128 dq accumulators, and
+// the key-tile kernel gives each key tile two warps, one summing dk and
+// one dv (128 accumulators each, where one warp would need 256); the dv
+// warp computes S^T only, the dk warp S^T and dA^T.
 //
 // Bound on an H100 SXM at the training shape (B=64, N=145, H=8, D=32,
 // bf16): the function must move 33.26 MB (qkv 14.25 MB and g 4.75 MB read
@@ -136,12 +143,21 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // a . b over Dp features (registers or shared memory); the one order
-// every phase uses
+// every phase uses. At Dp = 256 (shared memory only) in unrolled steps of
+// 32 features: a full unroll spills.
 template <int Dp>
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float s = 0.f;
+  if constexpr (Dp > 128) {
+#pragma unroll 1
+    for (int f0 = 0; f0 < Dp; f0 += 32) {
 #pragma unroll
-  for (int f = 0; f < Dp; ++f) s = fmaf(a[f], b[f], s);
+      for (int f = f0; f < f0 + 32; ++f) s = fmaf(a[f], b[f], s);
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < Dp; ++f) s = fmaf(a[f], b[f], s);
+  }
   return s;
 }
 
@@ -335,9 +351,11 @@ attention_bwd_kernel(const Operands<float> ops, int n, int d, float scale) {
 
 // f32 key-chunked route, phase 1: one block per 32 query rows (4 per
 // warp), K and V kLongKeys rows at a time -> dq and the rows' max, sum
-// and rd in ``stats``.
+// and rd in ``stats``. At Dp = 256 one block an SM is asked for: ptxas
+// otherwise caps the kernel at 64 registers and spills (0: the narrower
+// bodies as they were).
 template <int Dp>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, Dp > 128 ? 1 : 0)
 attention_bwd_q_kernel(const Operands<float> ops, float* __restrict__ stats,
                        int n, int heads, int d, float scale) {
   constexpr int kS = Dp + 1;
@@ -547,6 +565,11 @@ constexpr int kSplit = 3;
 // side per staged chunk.
 constexpr int kLongWarps = 4;
 constexpr int kLongRows = 64;
+// Warps per key tile in the key-chunked route's key kernel: two at Dp =
+// 256 (dk and dv each in a warp of its own), else one (both).
+__host__ __device__ constexpr int key_roles(int dp) {
+  return tc::a_in_smem(dp) ? 2 : 1;
+}
 
 // dS from P, dA and the row's sum rd, in the same instructions in both
 // phases
@@ -872,10 +895,13 @@ attention_bwd_mma_q_kernel(const Operands<tc::bf16> ops,
                      rows, kRows, d);
   tc::cp_async_wait_all();
   __syncthreads();
-  uint32_t qa[Dp / 16][4], ga[Dp / 16][4];
-  if (active) {
-    tc::load_a<Dp>(qa, qs, 16 * warp, lane);
-    tc::load_a<Dp>(ga, gs, 16 * warp, lane);
+  constexpr bool kASmem = tc::a_in_smem(Dp);  // Q's, G's fragments per step
+  uint32_t qa[kASmem ? 1 : Dp / 16][4], ga[kASmem ? 1 : Dp / 16][4];
+  if constexpr (!kASmem) {
+    if (active) {
+      tc::load_a<Dp>(qa, qs, 16 * warp, lane);
+      tc::load_a<Dp>(ga, gs, 16 * warp, lane);
+    }
   }
 
   const int chunks = (n + kLongRows - 1) / kLongRows;
@@ -909,9 +935,16 @@ attention_bwd_mma_q_kernel(const Operands<tc::bf16> ops,
         const int left = n - c * kLongRows;  // keys from the chunk's first
         // the whole-sequence body's 16-key steps, those below n
         for (int key0 = 0; key0 < kLongRows && key0 < left; key0 += kStep) {
-          tc::masked_scores<Dp>(s, qa, kb, key0, left, kLongRows, scale,
-                                lane);
-          tc::products<Dp>(da, ga, vb, key0, kLongRows, lane);
+          if constexpr (kASmem) {
+            tc::masked_scores_smem<Dp>(s, qs, 16 * warp, kb, key0, left,
+                                       kLongRows, scale, lane);
+            tc::products_smem<Dp>(da, gs, 16 * warp, vb, key0, kLongRows,
+                                  lane);
+          } else {
+            tc::masked_scores<Dp>(s, qa, kb, key0, left, kLongRows, scale,
+                                  lane);
+            tc::products<Dp>(da, ga, vb, key0, kLongRows, lane);
+          }
           if (sweep == 0) {
             fold_step(s, da, m, l, rd);
           } else {
@@ -950,7 +983,7 @@ attention_bwd_mma_q_kernel(const Operands<tc::bf16> ops,
 // bf16 key-chunked route, phase 2: one block per 16 * kLongWarps key
 // rows, Q, G and the rows' statistics kLongRows rows at a time -> dk, dv.
 template <int Dp>
-__global__ void __launch_bounds__(kLongWarps * 32)
+__global__ void __launch_bounds__(kLongWarps * 32 * key_roles(Dp))
 attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
                            const float* __restrict__ stats, int n, int heads,
                            int d, float scale) {
@@ -958,6 +991,7 @@ attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
   constexpr int kPad = tc::row_pad(Dp);
   constexpr int kRows = 16 * kLongWarps;
   constexpr int kBuf = 2 * kLongRows * kPad;  // Q then G of one chunk
+  constexpr int kRoles = key_roles(Dp);
   extern __shared__ uint4 smem_tc[];
   bf16* ks = reinterpret_cast<bf16*>(smem_tc);  // kRows rows each
   bf16* vs = ks + kRows * kPad;
@@ -967,7 +1001,10 @@ attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  // the warp's key tile, and with two roles whether it sums dk (0) or dv
+  const int warp = kRoles == 1 ? threadIdx.x >> 5
+                               : (threadIdx.x >> 5) % kLongWarps;
+  const int role = kRoles == 1 ? 0 : (threadIdx.x >> 5) / kLongWarps;
   const int npad = tc::pad16(n);
   const int k0 = blockIdx.x * kRows;
   const int c0 = k0 + 16 * warp;  // this warp's key tile
@@ -983,10 +1020,12 @@ attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
                      rows, kRows, d);
   tc::cp_async_wait_all();
   __syncthreads();
-  uint32_t ka[Dp / 16][4], va[Dp / 16][4];
-  if (active) {
-    tc::load_a<Dp>(ka, ks, 16 * warp, lane);
-    tc::load_a<Dp>(va, vs, 16 * warp, lane);
+  uint32_t ka[kRoles == 1 ? Dp / 16 : 1][4], va[kRoles == 1 ? Dp / 16 : 1][4];
+  if constexpr (kRoles == 1) {
+    if (active) {
+      tc::load_a<Dp>(ka, ks, 16 * warp, lane);
+      tc::load_a<Dp>(va, vs, 16 * warp, lane);
+    }
   }
 
   const int chunks = (n + kLongRows - 1) / kLongRows;
@@ -1006,7 +1045,8 @@ attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
   };
 
   float s[kBwdTiles][4], da[kBwdTiles][4];
-  float dk[Dp / 8][4] = {}, dv[Dp / 8][4] = {};
+  // with two roles dk holds the warp's one gradient, dk or dv
+  float dk[Dp / 8][4] = {}, dv[kRoles == 1 ? Dp / 8 : 1][4] = {};
   stage(0);
   for (int c = 0; c < chunks; ++c) {
     if (c + 1 < chunks) {
@@ -1022,18 +1062,57 @@ attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
       const float* st = sts + (c & 1) * 3 * kLongRows;
       const int left = n - c * kLongRows;  // queries from the chunk's first
       for (int q0 = 0; q0 < kLongRows && q0 < left; q0 += kStep) {
-        tc::products<Dp>(s, ka, qb, q0, kLongRows, lane);   // S^T
-        tc::products<Dp>(da, va, gb, q0, kLongRows, lane);  // dA^T
-        key_pds(s, da, q0, left, st, st + kLongRows, st + 2 * kLongRows,
-                scale, lane);
-        key_accumulate<Dp>(dk, dv, s, da, qb, gb, q0, kLongRows, lane);
+        if constexpr (kRoles == 1) {
+          tc::products<Dp>(s, ka, qb, q0, kLongRows, lane);   // S^T
+          tc::products<Dp>(da, va, gb, q0, kLongRows, lane);  // dA^T
+          key_pds(s, da, q0, left, st, st + kLongRows, st + 2 * kLongRows,
+                  scale, lane);
+          key_accumulate<Dp>(dk, dv, s, da, qb, gb, q0, kLongRows, lane);
+        } else {
+          tc::products_smem<Dp>(s, ks, 16 * warp, qb, q0, kLongRows,
+                                lane);  // S^T
+          if (role == 0) {
+            tc::products_smem<Dp>(da, vs, 16 * warp, gb, q0, kLongRows,
+                                  lane);  // dA^T
+          } else {
+#pragma unroll
+            for (int j = 0; j < kBwdTiles; ++j) {
+              da[j][0] = da[j][1] = da[j][2] = da[j][3] = 0.f;
+            }
+          }
+          key_pds(s, da, q0, left, st, st + kLongRows, st + 2 * kLongRows,
+                  scale, lane);
+#pragma unroll
+          for (int p = 0; p < kBwdTiles / 2; ++p) {
+            const int k0q = q0 + 16 * p;
+            if (k0q >= kLongRows) continue;
+            if (role == 0) {
+              accumulate_split<Dp>(dk, da[2 * p], da[2 * p + 1], qb, k0q,
+                                   lane);
+            } else {  // P^T rounded to bf16, as the forward multiplied V
+              const uint32_t pa[1][4] = {{
+                  tc::pack(s[2 * p][0], s[2 * p][1]),
+                  tc::pack(s[2 * p][2], s[2 * p][3]),
+                  tc::pack(s[2 * p + 1][0], s[2 * p + 1][1]),
+                  tc::pack(s[2 * p + 1][2], s[2 * p + 1][3])}};
+              tc::accumulate<Dp, 1>(dk, pa, gb, k0q, lane);
+            }
+          }
+        }
       }
     }
     __syncthreads();  // buffer c % 2 is free for chunk c + 2
   }
   if (active) {
-    tc::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d, lane);
-    tc::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d, lane);
+    if constexpr (kRoles == 1) {
+      tc::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d,
+                         lane);
+      tc::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d,
+                         lane);
+    } else {
+      const Operand<bf16>& o = role == 0 ? ops.dk : ops.dv;
+      tc::store_rows<Dp>(dk, o.head(b, h, d), o.row, c0, n, d, lane);
+    }
   }
 }
 
@@ -1064,6 +1143,7 @@ size_t smem_mma_long(int dp) {
 
 // 0: the whole-sequence route, 1: the key-chunked route
 int route(int n, int dtype, int dp) {
+  if (tc::a_in_smem(dp)) return 1;  // no whole-sequence body there
   const size_t whole = dtype == 1 ? smem_mma_whole(n, dp)
                                   : smem_f32_whole(n, dp);
   return whole <= kSmemLimit ? 0 : 1;
@@ -1104,37 +1184,44 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
   constexpr bool kMma = std::is_same<T, tc::bf16>::value;
   constexpr int dtype = kMma ? 1 : 0;
   const size_t smem = smem_bytes(n, dtype, Dp);
-  const void *whole, *qk, *kk;
+  const void *qk, *kk;
   if constexpr (kMma) {
-    whole = d == Dp ? reinterpret_cast<const void*>(
-                          attention_bwd_mma_kernel<Dp, Dp>)
-                    : reinterpret_cast<const void*>(
-                          attention_bwd_mma_kernel<Dp, 0>);
     qk = reinterpret_cast<const void*>(attention_bwd_mma_q_kernel<Dp>);
     kk = reinterpret_cast<const void*>(attention_bwd_mma_k_kernel<Dp>);
   } else {
-    whole = reinterpret_cast<const void*>(attention_bwd_kernel<Dp>);
     qk = reinterpret_cast<const void*>(attention_bwd_q_kernel<Dp>);
     kk = reinterpret_cast<const void*>(attention_bwd_k_kernel<Dp>);
   }
   cudaError_t err;
-  if (route(n, dtype, Dp) == 0) {
-    if ((err = allow_smem(whole, smem)) != cudaSuccess) return err;
-    const dim3 grid(heads, batch);
-    if constexpr (kMma) {
-      const int threads = 32 * tc::warps_for(tc::pad16(n) / 16, kBwdWarps);
-      if (d == Dp) {
-        attention_bwd_mma_kernel<Dp, Dp><<<grid, threads, smem, stream>>>(
-            ops, n, d, scale);
+  if constexpr (!tc::a_in_smem(Dp)) {
+    if (route(n, dtype, Dp) == 0) {
+      const void* whole;
+      if constexpr (kMma) {
+        whole = d == Dp ? reinterpret_cast<const void*>(
+                              attention_bwd_mma_kernel<Dp, Dp>)
+                        : reinterpret_cast<const void*>(
+                              attention_bwd_mma_kernel<Dp, 0>);
       } else {
-        attention_bwd_mma_kernel<Dp, 0><<<grid, threads, smem, stream>>>(
+        whole = reinterpret_cast<const void*>(attention_bwd_kernel<Dp>);
+      }
+      if ((err = allow_smem(whole, smem)) != cudaSuccess) return err;
+      const dim3 grid(heads, batch);
+      if constexpr (kMma) {
+        const int threads =
+            32 * tc::warps_for(tc::pad16(n) / 16, kBwdWarps);
+        if (d == Dp) {
+          attention_bwd_mma_kernel<Dp, Dp><<<grid, threads, smem, stream>>>(
+              ops, n, d, scale);
+        } else {
+          attention_bwd_mma_kernel<Dp, 0><<<grid, threads, smem, stream>>>(
+              ops, n, d, scale);
+        }
+      } else {
+        attention_bwd_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
             ops, n, d, scale);
       }
-    } else {
-      attention_bwd_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
-          ops, n, d, scale);
+      return cudaGetLastError();
     }
-    return cudaGetLastError();
   }
   if ((err = allow_smem(qk, smem)) != cudaSuccess) return err;
   if ((err = allow_smem(kk, smem)) != cudaSuccess) return err;
@@ -1144,8 +1231,9 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
     attention_bwd_mma_q_kernel<Dp><<<grid, 32 * kLongWarps, smem, stream>>>(
         ops, stats, n, heads, d, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    attention_bwd_mma_k_kernel<Dp><<<grid, 32 * kLongWarps, smem, stream>>>(
-        ops, stats, n, heads, d, scale);
+    attention_bwd_mma_k_kernel<Dp>
+        <<<grid, 32 * kLongWarps * key_roles(Dp), smem, stream>>>(
+            ops, stats, n, heads, d, scale);
   } else {
     const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, batch);
     attention_bwd_q_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
@@ -1169,13 +1257,15 @@ cudaError_t launch_width(const void* const* ptrs, const int64_t* strides,
       return launch<T, 32>(ops, stats, batch, n, heads, d, scale, stream);
     case 64:
       return launch<T, 64>(ops, stats, batch, n, heads, d, scale, stream);
-    default:
+    case 128:
       return launch<T, 128>(ops, stats, batch, n, heads, d, scale, stream);
+    default:
+      return launch<T, 256>(ops, stats, batch, n, heads, d, scale, stream);
   }
 }
 
 bool bad_shape(int batch, int n, int heads, int head_dim) {
-  return head_dim < 1 || head_dim > 128 || batch < 1 || batch > 65535 ||
+  return head_dim < 1 || head_dim > 256 || batch < 1 || batch > 65535 ||
          n < 1 || heads < 1 || heads > 65535;
 }
 

@@ -6,7 +6,7 @@
 // attention_qkv_fwd, and _split_fwd_impl :294 (the same kernel fed the
 // concatenation of three operands) through attention_split_fwd.
 //
-// What it computes, per image b and head h (head width D, 1..128):
+// What it computes, per image b and head h (head width D, 1..256):
 //   s[i, j] = (q_i . k_j) * scale          q, k widened to f32, f32 dot,
 //                                          scale applied after the dot
 //   P[i, j] = round_T(exp(s - max_j s) / sum_j exp(s - max_j s))
@@ -24,9 +24,17 @@
 // therefore compute bit-identical outputs on the same data.
 //
 // Head widths: every body is a template over the padded width Dp in {16,
-// 32, 64, 128} (the smallest that holds D); the true D is a runtime value.
-// Staged features D..Dp-1 are zero, so the dot products over Dp features
-// equal those over D, and output columns beyond D are never written.
+// 32, 64, 128, 256} (the smallest that holds D); the true D is a runtime
+// value. Staged features D..Dp-1 are zero, so the dot products over Dp
+// features equal those over D, and output columns beyond D are never
+// written. At Dp = 256 every length takes the key-chunked route: the
+// whole-sequence bodies keep a row's or a tile's features in registers
+// (the f32 body a query row of Dp floats a lane, the bf16 body Q's A
+// fragments beside a 16 x Dp output tile), which do not fit one thread's
+// 255 registers at that width, and at N = 145 the bf16 body's Q, K and V
+// would not fit one block's shared memory either. The chunked bf16 kernel
+// reads Q's A fragments from shared memory there (attention_mma.cuh,
+// products_smem) and takes 32 keys a chunk.
 //
 // Bound on an H100 SXM at the serving shape (B=64, N=145, H=8, D=32,
 // bf16): the function must move 19.0 MB (qkv read once, 14.25 MB; out
@@ -156,12 +164,21 @@ __device__ __forceinline__ void stage_f32(const float* __restrict__ src,
   }
 }
 
-// a . b over Dp features, both rows in shared memory
+// a . b over Dp features, both rows in shared memory; at Dp = 256 in
+// unrolled steps of 32 features (a full unroll spills)
 template <int Dp>
 __device__ __forceinline__ float dot_smem(const float* a, const float* b) {
   float s = 0.f;
+  if constexpr (Dp > 128) {
+#pragma unroll 1
+    for (int f0 = 0; f0 < Dp; f0 += 32) {
 #pragma unroll
-  for (int f = 0; f < Dp; ++f) s = fmaf(a[f], b[f], s);
+      for (int f = f0; f < f0 + 32; ++f) s = fmaf(a[f], b[f], s);
+    }
+  } else {
+#pragma unroll
+    for (int f = 0; f < Dp; ++f) s = fmaf(a[f], b[f], s);
+  }
   return s;
 }
 
@@ -374,9 +391,12 @@ attention_fwd_long_kernel(const Operand<float> q_op,
 constexpr int kChunkTiles = 20;  // 8-key C tiles of S in registers, Dp <= 32
 // ... and at wider heads, where the A fragments and the output take more
 // registers (the chunk stays a multiple of 16 keys)
+__host__ __device__ constexpr int chunk_tiles_for(int dp) {
+  return dp <= 32 ? kChunkTiles : dp == 64 ? 12 : dp == 128 ? 6 : 4;
+}
 template <int Dp>
 __host__ __device__ constexpr int chunk_tiles() {
-  return Dp <= 32 ? kChunkTiles : Dp == 64 ? 12 : 6;
+  return chunk_tiles_for(Dp);
 }
 // Most warps per block. At its ~160 registers a thread an SM holds 12 of
 // this body's warps: blocks of 3 fill it 4 at a time, so the serving
@@ -553,8 +573,11 @@ attention_fwd_mma_long_kernel(const Operand<tc::bf16> q_op,
                      min(kRows, n - q0), kRows, d);
   tc::cp_async_wait_all();
   __syncthreads();
-  uint32_t qa[Dp / 16][4];
-  if (active) tc::load_a<Dp>(qa, qs, 16 * warp, lane);
+  constexpr bool kQSmem = tc::a_in_smem(Dp);  // Q's fragments read per step
+  uint32_t qa[kQSmem ? 1 : Dp / 16][4];
+  if constexpr (!kQSmem) {
+    if (active) tc::load_a<Dp>(qa, qs, 16 * warp, lane);
+  }
 
   const int chunks = (n + kChunk - 1) / kChunk;
   // stage chunk c of K (and of V) into buffer c % 2, as one cp.async group
@@ -587,8 +610,13 @@ attention_fwd_mma_long_kernel(const Operand<tc::bf16> q_op,
       __syncthreads();
       if (active) {
         const tc::bf16* kb = kv + (c & 1) * 2 * kChunk * kPad;
-        tc::masked_scores<Dp>(s, qa, kb, 0, n - c * kChunk, kChunk, scale,
-                              lane);
+        if constexpr (kQSmem) {
+          tc::masked_scores_smem<Dp>(s, qs, 16 * warp, kb, 0, n - c * kChunk,
+                                     kChunk, scale, lane);
+        } else {
+          tc::masked_scores<Dp>(s, qa, kb, 0, n - c * kChunk, kChunk, scale,
+                                lane);
+        }
         if (!second) {
           fold_chunk(s, m, l, false);
         } else {
@@ -623,12 +651,14 @@ size_t smem_mma_whole(int n, int dp) {
 }
 
 size_t smem_mma_long(int dp) {
-  const int chunk = dp <= 32 ? 8 * kChunkTiles : dp == 64 ? 96 : 48;
+  const int chunk = 8 * chunk_tiles_for(dp);
   return sizeof(tc::bf16) * (16 * kLongWarps + 4 * chunk) * tc::row_pad(dp);
 }
 
+
 // 0: the whole-sequence route, 1: the key-chunked route
 int route(int n, int dtype, int dp) {
+  if (tc::a_in_smem(dp)) return 1;  // no whole-sequence body there
   const size_t whole = dtype == 1 ? smem_mma_whole(n, dp)
                                   : smem_f32_whole(n, dp);
   return whole <= kSmemLimit ? 0 : 1;
@@ -668,34 +698,34 @@ cudaError_t launch_mma(const Operands3<tc::bf16>& ops, void* out, int batch,
   using tc::bf16;
   bf16* o = static_cast<bf16*>(out);
   const size_t smem = smem_bytes(n, 1, Dp);
-  if (route(n, 1, Dp) == 0) {
-    const void* body =
-        d == Dp ? reinterpret_cast<const void*>(
-                      attention_fwd_mma_kernel<Dp, Dp>)
-                : reinterpret_cast<const void*>(
-                      attention_fwd_mma_kernel<Dp, 0>);
-    const cudaError_t err = allow_smem(body, smem);
-    if (err != cudaSuccess) return err;
-    const int threads = 32 * tc::warps_for(tc::pad16(n) / 16, kFwdWarps);
-    const dim3 grid(heads, batch);
-    if (d == Dp) {
-      attention_fwd_mma_kernel<Dp, Dp><<<grid, threads, smem, stream>>>(
-          ops.q, ops.k, ops.v, o, n, heads, d, scale);
-    } else {
-      attention_fwd_mma_kernel<Dp, 0><<<grid, threads, smem, stream>>>(
-          ops.q, ops.k, ops.v, o, n, heads, d, scale);
+  if constexpr (!tc::a_in_smem(Dp)) {
+    if (route(n, 1, Dp) == 0) {
+      const void* body =
+          d == Dp ? reinterpret_cast<const void*>(
+                        attention_fwd_mma_kernel<Dp, Dp>)
+                  : reinterpret_cast<const void*>(
+                        attention_fwd_mma_kernel<Dp, 0>);
+      const cudaError_t err = allow_smem(body, smem);
+      if (err != cudaSuccess) return err;
+      const int threads = 32 * tc::warps_for(tc::pad16(n) / 16, kFwdWarps);
+      const dim3 grid(heads, batch);
+      if (d == Dp) {
+        attention_fwd_mma_kernel<Dp, Dp><<<grid, threads, smem, stream>>>(
+            ops.q, ops.k, ops.v, o, n, heads, d, scale);
+      } else {
+        attention_fwd_mma_kernel<Dp, 0><<<grid, threads, smem, stream>>>(
+            ops.q, ops.k, ops.v, o, n, heads, d, scale);
+      }
+      return cudaGetLastError();
     }
-  } else {
-    const cudaError_t err = allow_smem(
-        reinterpret_cast<const void*>(attention_fwd_mma_long_kernel<Dp>),
-        smem);
-    if (err != cudaSuccess) return err;
-    const int blocks = (tc::pad16(n) + 16 * kLongWarps - 1) /
-                       (16 * kLongWarps);
-    attention_fwd_mma_long_kernel<Dp><<<dim3(blocks, heads, batch),
-                                        32 * kLongWarps, smem, stream>>>(
-        ops.q, ops.k, ops.v, o, n, heads, d, scale);
   }
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(attention_fwd_mma_long_kernel<Dp>), smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (tc::pad16(n) + 16 * kLongWarps - 1) / (16 * kLongWarps);
+  attention_fwd_mma_long_kernel<Dp><<<dim3(blocks, heads, batch),
+                                      32 * kLongWarps, smem, stream>>>(
+      ops.q, ops.k, ops.v, o, n, heads, d, scale);
   return cudaGetLastError();
 }
 
@@ -706,24 +736,26 @@ cudaError_t launch_f32(const Operands3<float>& ops, void* out, int batch,
   float* o = static_cast<float*>(out);
   const size_t smem = smem_bytes(n, 0, Dp);
   const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, batch);
-  if (route(n, 0, Dp) == 0) {
-    const cudaError_t err = allow_smem(
-        reinterpret_cast<const void*>(attention_fwd_kernel<Dp>), smem);
-    if (err != cudaSuccess) return err;
-    attention_fwd_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
-        ops.q, ops.k, ops.v, o, n, heads, d, scale);
-  } else {
-    const cudaError_t err = allow_smem(
-        reinterpret_cast<const void*>(attention_fwd_long_kernel<Dp>), smem);
-    if (err != cudaSuccess) return err;
-    attention_fwd_long_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
-        ops.q, ops.k, ops.v, o, n, heads, d, scale);
+  if constexpr (!tc::a_in_smem(Dp)) {
+    if (route(n, 0, Dp) == 0) {
+      const cudaError_t err = allow_smem(
+          reinterpret_cast<const void*>(attention_fwd_kernel<Dp>), smem);
+      if (err != cudaSuccess) return err;
+      attention_fwd_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
+          ops.q, ops.k, ops.v, o, n, heads, d, scale);
+      return cudaGetLastError();
+    }
   }
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(attention_fwd_long_kernel<Dp>), smem);
+  if (err != cudaSuccess) return err;
+  attention_fwd_long_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
+      ops.q, ops.k, ops.v, o, n, heads, d, scale);
   return cudaGetLastError();
 }
 
 bool bad_shape(int batch, int n, int heads, int head_dim) {
-  return head_dim < 1 || head_dim > 128 || batch < 1 || batch > 65535 ||
+  return head_dim < 1 || head_dim > 256 || batch < 1 || batch > 65535 ||
          n < 1 || heads < 1 || heads > 65535;
 }
 
@@ -742,8 +774,11 @@ int dispatch(const void* q, const void* k, const void* v,
         break;
       case 64: err = launch_mma<64>(ops, out, batch, n, heads, d, scale, s);
         break;
-      default:
+      case 128:
         err = launch_mma<128>(ops, out, batch, n, heads, d, scale, s);
+        break;
+      default:
+        err = launch_mma<256>(ops, out, batch, n, heads, d, scale, s);
     }
   } else if (dtype == 0) {
     const auto ops = operands<float>(q, k, v, strides);
@@ -754,8 +789,11 @@ int dispatch(const void* q, const void* k, const void* v,
         break;
       case 64: err = launch_f32<64>(ops, out, batch, n, heads, d, scale, s);
         break;
-      default:
+      case 128:
         err = launch_f32<128>(ops, out, batch, n, heads, d, scale, s);
+        break;
+      default:
+        err = launch_f32<256>(ops, out, batch, n, heads, d, scale, s);
     }
   }
   return static_cast<int>(err);

@@ -197,6 +197,44 @@ def auto_warp_method(device_type: str, canvas_shape: Tuple[int, ...]) -> str:
     return "kernel" if device_type == "cuda" and square else "exact"
 
 
+def crop_affines(orig_to_canvas: torch.Tensor, sizes_hw: torch.Tensor,
+                 params: AugmentParams,
+                 image_size: Tuple[int, int] = (192, 192),
+                 crop_size_factor: float = 0.35
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m_orig, m_canvas), each (B, 2, 3): the original image -> crop
+    affines with the flip folded in, and the canvas -> crop affines the
+    warp takes, for orig_to_canvas (B, 2, 3), sizes_hw (B, 2) (h, w) and
+    the drawn params."""
+    b = orig_to_canvas.shape[0]
+    orig_to_canvas = orig_to_canvas.float()
+    sizes_hw = sizes_hw.float()
+    h, w = sizes_hw[:, 0], sizes_hw[:, 1]
+    out_h, out_w = image_size
+
+    # crop center and size (reference libs/load.py:69-70)
+    center = torch.stack([w / 2.0, h / 2.0], dim=-1) + params.translate
+    origin_size = torch.maximum(h, w) * crop_size_factor
+
+    # the flip folded into the geometry: the reference flips pixels,
+    # joints and center (libs/load.py:131-133); m_crop built from the
+    # flipped center, composed with the mirror F: x -> w - 1 - x, acts on
+    # the unflipped image
+    flip = params.flip > 0
+    center_f = torch.stack(
+        [torch.where(flip, w - center[:, 0] - 1.0, center[:, 0]),
+         center[:, 1]], dim=-1)
+    m_crop = build_affine(center_f, params.scale, params.rot, origin_size,
+                          (float(out_w), float(out_h)))
+    f_mat = torch.zeros((b, 2, 3), dtype=torch.float32,
+                        device=orig_to_canvas.device)
+    f_mat[:, 0, 0] = torch.where(flip, -1.0, 1.0)
+    f_mat[:, 0, 2] = torch.where(flip, w - 1.0, torch.zeros_like(w))
+    f_mat[:, 1, 1] = 1.0
+    m_orig = compose_affine(m_crop, f_mat)  # orig -> crop, flip folded
+    return m_orig, compose_affine(m_orig, invert_affine(orig_to_canvas))
+
+
 def apply_augment_batch(canvas: torch.Tensor, orig_to_canvas: torch.Tensor,
                         sizes_hw: torch.Tensor, joints: torch.Tensor,
                         joints_vis: torch.Tensor, params: AugmentParams,
@@ -222,33 +260,10 @@ def apply_augment_batch(canvas: torch.Tensor, orig_to_canvas: torch.Tensor,
     if warp_method not in WARP_METHODS:
         raise ValueError(f"warp_method {warp_method!r} not in "
                          f"{WARP_METHODS}")
-    b = canvas.shape[0]
     dev = canvas.device
-    orig_to_canvas = orig_to_canvas.float()
-    sizes_hw = sizes_hw.float()
-    h, w = sizes_hw[:, 0], sizes_hw[:, 1]
     out_h, out_w = image_size
-
-    # crop center and size (reference libs/load.py:69-70)
-    center = torch.stack([w / 2.0, h / 2.0], dim=-1) + params.translate
-    origin_size = torch.maximum(h, w) * crop_size_factor
-
-    # the flip folded into the geometry: the reference flips pixels,
-    # joints and center (libs/load.py:131-133); m_crop built from the
-    # flipped center, composed with the mirror F: x -> w - 1 - x, acts on
-    # the unflipped image
-    flip = params.flip > 0
-    center_f = torch.stack(
-        [torch.where(flip, w - center[:, 0] - 1.0, center[:, 0]),
-         center[:, 1]], dim=-1)
-    m_crop = build_affine(center_f, params.scale, params.rot, origin_size,
-                          (float(out_w), float(out_h)))
-    f_mat = torch.zeros((b, 2, 3), dtype=torch.float32, device=dev)
-    f_mat[:, 0, 0] = torch.where(flip, -1.0, 1.0)
-    f_mat[:, 0, 2] = torch.where(flip, w - 1.0, torch.zeros_like(w))
-    f_mat[:, 1, 1] = 1.0
-    m_orig = compose_affine(m_crop, f_mat)  # orig -> crop, flip folded
-    m_canvas = compose_affine(m_orig, invert_affine(orig_to_canvas))
+    m_orig, m_canvas = crop_affines(orig_to_canvas, sizes_hw, params,
+                                    image_size, crop_size_factor)
 
     if warp_method == "auto":
         warp_method = auto_warp_method(dev.type, tuple(canvas.shape))
@@ -265,8 +280,9 @@ def apply_augment_batch(canvas: torch.Tensor, orig_to_canvas: torch.Tensor,
         crop = batched_affine_warp(img, m_canvas, (out_h, out_w))
         # cv2.warpAffine on uint8 rounds
         crop = torch.round(torch.clamp(crop, 0.0, 255.0))
-    if normalize:
-        crop = normalize_imagenet(crop)
+    # the kernel's crop of a uint8 canvas is uint8; the image is f32, as
+    # the JAX pipeline casts it (pipeline.py:293)
+    crop = normalize_imagenet(crop) if normalize else crop.float()
 
     joints_crop = transform_points(joints, m_orig)
     target, target_weight = generate_targets(

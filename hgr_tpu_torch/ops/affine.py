@@ -100,7 +100,13 @@ def transform_points(points: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 
 def invert_affine(m: torch.Tensor) -> torch.Tensor:
-    """Invert 2x3 affine(s): dst = A src + b  =>  src = A^-1 dst - A^-1 b."""
+    """Invert 2x3 affine(s): dst = A src + b  =>  src = A^-1 dst - A^-1 b.
+
+    Elementwise ops only, each rounded on its own (the A^-1 b product
+    written out, not a batched matrix product, which a card may run with
+    fused multiply-adds): the warp kernel (csrc/warp_twopass.cu) inverts
+    in this order and equals it bit for bit; on the CPU it is the einsum's
+    result."""
     a = m[..., :, :2]
     b = m[..., :, 2]
     det = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
@@ -108,7 +114,8 @@ def invert_affine(m: torch.Tensor) -> torch.Tensor:
         torch.stack([a[..., 1, 1], -a[..., 0, 1]], dim=-1),
         torch.stack([-a[..., 1, 0], a[..., 0, 0]], dim=-1),
     ], dim=-2) / det[..., None, None]
-    inv_b = -torch.einsum("...ij,...j->...i", inv_a, b)
+    inv_b = -(inv_a[..., :, 0] * b[..., None, 0]
+              + inv_a[..., :, 1] * b[..., None, 1])
     return torch.cat([inv_a, inv_b[..., None]], dim=-1)
 
 

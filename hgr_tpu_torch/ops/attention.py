@@ -26,11 +26,12 @@ hgr_tpu/ops/attention_pallas.py).
   call on the three thirds.
 * On CUDA tensors each kernel runs one body per compute type: bf16 on
   Hopper's tensor cores (``mma.sync``), float32 on the CUDA cores, each
-  templated over the padded head width (16, 32, 64 or 128: any head_dim
-  up to 128; above it the kernels raise, naming ROADMAP C2). Every
-  sequence length runs: while a head's whole sequence fits in one block's
-  shared memory the kernels take it whole, past that they stream the keys
-  (and, in the backward, the queries) through shared memory in chunks
+  templated over the padded head width (16, 32, 64, 128 or 256: any
+  head_dim up to 256; above it the kernels raise, naming ROADMAP C2).
+  Every sequence length runs: while a head's whole sequence fits in one
+  block's shared memory the kernels take it whole, past that (and at
+  every length at padded width 256) they stream the keys (and, in the
+  backward, the queries) through shared memory in chunks
   (``kernel_route``). The chunked backward keeps the rows' softmax
   statistics in a scratch the wrapper allocates.
 * ``attention_core`` — the unfused chain on heads-first tensors that can
@@ -47,7 +48,7 @@ from typing import Tuple
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128  # the widest padded head width the bodies take
+_MAX_HEAD_DIM = 256  # the widest padded head width the bodies take
 
 
 def split_heads(qkv: torch.Tensor, heads: int, head_dim: int
@@ -204,7 +205,7 @@ def _check_head_dim(head_dim: int) -> None:
     if not 1 <= head_dim <= _MAX_HEAD_DIM:
         raise ValueError(
             f"attention kernels take head_dim 1..{_MAX_HEAD_DIM}, got "
-            f"{head_dim} (wider heads: ROADMAP C2)")
+            f"{head_dim}: ROADMAP C2 (head widths above 256)")
 
 
 def _check(qkv: torch.Tensor, heads: int, head_dim: int) -> None:

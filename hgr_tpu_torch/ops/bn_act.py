@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from hgr_tpu_torch.parallel.collectives import all_sum
+from hgr_tpu_torch.utils.cuda_build import on_device
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -157,17 +158,6 @@ def _ptrs(*vecs: torch.Tensor):
     return [v.data_ptr() for v in vecs], vecs
 
 
-def _on_device(dev: torch.device, launch):
-    """``launch(stream)`` with ``dev`` the current device (kernels launch
-    on the current device) and its current stream as an int; the device
-    is switched, and restored, only when it is not current already (the
-    cheap case is every call of a one-card process)."""
-    if dev.index == torch.cuda.current_device():
-        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
-    with torch.cuda.device(dev):
-        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
-
-
 @functools.lru_cache(maxsize=None)
 def _reduce_workspace(device: int, m: int, c: int, code: int, vec: int,
                       act: bool) -> Tuple[int, int]:
@@ -231,7 +221,7 @@ def bn_act_reduce(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
                                  t1.data_ptr(), t2.data_ptr(), m, c, code,
                                  vec, int(act), stream)
 
-    _raise_on(_on_device(dev, launch), lib, "bn_act_reduce")
+    _raise_on(on_device(dev, launch), lib, "bn_act_reduce")
     bn_act_reduce.launches += 1
     return t1, t2
 
@@ -254,7 +244,7 @@ def bn_act_elem(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
     vec = _vectorized(c, y2, g2, dy)
     ptrs, _keep = _ptrs(mean, r, gamma, beta, t1m, t2m)
     code = _DTYPE_CODES[y2.dtype]
-    rc = _on_device(y2.device, lambda stream: lib.bn_act_elem(
+    rc = on_device(y2.device, lambda stream: lib.bn_act_elem(
         y2.data_ptr(), g2.data_ptr(), *ptrs, dy.data_ptr(), m, c, code, vec,
         int(act), stream))
     _raise_on(rc, lib, "bn_act_elem")

@@ -7,18 +7,18 @@ hgr_tpu/ops/warp_pallas.py:warp_twopass_pallas).
   templated over the canvas type) and counts the launch in
   ``warp_twopass.launches``. On a CPU tensor it runs
   ``warp_twopass_reference``, the kernel's plain version.
-* The host side is the Pallas wrapper's: invert the affine, route through
-  the transpose where |t| < |s|, compute alpha, beta, gamma, then the
-  BORDER_CONSTANT mask and the round/clip. The kernel does the per-pixel
-  part, mask and rounding included; the plain version does the same steps
-  in the same order.
+* The kernel takes the raw affines, gains and jitter flags and derives
+  each image's inverse affine, transpose route, shear coefficients and
+  border mask itself, in the plain version's operation order; the
+  wrapper only checks and allocates.
 
 The canvas is (B, S, S, 3) BGR in uint8 (the staged layout of the
 loader), float32 or bfloat16, read as stored: no packing and no padding
-of S to a multiple of 128 (both are TPU layout devices). The output is
-(B, out_h, out_w, 3) float32; ``round_output`` (default: the canvas is
-an integer type) rounds and clips it to [0, 255], as the uint8 return of
-the Pallas wrapper and the pipeline's quantization step do.
+of S to a multiple of 128 (both are TPU layout devices).
+``round_output`` (default: the canvas is an integer type) rounds and
+clips the crop to [0, 255]; the output is (B, out_h, out_w, 3) uint8 for
+a uint8 canvas with rounding (the Pallas wrapper's return in the canvas's
+dtype), float32 otherwise.
 """
 
 from __future__ import annotations
@@ -30,10 +30,8 @@ from typing import Optional, Tuple
 import torch
 
 from hgr_tpu_torch.ops.color import jitter_bgr_planes
-from hgr_tpu_torch.ops.warp import (
-    batched_affine_warp_twopass,
-    twopass_coefficients,
-)
+from hgr_tpu_torch.ops.warp import batched_affine_warp_twopass
+from hgr_tpu_torch.utils.cuda_build import load_kernel, on_device
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
@@ -81,85 +79,69 @@ def warp_twopass_reference(canvas: torch.Tensor, m: torch.Tensor,
     out = batched_affine_warp_twopass(img, m, (out_h, out_w))
     if round_output:
         out = torch.round(torch.clamp(out, 0.0, 255.0))
-    return out
+    return out.to(_out_dtype(canvas.dtype, round_output))
 
 
-def _kernel_params(m: torch.Tensor, jitter_gains: Optional[torch.Tensor],
-                   do_jitter: Optional[torch.Tensor]) -> torch.Tensor:
-    """(B, 17) float32 per-image parameters of the kernel: alpha, beta,
-    gamma, s2, t2, u2, the three gains, do_jitter, use_t, then the
-    inverse affine's six entries (for the border mask)."""
-    minv, use_t, *shear = twopass_coefficients(m)
-    b = m.shape[0]
-    ones = torch.ones(b, dtype=torch.float32, device=m.device)
-    gains = (jitter_gains.float() if jitter_gains is not None
-             else torch.ones(b, 3, dtype=torch.float32, device=m.device))
-    dj = (ones if do_jitter is None or jitter_gains is None
-          else (do_jitter > 0).float())
-    return torch.cat([torch.stack(shear, dim=-1), gains, dj[:, None],
-                      use_t.float()[:, None], minv.reshape(b, 6)],
-                     dim=-1).contiguous()
+def _out_dtype(canvas_dtype: torch.dtype, round_output: bool) -> torch.dtype:
+    """uint8 for a uint8 canvas with rounding (as the Pallas wrapper
+    returns the canvas's dtype), float32 otherwise."""
+    return torch.uint8 if canvas_dtype == torch.uint8 and round_output \
+        else torch.float32
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/warp_twopass.cu) with its C signatures
+    declared."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.warp_twopass.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.warp_twopass.restype = i
+    lib.warp_twopass_error_string.argtypes = [i]
+    lib.warp_twopass_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
-    from hgr_tpu_torch.utils.cuda_build import load_kernel
-
-    lib = load_kernel("warp_twopass").lib
-    lib.warp_twopass.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.warp_twopass.restype = ctypes.c_int
-    lib.warp_twopass_error_string.argtypes = [ctypes.c_int]
-    lib.warp_twopass_error_string.restype = ctypes.c_char_p
-    return lib
+    return _declare(load_kernel("warp_twopass").lib)
 
 
-def _launch(canvas, m, out_h, out_w, jitter_gains, do_jitter,
-            round_output) -> torch.Tensor:
-    if canvas.dtype not in _DTYPE_CODES:
-        raise TypeError(
-            f"warp kernel takes uint8, float32 or bfloat16 canvases, got "
-            f"{canvas.dtype}")
-    if not canvas.is_contiguous():
-        raise ValueError("warp kernel needs a contiguous (B, S, S, 3) canvas")
+def _launch(canvas: torch.Tensor, m: torch.Tensor, out_h: int, out_w: int,
+            jitter_gains: Optional[torch.Tensor],
+            do_jitter: Optional[torch.Tensor],
+            round_output: bool) -> torch.Tensor:
+    """The kernel's launch on a checked contiguous CUDA canvas, contiguous
+    float32 affines (B, 2, 3), gains (B, 3) and do_jitter (B,) on its
+    card (either may be None). The kernel derives every per-image
+    parameter from the affine itself."""
     b, s = canvas.shape[0], canvas.shape[1]
-    if not 1 <= b <= 65535:
-        raise ValueError(f"batch {b} outside [1, 65535]")
-    for name, t in (("affines", m), ("jitter_gains", jitter_gains),
-                    ("do_jitter", do_jitter)):
-        if t is not None and t.device != canvas.device:
-            raise ValueError(f"{name} on {t.device}, canvas on "
-                             f"{canvas.device}")
-    params = _kernel_params(m, jitter_gains, do_jitter)
-    return launch_with_params(canvas, params, out_h, out_w,
-                              jitter_gains is not None, round_output)
-
-
-def launch_with_params(canvas: torch.Tensor, params: torch.Tensor,
-                       out_h: int, out_w: int, jitter: bool,
-                       round_output: bool) -> torch.Tensor:
-    """The kernel's launch alone, on a checked contiguous CUDA canvas and
-    its (B, 17) parameters from ``_kernel_params`` (the wrapper's host-side
-    part, a dozen small torch ops, done beforehand): what a timing of the
-    kernel without that part calls."""
-    b, s = canvas.shape[0], canvas.shape[1]
-    out = torch.empty((b, out_h, out_w, 3), dtype=torch.float32,
+    dtype = _out_dtype(canvas.dtype, round_output)
+    out = torch.empty((b, out_h, out_w, 3), dtype=dtype,
                       device=canvas.device)
     lib = _kernel()
-    with torch.cuda.device(canvas.device):
-        stream = torch.cuda.current_stream(canvas.device).cuda_stream
-        rc = lib.warp_twopass(
-            canvas.data_ptr(), params.data_ptr(), out.data_ptr(), b, s,
-            out_h, out_w, _DTYPE_CODES[canvas.dtype], int(jitter),
-            int(round_output), stream)
+    rc = on_device(canvas.device, lambda stream: lib.warp_twopass(
+        canvas.data_ptr(), m.data_ptr(),
+        None if jitter_gains is None else jitter_gains.data_ptr(),
+        None if jitter_gains is None or do_jitter is None
+        else do_jitter.data_ptr(),
+        out.data_ptr(), b, s, out_h, out_w, _DTYPE_CODES[canvas.dtype],
+        _DTYPE_CODES[dtype], int(round_output), stream))
     if rc != 0:
         msg = lib.warp_twopass_error_string(rc).decode()
         raise RuntimeError(f"warp_twopass launch failed: {msg} ({rc})")
     warp_twopass.launches += 1
     return out
+
+
+def _checked(t: Optional[torch.Tensor], name: str, shape,
+             canvas: torch.Tensor) -> Optional[torch.Tensor]:
+    if t is None:
+        return None
+    if t.device != canvas.device:
+        raise ValueError(f"{name} on {t.device}, canvas on {canvas.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    return t.float().contiguous()
 
 
 def warp_twopass(canvas: torch.Tensor, m: torch.Tensor,
@@ -168,8 +150,9 @@ def warp_twopass(canvas: torch.Tensor, m: torch.Tensor,
                  do_jitter: Optional[torch.Tensor] = None,
                  round_output: Optional[bool] = None) -> torch.Tensor:
     """(B, S, S, 3) canvas, (B, 2, 3) src->dst affines -> (B, out_h,
-    out_w, 3) float32: the jitter (when ``jitter_gains`` is given) fused
-    into the two-pass warp.
+    out_w, 3): the jitter (when ``jitter_gains`` is given) fused into the
+    two-pass warp; uint8 for a uint8 canvas with ``round_output``, else
+    float32.
 
     A CUDA canvas launches the kernel (or raises: there is no fallback);
     a CPU canvas runs ``warp_twopass_reference``.
@@ -183,8 +166,20 @@ def warp_twopass(canvas: torch.Tensor, m: torch.Tensor,
     if canvas.device.type != "cuda":
         raise ValueError(f"warp_twopass runs on cuda or cpu, got "
                          f"{canvas.device}")
-    return _launch(canvas, m, out_h, out_w, jitter_gains, do_jitter,
-                   round_output)
+    if canvas.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            f"warp kernel takes uint8, float32 or bfloat16 canvases, got "
+            f"{canvas.dtype}")
+    if not canvas.is_contiguous():
+        raise ValueError("warp kernel needs a contiguous (B, S, S, 3) canvas")
+    b = canvas.shape[0]
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch {b} outside [1, 65535]")
+    return _launch(canvas, _checked(m, "affines", (b, 2, 3), canvas), out_h,
+                  out_w, _checked(jitter_gains, "jitter_gains", (b, 3),
+                                  canvas),
+                  _checked(do_jitter, "do_jitter", (b,), canvas),
+                  round_output)
 
 
 warp_twopass.launches = 0  # kernel launches, counted by _launch

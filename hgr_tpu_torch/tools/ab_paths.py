@@ -8,8 +8,10 @@ parent and a change compare within one call:
 
     python -m hgr_tpu_torch.tools.ab_paths build/parent . [--bits-only]
 
-First each checkout's attention kernels run on the same seeded inputs and
-the outputs are compared bit for bit (``same_bits``). Needs the card. Prints each run's model and train lines, then one JSON
+First each checkout's attention kernels, bn kernels and warp run on the
+same seeded inputs and the outputs are compared bit for bit
+(``same_bits``; values, so a uint8 crop equals an f32 crop of the same
+levels), each with its time. Needs the card. Prints each run's model and train lines, then one JSON
 summary line.
 """
 
@@ -75,6 +77,26 @@ calls["fwd_64_145_f32"] = lambda: A.fused_attention_qkv(x32, 8, 32,
                                                         32 ** -0.5)
 calls["bwd_64_145_f32"] = lambda: A.fused_attention_qkv_bwd(x32, g32, 8,
                                                             32, 32 ** -0.5)
+# the fused jitter + warp at the training shape (B = 256 uint8 canvases,
+# 256 -> 192, half the images jittered), through the wrapper, at 0 and 90
+# degrees (the transpose route)
+from hgr_tpu_torch.ops import warp_fused as W
+from hgr_tpu_torch.ops.affine import build_affine
+for rot in (0.0, 90.0):
+    gen = torch.Generator(device="cuda").manual_seed(int(rot) + 1)
+    canvas = torch.randint(0, 256, (256, 256, 256, 3), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    m = build_affine(torch.full((256, 2), 128.0, device="cuda"),
+                     torch.full((256,), 1.1, device="cuda"),
+                     torch.full((256,), rot, device="cuda"),
+                     torch.full((256,), 0.35 * 256, device="cuda"),
+                     (192, 192))
+    gains = torch.rand(256, 3, device="cuda", generator=gen) * 0.6 + 0.7
+    do_j = (torch.rand(256, device="cuda", generator=gen) < 0.5).float()
+    calls[f"warp_{int(rot)}"] = (
+        lambda canvas=canvas, m=m, gains=gains, do_j=do_j: W.warp_twopass(
+            canvas, m, (192, 192), jitter_gains=gains, do_jitter=do_j,
+            round_output=True))
 for name, fn in calls.items():
     out[name] = fn()
 # the bn pair at every ConvBnAct shape of the 192 px path, B = 256 bf16
@@ -158,7 +180,10 @@ def bits(trees, out_dir: str) -> dict:
         per_step[tree] = 2 * sum(
             count * (mean[f"bn_reduce_{key}"] + mean[f"bn_elem_{key}"])
             for key, count in _PATH_BN.items())
-    return {"same_bits": {k: bool(torch.equal(first[k], second[k]))
+    # values compared (a uint8 crop against an earlier f32 one of the
+    # same levels counts as the same bits)
+    return {"same_bits": {k: bool(torch.equal(first[k].float(),
+                                              second[k].float()))
                           for k in first}, "kernel_ms": ms,
             "bn_pair_ms_per_step": per_step}
 

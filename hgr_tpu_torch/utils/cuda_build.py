@@ -114,3 +114,16 @@ def load_kernels(names: List[str]) -> Dict[str, BuiltKernel]:
             _loaded[name] = BuiltKernel(ctypes.CDLL(str(lib_path)), lib_path,
                                         seconds.get(name), ptxas)
         return {name: _loaded[name] for name in names}
+
+
+def on_device(dev, launch):
+    """``launch(stream)`` with card ``dev`` current (a kernel launches on
+    the current device) and its current stream passed as an int; the
+    device is switched, and restored, only when it is not current already
+    (the cheap case is every call of a one-card process)."""
+    import torch
+
+    if dev.index == torch.cuda.current_device():
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return launch(torch._C._cuda_getCurrentRawStream(dev.index))

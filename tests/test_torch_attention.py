@@ -373,9 +373,85 @@ def test_plain_versions_match_pallas_at_long_n_and_other_widths(
 
 
 def test_head_width_above_128_raises_naming_the_roadmap_item():
+    """Widths up to 256 are taken since the bodies gained Dp = 256; above
+    256 the kernels raise before any launch, naming ROADMAP C2. (The name
+    dates from the limit of 128; it is kept so that the test's record
+    runs on.)"""
+    with pytest.raises(ValueError, match=r"ROADMAP C2 \(head widths above 256"):
+        A._check(torch.zeros(1, 5, 3 * 257), 1, 257)
     with pytest.raises(ValueError, match="ROADMAP C2"):
-        A._check(torch.zeros(1, 5, 3 * 160), 1, 160)
-    with pytest.raises(ValueError, match="ROADMAP C2"):
-        q = torch.zeros(1, 5, 160)
-        A._check_split((q, q, q), 1, 160)
-    A._check(torch.zeros(1, 5, 3 * 2 * 128), 2, 128)  # 128 is taken
+        q = torch.zeros(1, 5, 257)
+        A._check_split((q, q, q), 1, 257)
+    A._check(torch.zeros(1, 5, 3 * 160), 1, 160)  # pads to 256
+    A._check(torch.zeros(1, 5, 3 * 2 * 256), 2, 256)  # 256 is taken
+
+
+@pytest.mark.parametrize("head_dim,taken", [
+    (1, True), (16, True), (128, True), (129, True), (160, True),
+    (192, True), (256, True), (0, False), (257, False), (512, False)])
+def test_check_head_dim_takes_1_to_256(head_dim, taken):
+    if taken:
+        A._check_head_dim(head_dim)
+    else:
+        with pytest.raises(ValueError, match="ROADMAP C2"):
+            A._check_head_dim(head_dim)
+
+
+# (n, head_dim): the widths the card's bodies pad to 256 (160 and the
+# full 256), at short lengths (interpret mode); 2 heads
+WIDE_CASES = [(n, hd) for hd in (160, 256) for n in (17, 33)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,head_dim", WIDE_CASES)
+def test_plain_versions_match_pallas_at_head_widths_to_256(n, head_dim,
+                                                           dtype):
+    """The packed and split plain versions (what the card's Dp = 256
+    bodies are held to) against ``_attention_qkv_impl``,
+    ``_attention_qkv_bwd_impl``, ``_split_fwd_impl`` and
+    ``_split_bwd_impl`` in interpret mode: 1e-5 / 1e-4 in f32, 2e-2 in
+    bf16."""
+    from hgr_tpu.ops.attention_pallas import (
+        _attention_qkv_bwd_impl,
+        _attention_qkv_impl,
+        _split_bwd_impl,
+        _split_fwd_impl,
+    )
+
+    heads = 2
+    hd = heads * head_dim
+    rng = np.random.RandomState(n * 3 + head_dim)
+    x = rng.randn(2, n, 3 * hd).astype(np.float32)
+    g = rng.randn(2, n, hd).astype(np.float32)
+    xj, xt = _pair(x, dtype)
+    gj, gt = _pair(g, dtype)
+    scale = head_dim**-0.5
+    out = A.attention_qkv_reference(xt, heads, head_dim, scale)
+    assert out.shape == (2, n, hd)
+    np.testing.assert_allclose(
+        _np(out), _np(_attention_qkv_impl(xj, heads, head_dim, scale,
+                                          interpret=True)), **TOL[dtype])
+    d = A.attention_qkv_bwd_reference(xt, gt, heads, head_dim, scale)
+    np.testing.assert_allclose(
+        _np(d), _np(_attention_qkv_bwd_impl(xj, gj, heads, head_dim, scale,
+                                            interpret=True)),
+        **GRAD_TOL[dtype])
+    js, ts = zip(*(_pair(np.ascontiguousarray(x[..., i * hd:(i + 1) * hd]),
+                         dtype) for i in range(3)))
+    np.testing.assert_allclose(
+        _np(A.attention_split_reference(*ts, heads, head_dim, scale)),
+        _np(_split_fwd_impl(*js, heads, head_dim, scale, interpret=True)),
+        **TOL[dtype])
+    for got, want in zip(
+            A.attention_split_bwd_reference(*ts, gt, heads, head_dim, scale),
+            _split_bwd_impl(*js, gj, heads, head_dim, scale, interpret=True)):
+        np.testing.assert_allclose(_np(got), _np(want), **GRAD_TOL[dtype])
+    # the autograd route on CPU tensors runs these plain versions
+    xr = xt.clone().requires_grad_()
+    before = (A.fused_attention_qkv.launches,
+              A.fused_attention_qkv_bwd.launches)
+    (got_d,) = torch.autograd.grad(
+        A.fused_attention_qkv(xr, heads, head_dim, scale), xr, gt)
+    assert (A.fused_attention_qkv.launches,
+            A.fused_attention_qkv_bwd.launches) == before
+    assert torch.equal(got_d, d)

@@ -214,7 +214,7 @@ def test_twopass_reference_with_jitter_matches_pallas_kernel(rot, scale):
         canvas_dtype=warp_pallas.PREFERRED_CANVAS_DTYPE)
     got = warp_fused.warp_twopass(_t(imgs), _t(m), (out, out),
                                   jitter_gains=_t(gains), do_jitter=_t(do_j))
-    assert got.dtype == torch.float32
+    assert got.dtype == torch.uint8  # the canvas's dtype, as JAX returns
     _assert_levels(got, want, "u8 canvas, jitter")
     # f32 canvas, unrounded
     want_f = warp_pallas.warp_twopass_pallas(
@@ -235,8 +235,83 @@ def test_canvas_types_give_the_same_warp():
     outs = [warp_fused.warp_twopass(_t(imgs).to(dt), m, (48, 48),
                                     jitter_gains=gains, round_output=True)
             for dt in (torch.uint8, torch.float32, torch.bfloat16)]
+    # a uint8 canvas gives a uint8 crop, float canvases f32: same levels
+    assert [o.dtype for o in outs] == [torch.uint8, torch.float32,
+                                       torch.float32]
     for o in outs[1:]:
-        torch.testing.assert_close(o, outs[0], rtol=0, atol=0)
+        torch.testing.assert_close(o, outs[0].float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("jitter", [False, True])
+@pytest.mark.parametrize("rot", [0.0, 90.0])
+def test_uint8_crop_equals_jax_uint8_crop_bit_for_bit(rot, jitter):
+    """A uint8 canvas with rounding gives a uint8 crop equal bit for bit
+    to JAX's ``warp_twopass_pallas`` uint8 return (packed staging,
+    interpret mode), at 0° and at 90° (the transpose route). With jitter
+    JAX's side is its eager ``hsv_jitter`` ahead of the warp: the fused
+    Pallas kernel's jitter runs jitted in interpret mode and lands a level
+    off the eager LUT at ~0.1% of pixels (the JAX package's own finding,
+    ROADMAP C), which the level test above covers."""
+    b, s, out = 2, 128, 96
+    imgs = np.random.RandomState(17).randint(0, 256, (b, s, s, 3)).astype(
+        np.uint8)
+    m = _affines(b, s, out, rot, 1.0)
+    gains = np.array([[1.01, 1.3, 0.8], [0.99, 0.7, 1.2]], np.float32)
+    do_j = np.array([1.0, 0.0], np.float32)
+    src = imgs
+    if jitter:
+        src = np.where(do_j[:, None, None, None] > 0, np.asarray(
+            jax_color.hsv_jitter(jnp.asarray(imgs, jnp.float32),
+                                 jnp.asarray(gains))), imgs).astype(np.uint8)
+    want = np.asarray(warp_pallas.warp_twopass_pallas(
+        jnp.asarray(src), m, (out, out), interpret=True,
+        canvas_dtype=warp_pallas.PREFERRED_CANVAS_DTYPE))
+    kw = dict(jitter_gains=_t(gains), do_jitter=_t(do_j)) if jitter else {}
+    got = warp_fused.warp_twopass(_t(imgs), _t(m), (out, out), **kw)
+    assert want.dtype == np.uint8 and got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the plain version is what the CPU route runs, dtype included
+    ref = warp_fused.warp_twopass_reference(_t(imgs), _t(m), (out, out),
+                                            **kw)
+    assert torch.equal(ref, got)
+
+
+@pytest.mark.parametrize("canvas_dtype,round_output,want", [
+    (torch.uint8, None, torch.uint8), (torch.uint8, True, torch.uint8),
+    (torch.uint8, False, torch.float32),
+    (torch.float32, None, torch.float32),
+    (torch.float32, True, torch.float32),
+    (torch.bfloat16, True, torch.float32)])
+def test_warp_output_dtype_follows_the_canvas(canvas_dtype, round_output,
+                                              want):
+    """uint8 only for a uint8 canvas with rounding (the default for an
+    integer canvas); float canvases and unrounded crops stay float32."""
+    imgs = _t(np.random.RandomState(18).randint(0, 256, (2, 64, 64, 3))
+              ).to(canvas_dtype)
+    m = _t(_affines(2, 64, 48, 10.0, 1.0))
+    got = warp_fused.warp_twopass(imgs, m, (48, 48),
+                                  round_output=round_output)
+    assert got.dtype == want and got.shape == (2, 48, 48, 3)
+    ref = warp_fused.warp_twopass_reference(imgs, m, (48, 48),
+                                            round_output=round_output)
+    assert ref.dtype == want
+
+
+def test_invert_affine_is_the_einsum_on_the_cpu():
+    """The elementwise A^-1 b (the order the warp kernel inverts in)
+    equals the batched product bit for bit on the CPU."""
+    m = torch.from_numpy(np.random.RandomState(19).randn(4096, 2, 3)
+                         .astype(np.float32)) * torch.tensor([1.0, 1.0,
+                                                              300.0])
+    got = affine.invert_affine(m)
+    a, b = m[..., :2], m[..., 2]
+    det = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    inv_a = torch.stack([torch.stack([a[..., 1, 1], -a[..., 0, 1]], -1),
+                         torch.stack([-a[..., 1, 0], a[..., 0, 0]], -1)],
+                        -2) / det[..., None, None]
+    assert torch.equal(got[..., :2], inv_a)
+    assert torch.equal(got[..., 2],
+                       -torch.einsum("...ij,...j->...i", inv_a, b))
 
 
 def test_warp_wrapper_counts_no_launch_on_cpu_and_rejects_shapes():
@@ -283,6 +358,57 @@ def _params(b, seed=10):
         do_jitter=np.array([1.0, 0.0, 1.0, 1.0][:b], np.float32))
 
 
+@pytest.mark.parametrize("seed", [9, 11])
+def test_crop_affines_match_the_jax_pipelines(seed):
+    """crop_affines (the geometry apply_augment_batch warps with) against
+    the JAX pipeline's inline m_orig and m_canvas (pipeline.py:231-258)."""
+    batch = _staged_batch(seed=seed)
+    p = _params(4, seed=seed + 1)
+    o2c, sizes = batch["orig_to_canvas"], batch["sizes_hw"]
+    h, w = sizes[:, 0], sizes[:, 1]
+    center = np.stack([w / 2.0, h / 2.0], axis=-1) + p["translate"]
+    flip = p["flip"] > 0
+    center_f = np.stack([np.where(flip, w - center[:, 0] - 1.0,
+                                  center[:, 0]), center[:, 1]], axis=-1)
+    m_crop = jax_affine.build_affine(
+        jnp.asarray(center_f), jnp.asarray(p["scale"]),
+        jnp.asarray(p["rot"]), jnp.asarray(np.maximum(h, w) * 0.35),
+        (48.0, 48.0))
+    f_mat = np.zeros((4, 2, 3), np.float32)
+    f_mat[:, 0, 0] = np.where(flip, -1.0, 1.0)
+    f_mat[:, 0, 2] = np.where(flip, w - 1.0, 0.0)
+    f_mat[:, 1, 1] = 1.0
+    want_orig = jax_affine.compose_affine(m_crop, jnp.asarray(f_mat))
+    want_canvas = jax_affine.compose_affine(
+        want_orig, jax_affine.invert_affine(jnp.asarray(o2c)))
+    got_orig, got_canvas = pipeline.crop_affines(
+        _t(o2c), _t(sizes), pipeline.AugmentParams(
+            **{k: _t(v) for k, v in p.items()}), (48, 48))
+    np.testing.assert_allclose(_np(got_orig), _np(want_orig), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(_np(got_canvas), _np(want_canvas),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_warp_opaque_probe_removes_only_the_asm_statement():
+    """tools/probe_warp_opaque builds the warp source as it is and with
+    opaque() made the identity; every footprint bound goes through it."""
+    import re
+
+    from hgr_tpu_torch.tools import probe_warp_opaque as probe
+    from hgr_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    text = (CSRC_DIR / "warp_twopass.cu").read_text()
+    assert probe.variant_source(text, "opaque") == text
+    identity = probe.variant_source(text, "identity")
+    assert probe.OPAQUE_ASM not in identity
+    assert len(text) - len(identity) == len(probe.OPAQUE_ASM)
+    for name in ("kmin", "kmax", "nk", "cmin", "cmax", "nx"):
+        assert re.search(rf"const int {name} = opaque\(", text), name
+    with pytest.raises(ValueError):
+        probe.variant_source(text, "fused")
+
+
 @pytest.mark.parametrize("jax_method,port_method", [
     ("auto", "auto"),  # exact 4-tap on the CPU, both sides
     ("exact", "exact"),
@@ -320,6 +446,36 @@ def test_apply_augment_batch_matches_with_injected_params(
                                   _np(want["target_weight"]))
     np.testing.assert_allclose(_np(got["target"]), _np(want["target"]),
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("port_method,jax_method", [("kernel", "twopass"),
+                                                    ("exact", "exact")])
+def test_unnormalized_image_is_f32_and_normalizes_to_the_same_bits(
+        port_method, jax_method):
+    """normalize=False returns the f32 crop of rounded levels (the
+    kernel's crop of a uint8 canvas is uint8; the pipeline casts it, as
+    JAX's does), within a level of JAX's, and normalizing it gives the
+    normalize=True image bit for bit."""
+    batch = _staged_batch()
+    p = _params(4)
+    args = [_t(batch[k]) for k in ("canvas", "orig_to_canvas", "sizes_hw",
+                                   "joints", "joints_vis")]
+    params = pipeline.AugmentParams(**{k: _t(v) for k, v in p.items()})
+    kw = dict(image_size=(48, 48), heatmap_size=(12, 12),
+              warp_method=port_method)
+    raw = pipeline.apply_augment_batch(*args, params, normalize=False, **kw)
+    norm = pipeline.apply_augment_batch(*args, params, **kw)
+    assert raw["image"].dtype == torch.float32
+    assert torch.equal(color.normalize_imagenet(raw["image"]), norm["image"])
+    want = jax_pipeline.apply_augment_batch(
+        *(jnp.asarray(batch[k]) for k in ("canvas", "orig_to_canvas",
+                                          "sizes_hw", "joints",
+                                          "joints_vis")),
+        jax_pipeline.AugmentParams(**{k: jnp.asarray(v)
+                                      for k, v in p.items()}),
+        image_size=(48, 48), heatmap_size=(12, 12), normalize=False,
+        warp_method=jax_method)
+    _assert_levels(raw["image"], want["image"], port_method)
 
 
 def test_identity_params_and_unknown_warp_method():
