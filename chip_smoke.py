@@ -29,7 +29,15 @@ random weights:
 - longer sequences and wider heads: a bf16 train step at 448 px (N =
   785, the attention backward key-chunked), an f32 step at 320 px (N =
   401) and a bf16 step of the model with 2 heads x 256, each with fused
-  BN off and on, and the bf16 serving forward at 448 px.
+  BN off and on, and the bf16 serving forward at 448 px;
+- two-stage detection: YOLOv7-tiny at 416 px with the repository's
+  detector weights (tests/fixtures/yolo_smoke_weights.npz) -> crop ->
+  MultiTaskNet small at 192 px, on synthetic 360x640 scenes with one
+  hand each: the f32 pipeline on the card against the same pipeline on
+  the CPU, the bf16 pipeline's rate at a batch of 16, POST /detect
+  through the serving CLI's HTTP server (JPEG and .npy bodies from 4
+  client threads), and ``hgr_tpu_torch.cli.detect`` on a directory of
+  JPEG frames into an mp4v video.
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -134,6 +142,19 @@ LOOP_SPLITS = (("train", 2048), ("val", 512), ("test", 512))
 # the multi-rank phase: the global batch, and the f32 parity step's
 MESH_BATCH, PARITY_BATCH = 128, 8
 TP_MESH, DP_MESH = {"data": 2, "model": 2}, {"data": 2}
+# the detect path: the detector's weights in the repository, the served
+# frame geometry and batch, the HTTP run's frames and clients, the video's
+# frames
+DET_WEIGHTS = "tests/fixtures/yolo_smoke_weights.npz"
+FRAME_HW, DET_BATCH = (360, 640), 16
+DET_HTTP_FRAMES, DET_CLIENTS, VIDEO_FRAMES = 64, 4, 32
+# card f32 detector heads (TF32 off) vs the CPU's: f32 sums through ~58
+# convs in another order, heads of order 1-10
+DET_HEAD_TOL = 1e-3
+# a detection localizes its scene's hand at IoU > 0.5; the fixture's
+# detector (trained from scratch on such scenes) localized 15 of 16 on
+# the CPU, so at least 80% of the frames must
+DET_HIT_IOU, DET_HIT_SHARE = 0.5, 0.8
 
 
 
@@ -181,14 +202,14 @@ def build_phase():
                           text=True, timeout=60).stdout.strip().splitlines()
     emit({"nvcc": nvcc[-1] if nvcc else None})
     # dynamic shared memory per block, which ptxas does not see, and the
-    # route (0 whole sequence, 1 key-chunked), by body: float32 (CUDA
-    # cores), bfloat16 (tensor cores); at N=145 and at 448 px's N=785, at
-    # the model's head width and at 256
+    # route (0 whole sequence, 1 key-chunked, 2 column-sliced), by body:
+    # float32 (CUDA cores), bfloat16 (tensor cores); at N=145 and at 448
+    # px's N=785, at the model's head width, at 256 and at 512
     smem = {name: {f"{dtype}_n{n}_d{d}": {
         "route": getattr(built[name].lib, f"{name}_route")(n, code, d),
         "bytes": getattr(built[name].lib, f"{name}_smem_bytes")(n, code, d)}
         for dtype, code in (("float32", 0), ("bfloat16", 1))
-        for n in (145, 785) for d in (HEAD_DIM, 256)}
+        for n in (145, 785) for d in (HEAD_DIM, 256, 512)}
         for name in ("attention_qkv_fwd", "attention_qkv_bwd")}
     for name in SOURCES:
         b = built[name]
@@ -209,8 +230,8 @@ def build_phase():
 
 
 def kernel_phase(torch):
-    """Kernel vs plain version at the serving shapes; times at B=64 (the
-    serving shape) and B=256 (the training shape)."""
+    """Kernel vs plain version at the serving and detect shapes; times at
+    B=64 (the serving shape) and B=256 (the training shape)."""
     from hgr_tpu_torch.ops.attention import (
         attention_qkv_reference,
         fused_attention_qkv,
@@ -218,8 +239,10 @@ def kernel_phase(torch):
     )
 
     checks, main = [], None
+    # (16, bf16) and (4, f32): the detect path's classifier batches
     for b, n, dtype in [(64, 145, "bfloat16"), (64, 145, "float32"),
-                        (256, 145, "bfloat16"), (1, 37, "bfloat16"),
+                        (256, 145, "bfloat16"), (DET_BATCH, 145, "bfloat16"),
+                        (4, 145, "float32"), (1, 37, "bfloat16"),
                         (1, 37, "float32")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
@@ -283,42 +306,48 @@ def _sdpa(torch, q, k, v, g=None, scale=SCALE) -> dict:
     SDPA picks on its own (cuDNN where it takes the inputs) read 0.30 or
     0.63-0.69 ms for the same backward in different runs, so each is
     timed under its own name; library_ms is the lower of flash and
-    memory-efficient (``_pick_library``), cuDNN's is kept beside it."""
+    memory-efficient (``_pick_library``), cuDNN's is kept beside it.
+    Where neither flash nor memory-efficient takes the inputs (head
+    widths above 256), the unfused math backend is the yardstick."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    fns = {}
-    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
-                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
-                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+    def call(backend):
         ins = (q, k, v) if g is None else tuple(
             t.detach().requires_grad_() for t in (q, k, v))
         try:
             with sdpa_kernel(backend):
                 o = F.scaled_dot_product_attention(*ins, scale=scale)
         except RuntimeError:  # this backend does not take these inputs
-            continue
+            return None
         if g is None:
-            def fn(backend=backend):
+            def fn():
                 with sdpa_kernel(backend):
                     return F.scaled_dot_product_attention(q, k, v,
                                                           scale=scale)
-        else:
-            def fn(o=o, ins=ins):
-                return torch.autograd.grad(o, ins, g, retain_graph=True)
-        fns[f"library_{name}"] = fn
-    check("library_flash" in fns or "library_efficient" in fns,
-          "SDPA ran under neither the flash nor the memory-efficient "
-          "backend")
+            return fn
+        return lambda: torch.autograd.grad(o, ins, g, retain_graph=True)
+
+    fns = {f"library_{name}": fn for name, fn in (
+        (name, call(backend)) for name, backend in (
+            ("flash", SDPBackend.FLASH_ATTENTION),
+            ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+            ("cudnn", SDPBackend.CUDNN_ATTENTION))) if fn is not None}
+    if "library_flash" not in fns and "library_efficient" not in fns:
+        fns["library_math"] = call(SDPBackend.MATH)
+        check(fns["library_math"] is not None,
+              "SDPA ran under none of its backends")
     return fns
 
 
 def _pick_library(row: dict) -> None:
     """library_ms: the lower of the flash and memory-efficient SDPA times
-    in ``row``."""
+    in ``row`` (the math backend's where neither took the inputs)."""
     times = {name: row[f"library_{name}_ms"] for name in ("flash",
                                                           "efficient")
              if f"library_{name}_ms" in row}
+    if not times:
+        times = {"math": row["library_math_ms"]}
     row["library_backend"] = min(times, key=times.get)
     row["library_ms"] = times[row["library_backend"]]
 
@@ -506,6 +535,11 @@ C2_SHAPES = [
 # split, at (2, n, 2 heads x head_dim) for every (n, head_dim, dtype) here
 C2_WIDE_CHECKS = [(n, d, dtype) for n in (145, 785) for d in (160, 192, 256)
                   for dtype in ("bfloat16", "float32")]
+# C2 above head width 256 (the column-sliced bodies): each kernel, packed
+# and split, forward and backward, against its plain version and timed
+# beside SDPA, at (4, n, 2 heads x head_dim)
+C2_WIDER_SHAPES = [(4, n, 2, d, dtype) for n in (145, 785) for d in (320, 512)
+                   for dtype in ("bfloat16", "float32")]
 # the long paths' model with 256-wide heads (2 x 256 at dim 256), a bf16
 # step at 192 px
 WIDE_HEADS = {"heads": 2, "head_dim": 256}
@@ -611,6 +645,84 @@ def c2_kernel_phase(torch) -> list:
               f"C2 wide-head kernels vs plain: {row}")
         wide.append(row)
     emit({"kernel_checks_c2_wide": wide})
+    return rows
+
+
+def c2_wider_phase(torch) -> list:
+    """Head widths above 256: the packed and split kernels, forward and
+    backward, against their plain versions at C2_WIDER_SHAPES (f32 ~1e-5
+    forward and 1e-4 gradients, bf16 2e-2), the split ones equal to the
+    packed ones bit for bit, each timed beside SDPA with its bound."""
+    from hgr_tpu_torch.ops import attention as A
+
+    rows = []
+    for b, n, h, d, dtype in C2_WIDER_SHAPES:
+        dt = getattr(torch, dtype)
+        scale, hd = d**-0.5, h * d
+        gen = torch.Generator(device="cuda").manual_seed(n * 7 + d)
+        qkv = torch.randn(b, n, 3 * hd, device="cuda", generator=gen).to(dt)
+        g = torch.randn(b, n, hd, device="cuda", generator=gen).to(dt)
+        ops = qkv.chunk(3, dim=-1)
+        out = A.fused_attention_qkv(qkv, h, d, scale)
+        dx = A.fused_attention_qkv_bwd(qkv, g, h, d, scale)
+        s_out = A.fused_attention_split(*ops, h, d, scale)
+        s_d = A.fused_attention_split_bwd(*ops, g, h, d, scale)
+        ref = A.attention_qkv_reference(qkv, h, d, scale)
+        dref = A.attention_qkv_bwd_reference(qkv, g, h, d, scale)
+        torch.cuda.synchronize()
+        fwd_err = (out.float() - ref.float()).abs().max().item()
+        atol, rtol = GRAD_TOL[dtype]
+        diff = (dx.float() - dref.float()).abs()
+        bwd_excess = (diff - atol - rtol * dref.float().abs()).max().item()
+        split_same = bool(torch.equal(s_out, out) and all(
+            torch.equal(x, y) for x, y in zip(s_d, dx.chunk(3, dim=-1))))
+        base = {"shape": [b, n, 3 * hd], "heads": h, "head_dim": d,
+                "dtype": dtype, "split_equals_packed": split_same,
+                "route_fwd": A.kernel_route("fwd", n, d, dt),
+                "route_bwd": A.kernel_route("bwd", n, d, dt)}
+        check(fwd_err <= KERNEL_TOL[dtype],
+              f"C2 wider fwd kernel vs plain {base}: {fwd_err}")
+        check(bwd_excess <= 0, f"C2 wider bwd kernel vs plain {base}: "
+                               f"{diff.max().item()}")
+        check(split_same and base["route_fwd"] == base["route_bwd"] == 2,
+              f"C2 wider split kernels vs packed, routes {base}")
+        qh, kh, vh = A.split_heads(qkv, h, d)
+        g_h = g.reshape(b, n, h, d).transpose(1, 2)
+        es = qkv.element_size()
+        fwd_bound = _bound((qkv.numel() + out.numel()) * es,
+                           4 * b * h * n * n * d, dtype)
+        bwd_bound = _bound((2 * qkv.numel() + g.numel()) * es,
+                           10 * b * h * n * n * d, dtype)
+        library_fwd = _sdpa(torch, qh, kh, vh, scale=scale)
+        library_bwd = _sdpa(torch, qh, kh, vh, g_h, scale=scale)
+        for kernel, fn, plain, library, bound, err in (
+                ("attention_qkv_fwd",
+                 lambda: A.fused_attention_qkv(qkv, h, d, scale),
+                 lambda: A.attention_qkv_reference(qkv, h, d, scale),
+                 library_fwd, fwd_bound, fwd_err),
+                ("attention_split_fwd",
+                 lambda: A.fused_attention_split(*ops, h, d, scale),
+                 lambda: A.attention_split_reference(*ops, h, d, scale),
+                 library_fwd, fwd_bound, fwd_err),
+                ("attention_qkv_bwd",
+                 lambda: A.fused_attention_qkv_bwd(qkv, g, h, d, scale),
+                 lambda: A.attention_qkv_bwd_reference(qkv, g, h, d, scale),
+                 library_bwd, bwd_bound, diff.max().item()),
+                ("attention_split_bwd",
+                 lambda: A.fused_attention_split_bwd(*ops, g, h, d, scale),
+                 lambda: A.attention_split_bwd_reference(*ops, g, h, d,
+                                                         scale),
+                 library_bwd, bwd_bound, diff.max().item())):
+            row = {**base, "kernel": kernel, "max_abs_err": err,
+                   **_alternate(torch, {"plain": plain, "kernel": fn,
+                                        **library}, iters=5),
+                   **bound}
+            row["ms"] = row.pop("kernel_ms")
+            _pick_library(row)
+            rows.append(row)
+        del qkv, g, out, ref, dx, dref, diff, s_out, s_d, ops
+        torch.cuda.empty_cache()
+    emit({"kernel_checks_c2_wider": rows})
     return rows
 
 
@@ -1919,6 +2031,321 @@ def serve_phase(torch, state):
         svc.stop()
 
 
+def _scenes(n: int, seed: int):
+    """``n`` synthetic BGR frames of FRAME_HW, each a textured background
+    with one synthetic hand (data/synthetic.py:make_hand_image, the
+    crops the detector's weights were trained on) pasted at a random
+    place and size, and the hands' boxes (x0, y0, x1, y1)."""
+    from hgr_tpu_torch.data.synthetic import make_hand_image
+
+    rng = np.random.RandomState(seed)
+    fh, fw = FRAME_HW
+    yy, xx = np.mgrid[0:fh, 0:fw].astype(np.float32)
+    frames = np.empty((n, fh, fw, 3), np.uint8)
+    boxes = np.zeros((n, 4), np.float32)
+    for i in range(n):
+        base = rng.randint(30, 160, 3)
+        for c in range(3):
+            frames[i, ..., c] = np.clip(
+                base[c] + 50 * yy / fh * rng.rand() + 50 * xx / fw * rng.rand()
+                + rng.randn(fh, fw) * 8, 0, 255)
+        side = rng.randint(120, 300)
+        crop, _ = make_hand_image(rng, size=side)
+        x0, y0 = rng.randint(0, fw - side + 1), rng.randint(0, fh - side + 1)
+        frames[i, y0:y0 + side, x0:x0 + side] = crop
+        boxes[i] = (x0, y0, x0 + side, y0 + side)
+    return frames, boxes
+
+
+def _iou(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    wh = np.clip(np.minimum(a[2:], b[2:]) - np.maximum(a[:2], b[:2]), 0,
+                 None)
+    inter = wh[0] * wh[1]
+    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+             - inter)
+    return float(inter / max(union, 1e-9))
+
+
+def _hits(results, gts) -> int:
+    return sum(r is not None and _iou(r["box"], g) > DET_HIT_IOU
+               for r, g in zip(results, gts))
+
+
+def _jpeg(frame) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(frame[..., ::-1])).save(
+        buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def _npy(a) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def _device_profile(torch, fn, calls: int = 3) -> dict:
+    """A torch.profiler trace of ``calls`` back-to-back calls of ``fn``
+    (after a warm one): the device kernels per call, their summed time
+    per call, the share of the traced wall time the device was busy, and
+    the kernels that took the most time, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + us / 1e3)
+    busy = sum(t for _, t in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"kernels_per_call": sum(n for n, _ in by_name.values()) / calls,
+            "device_ms_per_call": busy / calls,
+            "traced_wall_ms_per_call": wall_ms / calls,
+            "device_busy_share": busy / wall_ms if wall_ms else None,
+            "top_ms_per_call": {name[:60]: t / calls
+                                for name, (_, t) in top}}
+
+
+def detect_phase(torch, state) -> int:
+    """The two-stage pipeline at full width (YOLOv7-tiny 416 with the
+    repository's detector weights, MultiTaskNet small 192, 360x640
+    frames): f32 on the card against f32 on the CPU on 4 frames (the
+    letterboxed input equal, raw heads and scores DET_HEAD_TOL, boxes and
+    labels equal, landmarks within one heatmap cell), then the bf16 pipeline's rate at a batch of DET_BATCH by
+    CUDA events and by the host clock, a profile of it, and its
+    localization. Returns the classifier forwards it ran on the card."""
+    from hgr_tpu_torch.config import DEFAULT_NAMES
+    from hgr_tpu_torch.infer.detect import HandGesturePipeline
+    from hgr_tpu_torch.infer.weights import load_detector_weights
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    det_state = load_detector_weights(os.path.join(here, DET_WEIGHTS))
+
+    def pipeline(dtype, device, thresh=0.2):
+        return HandGesturePipeline(state, det_state, DEFAULT_NAMES,
+                                   dtype=dtype, device=device,
+                                   score_thresh=thresh)
+
+    frames, gts = _scenes(DET_BATCH, seed=3)
+    card = pipeline(torch.float32, "cuda", -1.0)
+    cpu = pipeline(torch.float32, "cpu", -1.0)
+    four = frames[:4]
+    with torch.inference_mode():
+        x_card = card.letterbox(torch.from_numpy(four).cuda().float())
+        x_cpu = cpu.letterbox(torch.from_numpy(four).float())
+        heads = [(a.cpu(), b) for a, b in zip(card.detector(x_card),
+                                              cpu.detector(x_cpu))]
+    head_err = max((a - b).abs().max().item() for a, b in heads)
+    head_excess = max(((a - b).abs() - DET_HEAD_TOL
+                       - DET_HEAD_TOL * b.abs()).max().item()
+                      for a, b in heads)
+    r_card, r_cpu = card.infer_frames(four), cpu.infer_frames(four)
+    same = {"letterbox_equal": bool(torch.equal(x_card.cpu(), x_cpu)),
+            "boxes_equal": all(np.array_equal(a["box"], b["box"])
+                               for a, b in zip(r_card, r_cpu)),
+            "labels_equal": all(a["label"] == b["label"]
+                                for a, b in zip(r_card, r_cpu)),
+            "scores_max_abs_diff": max(abs(a["score"] - b["score"])
+                                       for a, b in zip(r_card, r_cpu)),
+            "landmarks_max_abs_diff": max(
+                int(np.abs(a["landmarks"] - b["landmarks"]).max())
+                for a, b in zip(r_card, r_cpu)),
+            # one heatmap cell in frame pixels (the crop's side over the
+            # heatmap's width, a quarter of the crop's), plus one for the
+            # cast to int: an argmax that moves to a neighbouring cell
+            # stays within it
+            "landmarks_tol": [
+                int(max(b["box"][2] - b["box"][0], b["box"][3] - b["box"][1])
+                    // (cpu.cls_img_size[1] // 4) + 1) for b in r_cpu]}
+    check(same["letterbox_equal"], "card letterbox == CPU letterbox")
+    check(head_excess <= 0, f"card vs CPU detector heads: {head_err}")
+    check(same["boxes_equal"] and same["labels_equal"],
+          f"card vs CPU boxes and labels: {same}")
+    check(same["scores_max_abs_diff"] <= DET_HEAD_TOL
+          and all(np.abs(a["landmarks"] - b["landmarks"]).max() <= tol
+                  for a, b, tol in zip(r_card, r_cpu,
+                                       same["landmarks_tol"])),
+          f"card vs CPU scores and landmarks: {same}")
+
+    bf16 = pipeline(torch.bfloat16, "cuda")
+    x16 = torch.from_numpy(frames).cuda()
+    ms = cuda_time_ms(torch, lambda: bf16.run(x16), iters=20, warmup=3)
+    results = bf16.infer_frames(frames)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        results = bf16.infer_frames(frames)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    profile = _device_profile(torch, lambda: bf16.run(x16))
+    check(profile["kernels_per_call"] > 0, "the profile saw the device")
+    hits = _hits(results, gts)
+    check(hits >= DET_HIT_SHARE * DET_BATCH,
+          f"bf16 pipeline localized {hits} of {DET_BATCH} hands")
+    for r in results:
+        check(r is None or (r["landmarks"].shape == (21, 2)
+                            and 0 <= r["label"] < 19), "bf16 results")
+    emit({"detect": {
+        "frame_hw": list(FRAME_HW), "det_img_size": bf16.det_img_size,
+        "cls_img_size": list(bf16.cls_img_size),
+        "f32_card_vs_cpu": {"frames": len(four),
+                            "heads_max_abs_err": head_err,
+                            "tol": DET_HEAD_TOL, **same},
+        "bf16_batch": DET_BATCH, "bf16_ms_per_batch_device": ms,
+        "bf16_frames_per_s_device": DET_BATCH / ms * 1e3,
+        "bf16_ms_per_batch_host": host_ms,
+        "bf16_frames_per_s_host": DET_BATCH / host_ms * 1e3,
+        "bf16_profile": profile,
+        "bf16_hits": hits, "hit_iou": DET_HIT_IOU,
+        "forwards": card.batches + bf16.batches,
+    }})
+    return card.batches + bf16.batches
+
+
+def detect_http_phase(torch) -> int:
+    """POST /detect through the serving CLI's own build functions and HTTP
+    handler (bf16, --det_weight the repository's detector, --det_max_batch
+    DET_BATCH): DET_HTTP_FRAMES synthetic frames, every other one a PIL
+    JPEG and the rest .npy, from DET_CLIENTS client threads. Every answer
+    is 200 and localizes its hand in at least DET_HIT_SHARE of the frames.
+    Returns the classifier forwards the server ran on the card."""
+    from hgr_tpu_torch.cli import serve as cli_serve
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    args = cli_serve.build_parser().parse_args(
+        ["--det_weight", os.path.join(here, DET_WEIGHTS),
+         "--det_max_batch", str(DET_BATCH), "--frame_hw", *map(str, FRAME_HW)])
+    service = cli_serve.build_service(args)
+    detector = httpd = None
+    try:
+        detector = cli_serve.build_detector_service(args, service)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    cli_serve.make_handler(service, detector))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        frames, gts = _scenes(DET_HTTP_FRAMES, seed=5)
+        bodies = [_jpeg(f) if i % 2 == 0 else _npy(f)
+                  for i, f in enumerate(frames)]
+        answers = [None] * len(bodies)
+        latency = [0.0] * len(bodies)
+        errors = []
+
+        def client(c):
+            try:
+                for i in range(c, len(bodies), DET_CLIENTS):
+                    t = time.perf_counter()
+                    req = urllib.request.Request(
+                        f"{base}/detect", data=bodies[i], method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        answers[i] = (r.status, json.loads(r.read()))
+                    latency[i] = time.perf_counter() - t
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(DET_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300.0)
+        seconds = time.perf_counter() - t0
+        check(not errors and all(not t.is_alive() for t in threads),
+              f"detect clients: {errors[:1]}")
+        check(all(a is not None and a[0] == 200 for a in answers),
+              "every /detect answered 200")
+        dets = [a[1]["detection"] for a in answers]
+        for d in dets:
+            check(d is None or (len(d["box"]) == 4
+                                and np.asarray(d["landmarks"]).shape
+                                == (21, 2)), "/detect answer shape")
+        hits = [d is not None and _iou(d["box"], g) > DET_HIT_IOU
+                for d, g in zip(dets, gts)]
+        check(sum(hits) >= DET_HIT_SHARE * len(hits),
+              f"/detect localized {sum(hits)} of {len(hits)} hands")
+        with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        check(stats["detect"]["requests"] == len(bodies)
+              and stats["detect"]["errors"] == 0, f"/stats: {stats}")
+        lat_ms = np.asarray(latency) * 1e3
+        emit({"detect_http": {
+            "frames": len(bodies), "clients": DET_CLIENTS,
+            "jpeg_frames": len(bodies[::2]), "seconds": seconds,
+            "frames_per_s": len(bodies) / seconds,
+            "client_latency_ms": {"p50": float(np.percentile(lat_ms, 50)),
+                                  "p99": float(np.percentile(lat_ms, 99))},
+            "server_latency_ms": stats["detect"].get("latency_ms"),
+            "batch_hist": stats["detect"]["batch_hist"],
+            "hits": int(sum(hits)), "jpeg_hits": int(sum(hits[::2])),
+            "npy_hits": int(sum(hits[1::2])),
+        }})
+        return service.forwards + detector.pipeline.batches
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if detector is not None:
+            detector.stop()
+        service.stop()
+
+
+def video_phase(torch, work: str) -> int:
+    """``hgr_tpu_torch.cli.detect`` on a directory of VIDEO_FRAMES JPEG
+    frames (bf16, 8 frames a batch) into an mp4v video, read back with
+    cv2. Returns the classifier forwards it ran on the card."""
+    import cv2
+
+    from hgr_tpu_torch.cli import detect as cli_detect
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    frames_dir = os.path.join(work, "detect_frames")
+    os.makedirs(frames_dir, exist_ok=True)
+    frames, _ = _scenes(VIDEO_FRAMES, seed=7)
+    for i, f in enumerate(frames):
+        with open(os.path.join(frames_dir, f"{i:04d}.jpg"), "wb") as fh:
+            fh.write(_jpeg(f))
+    cfg = os.path.join(work, "detect_data.yaml")
+    with open(cfg, "w") as fh:
+        fh.write("num_joints: 21\nnum_classes: 19\n")
+    out = os.path.join(work, "detect.mp4")
+    batch_frames = 8
+    args = cli_detect.build_parser().parse_args(
+        ["--data_config", cfg, "--det_weight",
+         os.path.join(here, DET_WEIGHTS), "--data_path", frames_dir,
+         "--save_path", out, "--batch_frames", str(batch_frames)])
+    pipeline = cli_detect.build_pipeline(args)
+    t0 = time.perf_counter()
+    n = cli_detect.run(args, pipeline)
+    seconds = time.perf_counter() - t0
+    cap = cv2.VideoCapture(out)
+    read = 0
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        check(frame.shape == (360, 640, 3), f"video frame {frame.shape}")
+        read += 1
+    cap.release()
+    check(n == read == VIDEO_FRAMES, f"video frames {n} written, {read} read")
+    emit({"detect_video": {"frames": n, "seconds": seconds,
+                           "frames_per_s": n / seconds,
+                           "bytes": os.path.getsize(out),
+                           "forwards": pipeline.batches,
+                           "cv2": cv2.__version__}})
+    return pipeline.batches
+
+
 def main() -> int:
     import torch
 
@@ -1951,6 +2378,7 @@ def main() -> int:
         torch, path_layers)
     rows.update(split_kernel_phase(torch))
     c2_kernel_phase(torch)
+    c2_wider_phase(torch)
     single_path = [k for k in KERNELS if "split" not in k]
 
     # main path 1, serving: counts at 0 just before, read just after
@@ -1996,13 +2424,26 @@ def main() -> int:
     for name in single_path:
         check(longer[name] > 0, f"the 448 / 320 px paths launched {name}")
 
+    # main path 6, two-stage detection: the pipeline, POST /detect and
+    # the video CLI (the classifier's attention forward, 4 a forward)
+    _zero_counts()
+    forwards = detect_phase(torch, state)
+    forwards += detect_http_phase(torch)
+    forwards += video_phase(torch, work)
+    detected = _counts()
+    check(detected["attention_qkv_fwd"] == 4 * forwards,
+          f"detect attention launches {detected} != 4 x {forwards} "
+          "forwards")
+    check(detected["attention_qkv_fwd"] > 0,
+          "the detect path launched the attention kernel")
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"hgr_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
         "launches": served[name] + trained[name] + looped[name]
-        + meshed[name] + longer[name],
+        + meshed[name] + longer[name] + detected[name],
         "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],

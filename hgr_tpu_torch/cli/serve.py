@@ -1,23 +1,35 @@
-"""Serve the gesture classifier over HTTP with dynamic micro-batching
-(port of cli/serve.py). Endpoints:
+"""Serve the gesture classifier, and the two-stage detector, over HTTP with
+dynamic micro-batching (port of cli/serve.py). Endpoints:
 
-  POST /classify   body = .npy bytes of a (H, W, 3) uint8 BGR crop at the
-                   served image size; response = JSON
-                   {label, label_name, probs, landmarks} (landmarks in
-                   crop pixels). A JPEG body gets a 400 until the native
-                   decoder is ported; a crop of another size gets a 400
-                   (the host resize needs cv2, which the port does not
-                   use).
-  GET  /stats      serving metrics (latency percentiles, batch sizes)
+  POST /classify   body = a JPEG (sniffed by its magic bytes; decoded by
+                   the native decoder, else PIL) or .npy bytes of a
+                   (H, W, 3) uint8 BGR crop; resized on the host to the
+                   served image size when needed (the numpy copy of
+                   cv2.resize INTER_LINEAR that data/pipeline.py stages
+                   with); response = JSON {label, label_name, probs,
+                   landmarks}. Coordinates (landmarks, and /detect's box)
+                   are in the client's image geometry: the host resize is
+                   undone before responding.
+  POST /detect     (with --det_weight) body = a JPEG or .npy of a uint8
+                   BGR FULL FRAME (resized to --frame_hw when needed);
+                   runs detect -> crop -> classify (infer/detect.py);
+                   response = JSON {detection: {label, label_name, score,
+                   box, landmarks} | null} (null: the score gate failed,
+                   reference detect.py:140)
+  GET  /stats      serving metrics (latency percentiles, batch sizes; a
+                   "detect" block when /detect is served)
   GET  /healthz    liveness
 
 Usage:
   python -m hgr_tpu_torch.cli.serve --weights cls.npz [--device cuda]
-      [--dtype bfloat16] [--port 8000] [--max_batch 64] [--max_wait_ms 5]
+      [--dtype bfloat16] [--det_weight det.npz --frame_hw 360 640]
+      [--port 8000] [--max_batch 64] [--max_wait_ms 5]
 
 ``--weights`` takes a .npz written by the JAX package (save_weights_npz,
-cli/convert.py); an empty value serves a seeded random init. ``/detect``
-and ``--quantize`` are not ported yet.
+cli/convert.py) or a reference .ckpt; an empty value serves a seeded
+random init. ``--det_weight`` takes a .npz of Flax-path arrays or a
+yolov7-tiny .onnx; an empty value serves a seeded random detector.
+``--quantize`` is not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import argparse
 import io
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -76,14 +89,55 @@ def build_service(args):
     return service
 
 
-def _read_crop(body: bytes, target_hw) -> np.ndarray:
-    """Parse a request body as a (H, W, 3) uint8 BGR crop of the served
-    size; raise ValueError (a 400) on anything else."""
+def build_detector_service(args, service):
+    """A warmed ``DetectorService`` on ``args.device`` around the
+    two-stage pipeline, with the classifier weights of ``service`` (one
+    frame geometry per server, serve/engine.py)."""
+    from hgr_tpu_torch.config import DEFAULT_NAMES, load_data_config
+    from hgr_tpu_torch.infer.detect import HandGesturePipeline
+    from hgr_tpu_torch.infer.weights import load_detector_weights
+    from hgr_tpu_torch.serve.engine import DetectorService
+
+    names = (load_data_config(args.data).names if args.data
+             else dict(DEFAULT_NAMES))
+    pipeline = HandGesturePipeline(
+        service.model.state_dict(), load_detector_weights(args.det_weight),
+        names,
+        cls_img_size=tuple(args.image_size),
+        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        device=args.device)
+    detector = DetectorService(pipeline, frame_hw=tuple(args.frame_hw),
+                               max_batch=args.det_max_batch,
+                               max_wait_ms=args.max_wait_ms)
+    detector.warm()
+    return detector
+
+
+def _decode_jpeg(body: bytes) -> np.ndarray:
+    """JPEG bytes -> BGR uint8 (the loader's decode: native, else PIL);
+    undecodable bytes are the client's error (a 400)."""
+    from hgr_tpu_torch.data.loader import decode_image_bytes
+
+    try:
+        return decode_image_bytes(body)
+    except OSError as exc:
+        raise ValueError(f"undecodable JPEG body: {exc}") from exc
+
+
+def read_image(body: bytes, target_hw) -> Tuple[np.ndarray, Tuple[int, int]]:
+    """Parse a request body as a (H, W, 3) uint8 BGR image: a JPEG (by its
+    magic bytes) or .npy. An image of another geometry than
+    ``target_hw`` is resized on the host (cv2.resize INTER_LINEAR's
+    arithmetic, data/pipeline.py:_host_resize), as the JAX server does.
+    Returns the image and the client's (H, W); anything else raises
+    ValueError (a 400)."""
+    from hgr_tpu_torch.data.pipeline import _host_resize
+
     if body[:3] == _JPEG_MAGIC:
-        raise ValueError(
-            "JPEG bodies are not supported by this server yet (the native "
-            "decoder is not ported); send the crop as .npy bytes")
-    img = np.asarray(np.load(io.BytesIO(body), allow_pickle=False))
+        img = _decode_jpeg(body)
+    else:
+        img = np.load(io.BytesIO(body), allow_pickle=False)
+    img = np.asarray(img)
     if img.ndim != 3 or img.shape[-1] != 3:
         raise ValueError(f"expected (H, W, 3) image, got shape {img.shape}")
     if img.dtype != np.uint8:
@@ -96,14 +150,29 @@ def _read_crop(body: bytes, target_hw) -> np.ndarray:
                 f"expected uint8 pixels in [0, 255], got dtype {img.dtype} "
                 "(float images must be sent as uint8, not normalized "
                 "floats)")
-    if tuple(img.shape[:2]) != tuple(target_hw):
-        raise ValueError(
-            f"image is {tuple(img.shape[:2])} but this server serves "
-            f"{tuple(target_hw)}; send the exact geometry")
-    return img.astype(np.uint8)
+    img = img.astype(np.uint8)
+    orig_hw = (int(img.shape[0]), int(img.shape[1]))
+    if orig_hw != tuple(target_hw):
+        img = _host_resize(img, tuple(target_hw))
+    return img, orig_hw
 
 
-def make_handler(service):
+def to_client_space(pts, compiled_hw, orig_hw) -> list:
+    """(..., 2) x, y points, or a flat x0, y0, x1, y1 box, from the served
+    geometry back to the client's image geometry (cli/serve.py
+    ``_to_client_space``)."""
+    pts = np.asarray(pts, np.float64)
+    sx = orig_hw[1] / compiled_hw[1]
+    sy = orig_hw[0] / compiled_hw[0]
+    if pts.ndim == 1:  # box [x0, y0, x1, y1]
+        return (pts * np.array([sx, sy, sx, sy])).tolist()
+    out = pts.copy()
+    out[..., 0] *= sx
+    out[..., 1] *= sy
+    return out.tolist()
+
+
+def make_handler(service, detector=None):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet per-request stderr lines
             pass
@@ -120,24 +189,51 @@ def make_handler(service):
             if self.path == "/healthz":
                 self._send(200, {"ok": True})
             elif self.path == "/stats":
-                self._send(200, service.metrics.snapshot())
+                stats = service.metrics.snapshot()
+                if detector is not None:
+                    stats["detect"] = detector.metrics.snapshot()
+                self._send(200, stats)
             else:
                 self._send(404, {"error": "unknown path"})
 
+        def _body(self) -> bytes:
+            return self.rfile.read(int(self.headers.get("Content-Length",
+                                                        "0")))
+
         def do_POST(self):
             try:
-                if self.path != "/classify":
+                if self.path == "/classify":
+                    img, orig_hw = read_image(self._body(),
+                                              service.image_size)
+                    result = service.classify(img, timeout=30.0)
+                    self._send(200, {
+                        "label": result["label"],
+                        "label_name": result["label_name"],
+                        "probs": np.asarray(result["probs"]).tolist(),
+                        "landmarks": to_client_space(
+                            result["landmarks"], service.image_size,
+                            orig_hw),
+                    })
+                elif self.path == "/detect" and detector is not None:
+                    img, orig_hw = read_image(self._body(),
+                                              detector.frame_hw)
+                    result = detector.detect(img, timeout=30.0)
+                    if result is None:
+                        self._send(200, {"detection": None})
+                        return
+                    self._send(200, {"detection": {
+                        "label": result["label"],
+                        "label_name": result["label_name"],
+                        "score": result["score"],
+                        "box": to_client_space(
+                            np.asarray(result["box"]).reshape(-1),
+                            detector.frame_hw, orig_hw),
+                        "landmarks": to_client_space(
+                            result["landmarks"], detector.frame_hw,
+                            orig_hw),
+                    }})
+                else:
                     self._send(404, {"error": "unknown path"})
-                    return
-                length = int(self.headers.get("Content-Length", "0"))
-                img = _read_crop(self.rfile.read(length), service.image_size)
-                result = service.classify(img, timeout=30.0)
-                self._send(200, {
-                    "label": result["label"],
-                    "label_name": result["label_name"],
-                    "probs": np.asarray(result["probs"]).tolist(),
-                    "landmarks": np.asarray(result["landmarks"]).tolist(),
-                })
             except (ValueError, EOFError) as exc:
                 # EOFError: np.load on an empty/truncated body — client
                 # input errors, not server faults
@@ -148,10 +244,12 @@ def make_handler(service):
     return Handler
 
 
-def serve_forever(service, host: str, port: int):
-    httpd = ThreadingHTTPServer((host, port), make_handler(service))
+def serve_forever(service, host: str, port: int, detector=None):
+    httpd = ThreadingHTTPServer((host, port),
+                                make_handler(service, detector))
+    eps = "POST /classify" + (", POST /detect" if detector else "")
     print(f"serving on http://{host}:{httpd.server_address[1]}  "
-          "(POST /classify, GET /stats)")
+          f"({eps}, GET /stats)")
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -159,14 +257,16 @@ def serve_forever(service, host: str, port: int):
     finally:
         httpd.server_close()
         service.stop()
+        if detector is not None:
+            detector.stop()
     return httpd
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", default="",
-                    help=".npz written by the JAX package; empty = random "
-                         "init from seed 0")
+                    help=".npz written by the JAX package or a reference "
+                         ".ckpt; empty = random init from seed 0")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card, cuda "
                          "raises instead of running on the CPU")
@@ -179,6 +279,14 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["auto", "gelans", "gelanl"],
                     help="GELAN variant of the weights; auto detects it")
     ap.add_argument("--image_size", nargs=2, type=int, default=[192, 192])
+    ap.add_argument("--det_weight", default=None,
+                    help="detector weights (.npz / .onnx; empty = random "
+                         "init from seed 0): enables POST /detect for "
+                         "full frames")
+    ap.add_argument("--frame_hw", nargs=2, type=int, default=[360, 640],
+                    help="full-frame geometry for /detect (one geometry "
+                         "per server)")
+    ap.add_argument("--det_max_batch", type=int, default=16)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max_batch", type=int, default=64)
@@ -191,7 +299,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     service = build_service(args)
-    serve_forever(service, args.host, args.port)
+    detector = (build_detector_service(args, service)
+                if args.det_weight is not None else None)
+    serve_forever(service, args.host, args.port, detector)
 
 
 if __name__ == "__main__":

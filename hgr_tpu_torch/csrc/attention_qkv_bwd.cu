@@ -10,8 +10,8 @@
 // executed, from q, k, v and the output cotangent g (B, N, H*D), without
 // any saved N x N tensor.
 //
-// What it computes, per image b and head h (head width D, 1..256), all
-// in f32:
+// What it computes, per image b and head h (any head width D), all in
+// f32:
 //   s[i, j]  = (q_i . k_j) * scale, P = softmax_j(s)   (recomputed)
 //   dA[i, j] = g_i . v_j
 //   dS[i, j] = P[i, j] * (dA[i, j] - sum_j dA[i, j] P[i, j]) * scale
@@ -30,6 +30,8 @@
 // gradient (B, N, 3*H*D) as three thirds each with row stride 3*H*D;
 // attention_split_bwd passes its caller's operands as they are. The two
 // entry points compute bit-identical gradients on the same data. Head
+// widths above 256 take the column-sliced bodies of attention_wide.cuh
+// (three kernels and the chunked route's statistics scratch). Up to 256
 // widths are handled as in the forward: bodies templated over the padded
 // width Dp in {16, 32, 64, 128, 256}, staged features D..Dp-1 zero, output
 // columns beyond D never written. At Dp = 256 every length takes the
@@ -118,6 +120,7 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -1265,7 +1268,7 @@ cudaError_t launch_width(const void* const* ptrs, const int64_t* strides,
 }
 
 bool bad_shape(int batch, int n, int heads, int head_dim) {
-  return head_dim < 1 || head_dim > 256 || batch < 1 || batch > 65535 ||
+  return head_dim < 1 || batch < 1 || batch > 65535 ||
          n < 1 || heads < 1 || heads > 65535;
 }
 
@@ -1274,8 +1277,18 @@ int dispatch(const void* const* ptrs, const int64_t* strides, void* scratch,
              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* stats = static_cast<float*>(scratch);
-  if (route(n, dtype, tc::padded_width(d)) == 1 && stats == nullptr) {
+  const bool wide = d >= attn_wide::kNarrowest;
+  if ((wide || route(n, dtype, tc::padded_width(d)) == 1) &&
+      stats == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (wide && dtype == 0) {
+    return static_cast<int>(attn_wide::launch_bwd<float>(
+        ptrs, strides, stats, batch, n, heads, d, scale, s));
+  }
+  if (wide && dtype == 1) {
+    return static_cast<int>(attn_wide::launch_bwd<tc::bf16>(
+        ptrs, strides, stats, batch, n, heads, d, scale, s));
   }
   switch (dtype) {
     case 0:
@@ -1296,13 +1309,17 @@ extern "C" {
 // The route the body for ``dtype`` (0 = float32, 1 = bfloat16) takes at
 // sequence length n and head width head_dim: 0 = one block per (head,
 // image) with the whole sequence in shared memory, 1 = key-chunked (two
-// kernels and a statistics scratch).
+// kernels and a statistics scratch), 2 = the column-sliced bodies of head
+// widths above 256 (three kernels and the same scratch).
 int attention_qkv_bwd_route(int n, int dtype, int head_dim) {
+  if (head_dim >= attn_wide::kNarrowest) return 2;
   return route(n, dtype, tc::padded_width(head_dim));
 }
 
-// Shared memory one block of that route needs, in bytes.
+// Shared memory one block of that route needs, in bytes (static on
+// route 2, dynamic on the others).
 int attention_qkv_bwd_smem_bytes(int n, int dtype, int head_dim) {
+  if (head_dim >= attn_wide::kNarrowest) return attn_wide::kBwdSmem;
   return static_cast<int>(smem_bytes(n, dtype, tc::padded_width(head_dim)));
 }
 
@@ -1310,7 +1327,10 @@ int attention_qkv_bwd_smem_bytes(int n, int dtype, int head_dim) {
 // whole-sequence route): B * H * 3 * pad16(n).
 long long attention_qkv_bwd_scratch_floats(int batch, int n, int heads,
                                            int head_dim, int dtype) {
-  if (route(n, dtype, tc::padded_width(head_dim)) == 0) return 0;
+  if (head_dim < attn_wide::kNarrowest &&
+      route(n, dtype, tc::padded_width(head_dim)) == 0) {
+    return 0;
+  }
   return static_cast<long long>(batch) * heads * 3 * tc::pad16(n);
 }
 

@@ -6,7 +6,7 @@
 // attention_qkv_fwd, and _split_fwd_impl :294 (the same kernel fed the
 // concatenation of three operands) through attention_split_fwd.
 //
-// What it computes, per image b and head h (head width D, 1..256):
+// What it computes, per image b and head h (any head width D):
 //   s[i, j] = (q_i . k_j) * scale          q, k widened to f32, f32 dot,
 //                                          scale applied after the dot
 //   P[i, j] = round_T(exp(s - max_j s) / sum_j exp(s - max_j s))
@@ -23,8 +23,10 @@
 // tensors) with no copy and no concatenation. The two entry points
 // therefore compute bit-identical outputs on the same data.
 //
-// Head widths: every body is a template over the padded width Dp in {16,
-// 32, 64, 128, 256} (the smallest that holds D); the true D is a runtime
+// Head widths above 256 take the column-sliced bodies of
+// attention_wide.cuh (route 2). Up to 256, every body is a template over
+// the padded width Dp in {16, 32, 64, 128, 256} (the smallest that holds
+// D); the true D is a runtime
 // value. Staged features D..Dp-1 are zero, so the dot products over Dp
 // features equal those over D, and output columns beyond D are never
 // written. At Dp = 256 every length takes the key-chunked route: the
@@ -105,6 +107,7 @@
 #include <stdint.h>
 
 #include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -755,7 +758,7 @@ cudaError_t launch_f32(const Operands3<float>& ops, void* out, int batch,
 }
 
 bool bad_shape(int batch, int n, int heads, int head_dim) {
-  return head_dim < 1 || head_dim > 256 || batch < 1 || batch > 65535 ||
+  return head_dim < 1 || batch < 1 || batch > 65535 ||
          n < 1 || heads < 1 || heads > 65535;
 }
 
@@ -765,7 +768,15 @@ int dispatch(const void* q, const void* k, const void* v,
              int d, float scale, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 1) {
+  if (d >= attn_wide::kNarrowest) {
+    if (dtype == 1) {
+      err = attn_wide::launch_fwd<tc::bf16>(q, k, v, strides, out, batch, n,
+                                            heads, d, scale, s);
+    } else if (dtype == 0) {
+      err = attn_wide::launch_fwd<float>(q, k, v, strides, out, batch, n,
+                                         heads, d, scale, s);
+    }
+  } else if (dtype == 1) {
     const auto ops = operands<tc::bf16>(q, k, v, strides);
     switch (tc::padded_width(d)) {
       case 16: err = launch_mma<16>(ops, out, batch, n, heads, d, scale, s);
@@ -805,13 +816,17 @@ extern "C" {
 
 // The route the body for ``dtype`` (0 = float32, 1 = bfloat16) takes at
 // sequence length n and head width head_dim: 0 = the whole sequence in
-// one block's shared memory, 1 = key-chunked.
+// one block's shared memory, 1 = key-chunked, 2 = the column-sliced body
+// of head widths above 256.
 int attention_qkv_fwd_route(int n, int dtype, int head_dim) {
+  if (head_dim >= attn_wide::kNarrowest) return 2;
   return route(n, dtype, tc::padded_width(head_dim));
 }
 
-// Shared memory one block of that route needs, in bytes.
+// Shared memory one block of that route needs, in bytes (static on
+// route 2, dynamic on the others).
 int attention_qkv_fwd_smem_bytes(int n, int dtype, int head_dim) {
+  if (head_dim >= attn_wide::kNarrowest) return attn_wide::kFwdSmem;
   return static_cast<int>(smem_bytes(n, dtype, tc::padded_width(head_dim)));
 }
 

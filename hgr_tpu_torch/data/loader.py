@@ -22,6 +22,7 @@ available and every file is a JPEG, else per image on a thread pool
 from __future__ import annotations
 
 import concurrent.futures
+import io
 import queue
 import threading
 import warnings
@@ -35,16 +36,26 @@ from hgr_tpu_torch.data.pipeline import stage_image
 from hgr_tpu_torch.parallel.mesh import shard_rows
 
 
+def _pil_bgr(src) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(src) as im:
+        return np.ascontiguousarray(np.asarray(im.convert("RGB"))[..., ::-1])
+
+
 def _decode_image(path: str) -> np.ndarray:
     """Decode to BGR uint8 (the reference trains on cv2's BGR,
     libs/load.py:54): the native decoder, else PIL."""
     img = native.decode_jpeg_bgr(path)
-    if img is not None:
-        return img
-    from PIL import Image
+    return img if img is not None else _pil_bgr(path)
 
-    with Image.open(path) as im:
-        return np.ascontiguousarray(np.asarray(im.convert("RGB"))[..., ::-1])
+
+def decode_image_bytes(data: bytes) -> np.ndarray:
+    """``_decode_image`` of an encoded image held in memory (a request
+    body): the native JPEG decoder, else PIL (which raises OSError on
+    bytes it cannot decode)."""
+    img = native.decode_jpeg_bgr_bytes(data)
+    return img if img is not None else _pil_bgr(io.BytesIO(data))
 
 
 class BatchLoader:

@@ -1,18 +1,59 @@
-"""Classifier weight loading (port of hgr_tpu/infer/weights.py:57,77).
+"""Weight loading (port of hgr_tpu/infer/weights.py:57,77,172).
 
-A ``.npz`` written by the JAX package (``save_weights_npz``,
-cli/convert.py) loads through the weight bridge; an empty path gives a
-seeded random init. Orbax directories and reference ``.ckpt`` files are
-not ported yet.
+Classifier: a ``.npz`` written by the JAX package (``save_weights_npz``,
+cli/convert.py) loads through the weight bridge, a reference Lightning
+``.ckpt`` through ``utils/torch_port.py``; an empty path gives a seeded
+random init. Orbax directories are not ported yet (ROADMAP A7).
+
+Detector: a ``.npz`` of Flax-path arrays, or a yolov7-tiny ``.onnx``
+through the port's own reader and porter; an empty path gives a seeded
+random init. Both loaders return a float32 CPU state_dict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from hgr_tpu_torch.utils.convert import from_flax, load_weights_npz
+
+
+def read_run_meta(path: str) -> Optional[Dict[str, Any]]:
+    """The ``run_meta.json`` a training run writes beside its checkpoints
+    (backbone, image_size, ...), searched in the checkpoint's directory
+    and one level up (hgr_tpu/infer/weights.py:15); None where there is
+    none or it does not parse."""
+    if not path:
+        return None
+    p = os.path.abspath(path)
+    dirs = ([os.path.dirname(p)] if not os.path.isdir(p)
+            else [p, os.path.dirname(p)])
+    for d in dirs:
+        f = os.path.join(d, "run_meta.json")
+        if os.path.exists(f):
+            try:
+                with open(f) as fh:
+                    return json.load(fh)
+            except (OSError, ValueError):
+                return None
+    return None
+
+
+def resolve_image_size(path: str, flag_value,
+                       default: Tuple[int, int] = (192, 192)
+                       ) -> Tuple[int, int]:
+    """Crop geometry for an inference entry point: the explicit flag, then
+    the checkpoint's recorded run_meta.json, then ``default``
+    (hgr_tpu/infer/weights.py:43)."""
+    if flag_value:
+        return (int(flag_value[0]), int(flag_value[1]))
+    meta = read_run_meta(path)
+    if meta and meta.get("image_size"):
+        return tuple(int(v) for v in meta["image_size"])
+    return tuple(default)
 
 
 def infer_backbone_variant(state_dict: Dict[str, torch.Tensor]) -> str:
@@ -33,8 +74,9 @@ def load_classifier_weights(path: str,
                             image_size: Tuple[int, int] = (192, 192),
                             backbone: str = "auto",
                             seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Classifier state_dict (float32, CPU) from a .npz, or a seeded
-    random init for an empty path ('auto' then means 'small')."""
+    """Classifier state_dict (float32, CPU) from a .npz or a reference
+    .ckpt, or a seeded random init for an empty path ('auto' then means
+    'small')."""
     if not path:
         from hgr_tpu_torch.models.multitasknet import MultiTaskNet
 
@@ -46,10 +88,9 @@ def load_classifier_weights(path: str,
     if path.endswith(".npz"):
         loaded = from_flax(load_weights_npz(path))
     elif path.endswith(".ckpt"):
-        raise NotImplementedError(
-            f"{path}: reference .ckpt loading is not ported yet "
-            "(ROADMAP A8); convert it to .npz with the JAX package's "
-            "cli/convert.py")
+        from hgr_tpu_torch.utils.torch_port import load_reference_checkpoint
+
+        loaded = load_reference_checkpoint(path)
     else:
         raise NotImplementedError(
             f"{path}: orbax checkpoint directories are not ported yet "
@@ -63,3 +104,21 @@ def load_classifier_weights(path: str,
                 f"{found!r} checkpoint (distinguished by the cspelan1/cv2_1 "
                 "block)")
     return loaded
+
+
+def load_detector_weights(path: str, seed: int = 0
+                          ) -> Dict[str, torch.Tensor]:
+    """Detector state_dict (float32, CPU) from a .npz (Flax paths) or a
+    yolov7-tiny .onnx, or a seeded random init for an empty path."""
+    from hgr_tpu_torch.models.yolo import YOLOv7Tiny, load_npz_weights
+
+    if path and path.endswith(".npz"):
+        return from_flax(load_npz_weights(path))
+    if path and path.endswith(".onnx"):
+        from hgr_tpu_torch.utils.onnx_port import port_yolov7_tiny_onnx
+
+        return from_flax(port_yolov7_tiny_onnx(path))
+    if path:
+        raise ValueError(f"{path}: detector weights are .npz or .onnx")
+    return YOLOv7Tiny(num_classes=1, generator=torch.Generator().manual_seed(
+        seed)).state_dict()

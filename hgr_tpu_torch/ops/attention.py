@@ -26,14 +26,15 @@ hgr_tpu/ops/attention_pallas.py).
   call on the three thirds.
 * On CUDA tensors each kernel runs one body per compute type: bf16 on
   Hopper's tensor cores (``mma.sync``), float32 on the CUDA cores, each
-  templated over the padded head width (16, 32, 64, 128 or 256: any
-  head_dim up to 256; above it the kernels raise, naming ROADMAP C2).
-  Every sequence length runs: while a head's whole sequence fits in one
+  templated over the padded head width (16, 32, 64, 128 or 256). Every
+  sequence length runs: while a head's whole sequence fits in one
   block's shared memory the kernels take it whole, past that (and at
   every length at padded width 256) they stream the keys (and, in the
   backward, the queries) through shared memory in chunks
-  (``kernel_route``). The chunked backward keeps the rows' softmax
-  statistics in a scratch the wrapper allocates.
+  (``kernel_route``). Head widths above 256 take a simpler body that
+  cuts the head into column slices (``csrc/attention_wide.cuh``, both
+  types on the CUDA cores). The chunked and sliced backwards keep the
+  rows' softmax statistics in a scratch the wrapper allocates.
 * ``attention_core`` — the unfused chain on heads-first tensors that can
   also return the post-softmax map (``_xla_attention_core`` :139); the
   model's need-map path and ``fused_attention=False`` use it.
@@ -48,7 +49,6 @@ from typing import Tuple
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 256  # the widest padded head width the bodies take
 
 
 def split_heads(qkv: torch.Tensor, heads: int, head_dim: int
@@ -202,10 +202,9 @@ def _bwd_kernel() -> ctypes.CDLL:
 
 
 def _check_head_dim(head_dim: int) -> None:
-    if not 1 <= head_dim <= _MAX_HEAD_DIM:
-        raise ValueError(
-            f"attention kernels take head_dim 1..{_MAX_HEAD_DIM}, got "
-            f"{head_dim}: ROADMAP C2 (head widths above 256)")
+    if head_dim < 1:
+        raise ValueError(f"attention kernels take head_dim >= 1, got "
+                         f"{head_dim}")
 
 
 def _check(qkv: torch.Tensor, heads: int, head_dim: int) -> None:
@@ -230,8 +229,9 @@ def kernel_route(kernel: str, n: int, head_dim: int,
                  dtype: torch.dtype) -> int:
     """The route ``kernel`` ('fwd' or 'bwd') takes on the card at sequence
     length ``n`` and ``head_dim`` in ``dtype``: 0 = the whole sequence of
-    a head in one block's shared memory, 1 = key-chunked. Builds the
-    kernel library (needs nvcc)."""
+    a head in one block's shared memory, 1 = key-chunked, 2 = the
+    column-sliced body of head widths above 256. Builds the kernel
+    library (needs nvcc)."""
     lib = _kernel() if kernel == "fwd" else _bwd_kernel()
     return getattr(lib, f"attention_qkv_{kernel}_route")(
         n, _DTYPE_CODES[dtype], head_dim)
@@ -239,8 +239,8 @@ def kernel_route(kernel: str, n: int, head_dim: int,
 
 def _bwd_scratch(lib, b: int, n: int, heads: int, head_dim: int,
                  t: torch.Tensor):
-    """The f32 statistics scratch of the chunked backward (None on the
-    whole-sequence route, which needs none)."""
+    """The f32 statistics scratch of the chunked and sliced backwards
+    (None on the whole-sequence route, which needs none)."""
     count = lib.attention_qkv_bwd_scratch_floats(b, n, heads, head_dim,
                                                  _DTYPE_CODES[t.dtype])
     if count == 0:

@@ -1,15 +1,19 @@
-"""Align-corners bilinear upsample as two separable matmuls.
+"""Bilinear resizes as separable passes.
 
-Port of hgr_tpu/ops/resize.py:30,80. The pose decoder upsamples patch
-features x4 with ``align_corners=True`` semantics (reference
+Port of hgr_tpu/ops/resize.py:30,46,60,80,93. The pose decoder upsamples
+patch features x4 with ``align_corners=True`` semantics (reference
 model/transformer.py:148-149); the interpolation matrices are applied as
 ``out = A_h @ x @ A_w^T`` in the compute dtype, so a bf16 model rounds
 the matrices and each product to bf16 exactly as the JAX model does.
+``resize_bilinear`` is the half-pixel resize of the detector's letterbox
+(reference detect.py:38), in float32 as two taps per axis, which equals
+the JAX package's HIGHEST-precision products bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -30,6 +34,67 @@ def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
         mat[np.arange(n_out), lo + 1] = frac.astype(np.float32)
     mat.setflags(write=False)  # cached: every caller shares this array
     return mat
+
+
+@functools.lru_cache(maxsize=64)
+def _half_pixel_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) bilinear matrix, half-pixel centers (cv2/jax default):
+    src = (i + 0.5) * n_in / n_out - 0.5, edge-clamped."""
+    src = (np.arange(n_out, dtype=np.float64) + 0.5) * n_in / n_out - 0.5
+    lo = np.floor(src).astype(np.int64)
+    frac = src - lo
+    lo0 = np.clip(lo, 0, n_in - 1)
+    lo1 = np.clip(lo + 1, 0, n_in - 1)
+    mat = np.zeros((n_out, n_in), np.float32)
+    np.add.at(mat, (np.arange(n_out), lo0), (1.0 - frac).astype(np.float32))
+    np.add.at(mat, (np.arange(n_out), lo1), frac.astype(np.float32))
+    mat.setflags(write=False)
+    return mat
+
+
+def _taps(n_in: int, n_out: int, device) -> Tuple[torch.Tensor, ...]:
+    """The two taps of each output row of ``_half_pixel_matrix``: (k0, w0,
+    k1, w1), k0 < k1; a row with one nonzero (the clamped edge, where
+    the matrix holds the summed weight) gets w1 = 0."""
+    mat = _half_pixel_matrix(n_in, n_out)
+    k0 = np.argmax(mat != 0, axis=1)
+    last = n_in - 1 - np.argmax(mat[:, ::-1] != 0, axis=1)
+    rows = np.arange(n_out)
+    w0 = mat[rows, k0]
+    w1 = np.where(last > k0, mat[rows, last], 0.0).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (k0, w0, last, w1))
+
+
+def resize_taps(in_hw, out_hw, device=None) -> Tuple[Tuple, Tuple]:
+    """The H and W taps of ``resize_bilinear`` on ``device`` (callers
+    that resize one geometry often keep them)."""
+    return tuple(_taps(int(i), int(o), device)
+                 for i, o in zip(in_hw, out_hw))
+
+
+def _blend(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
+    k0, w0, k1, w1 = taps
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    return (x.index_select(dim, k0) * w0.view(shape)
+            + x.index_select(dim, k1) * w1.view(shape))
+
+
+def resize_bilinear(x: torch.Tensor, out_hw, taps=None) -> torch.Tensor:
+    """Half-pixel bilinear resize of (..., H, W, C) to ``out_hw`` (cv2.resize
+    semantics without its 11-bit fixed point), in float32, returned in x's
+    dtype; ``taps``: ``resize_taps``' pair for this geometry, when the
+    caller keeps it.
+
+    The JAX package applies the interpolation matrices as two f32
+    products (hgr_tpu/ops/resize.py:60); each output is then the sum of
+    two rounded products w0·x0 + w1·x1 (the other terms are zeros), which
+    is what this computes, per axis, H first: equal bit for bit, where a
+    matrix product here would fuse the multiply-adds."""
+    th, tw = taps or resize_taps(x.shape[-3:-1], out_hw, x.device)
+    y = _blend(x.float(), th, x.dim() - 3)
+    return _blend(y, tw, x.dim() - 2).to(x.dtype)
 
 
 def upsample_bilinear_align_corners(

@@ -1,9 +1,12 @@
-"""Dynamic micro-batching and the classifier service."""
+"""Dynamic micro-batching, the classifier service and the detector
+service."""
 
 from hgr_tpu_torch.serve.engine import (
     ClassifierService,
+    DetectorService,
     MicroBatcher,
     ServeMetrics,
 )
 
-__all__ = ["ClassifierService", "MicroBatcher", "ServeMetrics"]
+__all__ = ["ClassifierService", "DetectorService", "MicroBatcher",
+           "ServeMetrics"]

@@ -1,6 +1,7 @@
 """Online serving: dynamic micro-batching around the model's forward
 (port of hgr_tpu/serve/engine.py: ServeMetrics :35, _AggState/_Slot
-:87-137, MicroBatcher :149, ClassifierService :477).
+:87-137, MicroBatcher :149, DetectorService :420, ClassifierService
+:477).
 
 ``MicroBatcher`` is the standard dynamic-batching loop: requests queue; a
 dispatcher thread drains up to ``max_batch`` of them or waits at most
@@ -383,6 +384,61 @@ class MicroBatcher:
             if not f.cancelled():
                 f.set_result(outputs[i])
         self.metrics.record_batch(n, nb, [done - t for t in t_in])
+
+
+class DetectorService:
+    """Serves FULL frames through the two-stage detect -> crop -> classify
+    pipeline (``infer/detect.py:HandGesturePipeline``) with dynamic
+    batching, pipelined: the dispatcher enqueues a batch on the card and
+    the completion thread brings the oldest to the host.
+
+    One frame geometry per service, as the JAX service has (its graph is
+    compiled per (H, W)); mixed geometries run separate services or the
+    offline ``detect_to_video``. Input per request: an (H, W, 3) uint8 BGR
+    frame. Output: the pipeline's per-frame dict (label, label_name,
+    score, box, landmarks) or None where the score fails the gate
+    (reference detect.py:140).
+    """
+
+    def __init__(self, pipeline, frame_hw: Sequence[int],
+                 max_batch: int = 16, max_wait_ms: float = 10.0,
+                 metrics: Optional[ServeMetrics] = None):
+        self.frame_hw = tuple(int(v) for v in frame_hw)
+        self.pipeline = pipeline
+        # two batches in flight: the next one stages while the card runs
+        self.batcher = MicroBatcher(
+            dispatch_batch=pipeline.dispatch_frames,
+            materialize=pipeline.finish_frames,
+            pipeline_depth=2, max_batch=max_batch,
+            max_wait_ms=max_wait_ms, metrics=metrics, name="detector-serve")
+        self.metrics = self.batcher.metrics
+
+    def _check(self, frame: np.ndarray) -> None:
+        h, w = self.frame_hw
+        if frame.shape != (h, w, 3):
+            raise ValueError(
+                f"expected ({h}, {w}, 3) uint8 frame, got {frame.shape}")
+
+    def warm(self) -> None:
+        h, w = self.frame_hw
+        self.batcher.warm(np.zeros((h, w, 3), np.uint8))
+
+    def submit(self, frame_u8: np.ndarray) -> Future:
+        self._check(frame_u8)
+        return self.batcher.submit(frame_u8)
+
+    def submit_many(self, frames_u8: Sequence[np.ndarray]) -> Future:
+        """One aggregate future for a window of frames."""
+        for f in frames_u8:
+            self._check(f)
+        return self.batcher.submit_many(frames_u8)
+
+    def detect(self, frame_u8: np.ndarray,
+               timeout: Optional[float] = None):
+        return self.submit(frame_u8).result(timeout=timeout)
+
+    def stop(self) -> None:
+        self.batcher.stop()
 
 
 class ClassifierService:

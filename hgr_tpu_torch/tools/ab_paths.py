@@ -6,12 +6,14 @@ at the serving batch (B = 64) and the train step at B = 256 with fused BN
 off and on. The checkouts run in the order given, then in reverse, so a
 parent and a change compare within one call:
 
-    python -m hgr_tpu_torch.tools.ab_paths build/parent . [--bits-only]
+    python -m hgr_tpu_torch.tools.ab_paths build/parent . [--bits-only |
+        --compile-only]
 
 First each checkout's attention kernels, bn kernels and warp run on the
 same seeded inputs and the outputs are compared bit for bit
 (``same_bits``; values, so a uint8 crop equals an f32 crop of the same
-levels), each with its time. Needs the card. Prints each run's model and train lines, then one JSON
+levels), each with its time; then each attention entry function's ptxas
+line on either side and whether its SASS is the same (``compile``). Needs the card. Prints each run's model and train lines, then one JSON
 summary line.
 """
 
@@ -188,6 +190,81 @@ def bits(trees, out_dir: str) -> dict:
             "bn_pair_ms_per_step": per_step}
 
 
+# builds one checkout's attention sources (argv[1] = checkout)
+_BUILD = """
+import os, sys
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+os.chdir(tree)
+from hgr_tpu_torch.utils.cuda_build import load_kernels
+load_kernels(["attention_qkv_fwd", "attention_qkv_bwd"])
+"""
+
+
+def _entries(tree: str, name: str) -> dict:
+    """Per entry function of the checkout's newest build of ``name``: its
+    ptxas line (registers, spills) and its SASS (``cuobjdump -sass``).
+    Names and SASS carry the anonymous namespace's tag, which nvcc
+    derives from the source and which therefore differs between two
+    checkouts: it is replaced by ``_ANON_``."""
+    import glob
+    import re
+
+    from hgr_tpu_torch.utils.cuda_build import _nvcc
+
+    def untag(text):
+        return re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ANON_",
+                      text)
+
+    libs = glob.glob(os.path.join(tree, "build", "kernels",
+                                  f"lib{name}-*.so"))
+    lib = max(libs, key=os.path.getmtime)
+    with open(lib[:-3] + ".log") as fh:
+        ptxas = {untag(entry): f"{used}; {spills}"
+                 for entry, spills, used in
+                 re.findall(r"Compiling entry function '(\w+)'.*?"
+                            r"(\d+ bytes spill stores, \d+ bytes spill "
+                            r"loads).*?(Used \d+ registers[^\n]*)",
+                            fh.read(), flags=re.S)}
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    # each function's instruction lines (offset, instruction, encoding
+    # and control words)
+    code, entry = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\w+)", line)
+        if found:
+            entry = untag(found.group(1))
+            code[entry] = []
+        elif entry is not None and "/*" in line:
+            code[entry].append(untag(line.strip()))
+    return {e: (line, code.get(e)) for e, line in ptxas.items()}
+
+
+def compile_report(trees) -> dict:
+    """The attention sources' entry functions in both checkouts (each
+    built in a process of its own, both at once, unless built already):
+    each entry's ptxas line on either side and whether its SASS is the
+    same, for the entries both sides have."""
+    builds = [subprocess.Popen([sys.executable, "-c", _BUILD, tree])
+              for tree in trees]
+    for proc in builds:
+        if proc.wait() != 0:
+            raise RuntimeError("building the attention sources failed")
+    report = {}
+    for name in ("attention_qkv_fwd", "attention_qkv_bwd"):
+        first, second = (_entries(t, name) for t in trees)
+        report[name] = {
+            e: {"ptxas": [first[e][0], second[e][0]],
+                "same_sass": first[e][1] == second[e][1],
+                "sass_lines": [len(first[e][1] or ()),
+                               len(second[e][1] or ())]}
+            for e in first if e in second}
+        report[name]["only_in_second"] = sorted(set(second) - set(first))
+    return report
+
+
 def _side(tree: str) -> dict:
     proc = subprocess.run([sys.executable, "-c", _SIDE, tree],
                           capture_output=True, text=True, check=True)
@@ -204,9 +281,16 @@ def main(argv=None) -> int:
     ap.add_argument("trees", nargs=2, help="two checkouts (parent, change)")
     ap.add_argument("--bits-only", action="store_true",
                     help="only compare the attention kernels' output bits")
+    ap.add_argument("--compile-only", action="store_true",
+                    help="only compare the attention entry functions' "
+                         "ptxas lines and SASS")
     args = ap.parse_args(argv)
+    if args.compile_only:
+        print(json.dumps({"compile": compile_report(args.trees)}))
+        return 0
     print(json.dumps(bits(args.trees, os.path.join("build", "ab_bits"))),
           flush=True)
+    print(json.dumps({"compile": compile_report(args.trees)}), flush=True)
     if args.bits_only:
         return 0
     order = args.trees + args.trees[::-1]

@@ -13,7 +13,8 @@ array type numpy can read) and joins the module path with dots:
 
 ``to_flax`` is the exact inverse. ``load_weights_npz`` reads the flat
 ``collection/path/leaf`` .npz that hgr_tpu/infer/export.py:133
-``save_weights_npz`` (and cli/convert.py) writes, without JAX.
+``save_weights_npz`` (and cli/convert.py) writes, without JAX, and
+``save_weights_npz`` writes one.
 """
 
 from __future__ import annotations
@@ -92,3 +93,19 @@ def load_weights_npz(path: str) -> Dict[str, Any]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = raw[key]
     return tree
+
+
+def save_weights_npz(variables: Mapping[str, Any], path: str) -> None:
+    """A nested tree of arrays -> an .npz of 'collection/path/leaf' arrays
+    (hgr_tpu/infer/export.py:133's format, which both packages load)."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk(variables, "")
+    np.savez(path, **flat)

@@ -373,27 +373,31 @@ def test_plain_versions_match_pallas_at_long_n_and_other_widths(
 
 
 def test_head_width_above_128_raises_naming_the_roadmap_item():
-    """Widths up to 256 are taken since the bodies gained Dp = 256; above
-    256 the kernels raise before any launch, naming ROADMAP C2. (The name
-    dates from the limit of 128; it is kept so that the test's record
-    runs on.)"""
-    with pytest.raises(ValueError, match=r"ROADMAP C2 \(head widths above 256"):
-        A._check(torch.zeros(1, 5, 3 * 257), 1, 257)
-    with pytest.raises(ValueError, match="ROADMAP C2"):
-        q = torch.zeros(1, 5, 257)
-        A._check_split((q, q, q), 1, 257)
+    """Every head width is taken since ROADMAP C2 closed: up to 256 by the
+    padded bodies, above 256 by the column-sliced ones (the name dates
+    from the limit of 128, when widths above it raised naming C2; it is
+    kept so that the test's record runs on). Only a width below 1 raises,
+    before any launch."""
+    A._check(torch.zeros(1, 5, 3 * 257), 1, 257)
+    q = torch.zeros(1, 5, 257)
+    A._check_split((q, q, q), 1, 257)
     A._check(torch.zeros(1, 5, 3 * 160), 1, 160)  # pads to 256
     A._check(torch.zeros(1, 5, 3 * 2 * 256), 2, 256)  # 256 is taken
+    A._check(torch.zeros(1, 5, 3 * 2 * 512), 2, 512)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        A._check(torch.zeros(1, 5, 0), 1, 0)
 
 
 @pytest.mark.parametrize("head_dim,taken", [
     (1, True), (16, True), (128, True), (129, True), (160, True),
-    (192, True), (256, True), (0, False), (257, False), (512, False)])
+    (192, True), (256, True), (0, False), (257, True), (512, True)])
 def test_check_head_dim_takes_1_to_256(head_dim, taken):
+    """Widths 1 to 256 (the padded bodies) and above (the column-sliced
+    bodies) are taken; 0 is not."""
     if taken:
         A._check_head_dim(head_dim)
     else:
-        with pytest.raises(ValueError, match="ROADMAP C2"):
+        with pytest.raises(ValueError, match="head_dim >= 1"):
             A._check_head_dim(head_dim)
 
 
@@ -411,6 +415,30 @@ def test_plain_versions_match_pallas_at_head_widths_to_256(n, head_dim,
     ``_attention_qkv_bwd_impl``, ``_split_fwd_impl`` and
     ``_split_bwd_impl`` in interpret mode: 1e-5 / 1e-4 in f32, 2e-2 in
     bf16."""
+    _plain_against_pallas(n, head_dim, dtype)
+
+
+# head widths above 256, which the card routes to the column-sliced
+# bodies (csrc/attention_wide.cuh): 320 cuts into a full 256-wide output
+# slice and a partial one, 512 into two full ones
+WIDER_CASES = [(17, 320), (17, 512)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,head_dim", WIDER_CASES)
+def test_plain_versions_match_pallas_at_head_widths_above_256(n, head_dim,
+                                                              dtype):
+    """What the card's column-sliced bodies are held to, against the
+    Pallas kernels (which take any static head width) in interpret
+    mode."""
+    _plain_against_pallas(n, head_dim, dtype)
+
+
+def _plain_against_pallas(n, head_dim, dtype):
+    """The packed and split plain versions against ``_attention_qkv_impl``,
+    ``_attention_qkv_bwd_impl``, ``_split_fwd_impl`` and
+    ``_split_bwd_impl`` in interpret mode, 2 heads: 1e-5 / 1e-4 in f32,
+    2e-2 in bf16."""
     from hgr_tpu.ops.attention_pallas import (
         _attention_qkv_bwd_impl,
         _attention_qkv_impl,

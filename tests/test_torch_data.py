@@ -112,6 +112,11 @@ def test_stage_image_bit_for_bit(hw, canvas):
     ((3, 700), (1, 256), 3),
     ((97, 73), (64, 48), 4),
     ((333, 257), (255, 197), 3),  # barely downscaled
+    # the servers' host resizes, up and down: a crop to 48 px, a frame to
+    # twice and to two thirds of its size
+    ((30, 40), (48, 48), 3),
+    ((180, 320), (360, 640), 3),
+    ((270, 480), (180, 320), 3),
 ])
 def test_host_resize_matches_cv2(src_hw, out_hw, channels):
     """The port's resize against cv2.resize(INTER_LINEAR) itself, on a

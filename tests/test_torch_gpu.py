@@ -42,6 +42,8 @@ def _qkv(b, n, seed, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,n,dtype", [(64, 145, "bfloat16"),
                                        (64, 145, "float32"),
+                                       (16, 145, "bfloat16"),
+                                       (4, 145, "float32"),
                                        (1, 37, "bfloat16"),
                                        (1, 37, "float32")])
 def test_kernel_matches_plain_version(b, n, dtype):
@@ -60,9 +62,9 @@ def test_kernel_matches_plain_version(b, n, dtype):
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take():
     _cuda_or_skip()
-    with pytest.raises(ValueError, match="head_dim.*ROADMAP C2"):
-        A.fused_attention_qkv(torch.zeros(2, 10, 3 * H * 257, device="cuda"),
-                              H, 257, SCALE)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        A.fused_attention_qkv(torch.zeros(2, 10, 0, device="cuda"), H, 0,
+                              SCALE)
     with pytest.raises(TypeError):
         A.fused_attention_qkv(torch.zeros(2, 10, 3 * H * D, device="cuda",
                                           dtype=torch.float16), H, D, SCALE)
@@ -632,20 +634,28 @@ def test_kernels_match_plain_versions_at_any_length_and_width(n, head_dim,
 
 @pytest.mark.gpu
 def test_head_width_above_128_raises_naming_c2_before_any_launch():
-    """Widths to 256 run (the Dp = 256 bodies); above 256 the kernels
-    raise before any launch, naming ROADMAP C2. (The name dates from the
-    limit of 128; it is kept so that the test's record runs on.)"""
+    """Since ROADMAP C2 closed, widths above 256 launch (the column-sliced
+    bodies, route 2) and only a width below 1 raises, before any launch.
+    (The name dates from the limit of 128; it is kept so that the test's
+    record runs on.)"""
     _cuda_or_skip()
     before = (A.fused_attention_qkv.launches,
               A.fused_attention_split_bwd.launches)
-    with pytest.raises(ValueError, match="ROADMAP C2"):
-        A.fused_attention_qkv(torch.zeros(1, 9, 3 * 257, device="cuda"), 1,
-                              257, SCALE)
-    z = torch.zeros(1, 9, 257, device="cuda")
-    with pytest.raises(ValueError, match="ROADMAP C2"):
-        A.fused_attention_split_bwd(z, z, z, z, 1, 257, SCALE)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        A.fused_attention_qkv(torch.zeros(1, 9, 0, device="cuda"), 1, 0,
+                              SCALE)
     assert (A.fused_attention_qkv.launches,
             A.fused_attention_split_bwd.launches) == before
+    A.fused_attention_qkv(torch.zeros(1, 9, 3 * 257, device="cuda"), 1,
+                          257, SCALE)
+    z = torch.zeros(1, 9, 257, device="cuda")
+    A.fused_attention_split_bwd(z, z, z, z, 1, 257, SCALE)
+    torch.cuda.synchronize()
+    assert (A.fused_attention_qkv.launches,
+            A.fused_attention_split_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert A.kernel_route("fwd", 9, 257, torch.float32) == 2
+    assert A.kernel_route("bwd", 9, 257, torch.bfloat16) == 2
 
 
 @pytest.mark.gpu
@@ -677,6 +687,47 @@ def test_kernels_match_plain_versions_at_head_widths_to_256(n, head_dim,
     assert A.kernel_route("fwd", n, head_dim, dt) == 1
     assert A.kernel_route("bwd", n, head_dim, dt) == 1
     assert torch.isfinite(out).all() and torch.isfinite(d).all()
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        A.attention_qkv_reference(qkv, heads, head_dim, scale).float().cpu()
+        .numpy(), **TOL[dtype])
+    np.testing.assert_allclose(
+        d.float().cpu().numpy(),
+        A.attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale)
+        .float().cpu().numpy(), **GRAD_TOL[dtype])
+    assert torch.equal(s_out, out)
+    for got, want in zip(s_d, d.chunk(3, dim=-1)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("head_dim", [320, 512])
+@pytest.mark.parametrize("n", [145, 785])
+def test_kernels_match_plain_versions_at_head_widths_above_256(n, head_dim,
+                                                               dtype):
+    """The column-sliced bodies (route 2), packed and split, forward and
+    backward, against the plain versions at the existing tolerances, and
+    the split kernels on the chunk views equal to the packed ones bit for
+    bit."""
+    _cuda_or_skip()
+    heads = 2
+    hd = heads * head_dim
+    scale = head_dim**-0.5
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(n * 5 + head_dim)
+    qkv = torch.from_numpy(rng.randn(2, n, 3 * hd).astype(np.float32)).to(
+        "cuda", dt)
+    g = torch.from_numpy(rng.randn(2, n, hd).astype(np.float32)).to(
+        "cuda", dt)
+    out = A.fused_attention_qkv(qkv, heads, head_dim, scale)
+    d = A.fused_attention_qkv_bwd(qkv, g, heads, head_dim, scale)
+    ops = qkv.chunk(3, dim=-1)
+    s_out = A.fused_attention_split(*ops, heads, head_dim, scale)
+    s_d = A.fused_attention_split_bwd(*ops, g, heads, head_dim, scale)
+    torch.cuda.synchronize()
+    assert A.kernel_route("fwd", n, head_dim, dt) == 2
+    assert A.kernel_route("bwd", n, head_dim, dt) == 2
     np.testing.assert_allclose(
         out.float().cpu().numpy(),
         A.attention_qkv_reference(qkv, heads, head_dim, scale).float().cpu()
@@ -880,3 +931,108 @@ def test_two_nccl_ranks_on_two_cards_match_the_single_process_step(tmp_path):
     if torch.cuda.device_count() < 2:
         pytest.skip("NCCL needs a card per rank; this host has fewer than 2")
     _dp_vs_single(tmp_path, "nccl")
+
+
+# -- two-stage detection on the card -------------------------------------------
+
+DET_FIXTURE = "tests/fixtures/yolo_smoke_weights.npz"
+
+
+def _detect_pipelines(dtype):
+    import os
+
+    from hgr_tpu_torch.config import DEFAULT_NAMES
+    from hgr_tpu_torch.infer.detect import HandGesturePipeline
+    from hgr_tpu_torch.infer.weights import (
+        load_classifier_weights,
+        load_detector_weights,
+    )
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cls = load_classifier_weights("", (64, 64), seed=0)
+    det = load_detector_weights(os.path.join(here, DET_FIXTURE))
+    return [HandGesturePipeline(cls, det, DEFAULT_NAMES, det_img_size=160,
+                                cls_img_size=(64, 64), score_thresh=-1.0,
+                                dtype=dtype, device=dev)
+            for dev in ("cuda", "cpu")]
+
+
+@pytest.mark.gpu
+def test_detect_pipeline_on_card_matches_cpu():
+    """The f32 pipeline on the card against the same pipeline on the CPU
+    (TF32 off): the letterboxed input equal, detector heads 1e-3 (f32
+    sums through ~58 convs in another order), boxes and labels equal;
+    the classifier forward launches the attention kernel 4 times a
+    batch."""
+    _cuda_or_skip()
+    card, cpu = _detect_pipelines(torch.float32)
+    frames = np.random.RandomState(0).randint(0, 256, (4, 180, 320, 3),
+                                              np.uint8)
+    with torch.inference_mode():
+        x_card = card.letterbox(torch.from_numpy(frames).cuda().float())
+        x_cpu = cpu.letterbox(torch.from_numpy(frames).float())
+        assert torch.equal(x_card.cpu(), x_cpu)
+        for a, b in zip(card.detector(x_card), cpu.detector(x_cpu)):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       atol=1e-3, rtol=1e-3)
+    before = A.fused_attention_qkv.launches
+    got, want = card.infer_frames(frames), cpu.infer_frames(frames)
+    assert A.fused_attention_qkv.launches == before + 4
+    for g, w in zip(got, want):
+        assert g["label"] == w["label"]
+        np.testing.assert_array_equal(g["box"], w["box"])
+
+
+@pytest.mark.gpu
+def test_detect_over_http_on_card_with_jpeg_and_npy_bodies():
+    """POST /detect on the card, bf16, through the port's handler and a
+    DetectorService: a .npy body and a PIL JPEG body of the same frame
+    both answer 200 with a box and 21 landmarks, and the .npy answer is
+    the direct pipeline's."""
+    import io
+    import json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from PIL import Image
+
+    from hgr_tpu_torch.cli.serve import make_handler
+    from hgr_tpu_torch.serve import DetectorService
+
+    _cuda_or_skip()
+    card, _ = _detect_pipelines(torch.bfloat16)
+    det = DetectorService(card, (180, 320), max_batch=2, max_wait_ms=5.0)
+
+    class _Null:
+        class metrics:  # noqa: N801 — the classifier service's slot
+            snapshot = staticmethod(dict)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(_Null, det))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    frame = np.random.RandomState(1).randint(0, 256, (180, 320, 3),
+                                             np.uint8)
+    npy, jpeg = io.BytesIO(), io.BytesIO()
+    np.save(npy, frame)
+    Image.fromarray(np.ascontiguousarray(frame[..., ::-1])).save(
+        jpeg, format="JPEG", quality=90)
+    try:
+        answers = []
+        for body in (npy.getvalue(), jpeg.getvalue()):
+            req = urllib.request.Request(f"{base}/detect", data=body,
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                assert r.status == 200
+                answers.append(json.loads(r.read())["detection"])
+        for d in answers:
+            assert len(d["box"]) == 4
+            assert np.asarray(d["landmarks"]).shape == (21, 2)
+        direct = card.infer_frame(frame)
+        assert answers[0]["label"] == direct["label"]
+        assert answers[0]["box"] == np.asarray(direct["box"],
+                                               np.float64).tolist()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        det.stop()

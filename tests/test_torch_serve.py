@@ -275,7 +275,43 @@ def _npy(a):
     return buf.getvalue()
 
 
-def test_http_classify_end_to_end(service48):
+def _jpeg(a, quality=90):
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(a[..., ::-1])).save(
+        buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def _jax_server_answers(weights48, bodies):
+    """POST /classify of each body to the JAX package's server
+    (cli/serve.py's handler around its ClassifierService)."""
+    from cli.serve import make_handler as jax_make_handler
+
+    svc = JaxClassifierService(*weights48, class_names=NAMES, max_batch=4,
+                               max_wait_ms=5.0)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), jax_make_handler(svc))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        return {k: _post(base, b) for k, b in bodies.items()}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=5.0)
+        svc.stop()
+
+
+def test_http_classify_end_to_end(weights48, service48):
+    """POST /classify: the .npy path against the direct service, and
+    JPEG bodies (decoded natively, PIL where the native decoder is
+    missing) and off-size images (resized on the host with cv2's
+    INTER_LINEAR arithmetic, landmarks mapped back to the client's
+    geometry) against the JAX server's answers on the same weights:
+    labels equal, probs 1e-4 (f32 sums in another order), landmarks
+    equal."""
     httpd = ThreadingHTTPServer(("127.0.0.1", 0),
                                 cli_serve.make_handler(service48))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -300,9 +336,22 @@ def test_http_classify_end_to_end(service48):
         assert code == 400 and "JPEG" in err["error"]
         code, err = _post(base, _npy(crop.astype(np.float32) / 255.0))
         assert code == 400 and "uint8" in err["error"]
-        code, err = _post(base, _npy(np.zeros((64, 64, 3), np.uint8)))
-        assert code == 400 and "geometry" in err["error"]
         assert _post(base, b"not an npy")[0] == 400
+
+        rng = np.random.RandomState(3)
+        bodies = {"jpeg": _jpeg(crop),
+                  "npy_64": _npy(rng.randint(0, 256, (64, 64, 3), np.uint8)),
+                  "jpeg_30x40": _jpeg(rng.randint(0, 256, (30, 40, 3),
+                                                  np.uint8))}
+        got = {k: _post(base, b) for k, b in bodies.items()}
+        want = _jax_server_answers(weights48, bodies)
+        for k in bodies:
+            assert got[k][0] == want[k][0] == 200, (k, got[k], want[k])
+            g, w = got[k][1], want[k][1]
+            assert g["label"] == w["label"], k
+            assert g["label_name"] == w["label_name"]
+            np.testing.assert_allclose(g["probs"], w["probs"], atol=1e-4)
+            np.testing.assert_array_equal(g["landmarks"], w["landmarks"])
 
         with urllib.request.urlopen(f"{base}/stats", timeout=10) as r:
             stats = json.loads(r.read())
