@@ -37,7 +37,18 @@ random weights:
   the CPU, the bf16 pipeline's rate at a batch of 16, POST /detect
   through the serving CLI's HTTP server (JPEG and .npy bodies from 4
   client threads), and ``hgr_tpu_torch.cli.detect`` on a directory of
-  JPEG frames into an mp4v video.
+  JPEG frames into an mp4v video;
+- int8 serving: the backbone quantized from 256 seeded synthetic crops
+  through the serving CLI's ``--quantize`` code, every int8 conv's int32
+  accumulators card vs CPU vs the plain version, the int8 f32 forward
+  card vs CPU, bf16 against int8 forwards at B=64 and 1024, int8
+  ClassifierService under the serving load, and ``tools.quant_bench`` on
+  the loop's checkpoint (the attention forward kernel; the warp kernel
+  in the eval's crops);
+- export: ``torch.export`` programs of the f32, bf16 and int8 forwards
+  saved, loaded (the attention operator a node of each graph) and held
+  against the eager forward, then ``hgr_tpu_torch.cli.export`` on the
+  loop's checkpoint (pt2, its eval through the loaded program, and onnx).
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -155,6 +166,21 @@ DET_HEAD_TOL = 1e-3
 # detector (trained from scratch on such scenes) localized 15 of 16 on
 # the CPU, so at least 80% of the frames must
 DET_HIT_IOU, DET_HIT_SHARE = 0.5, 0.8
+# the int8 phase: seeded synthetic calibration crops, the crops held card
+# vs CPU, the batches timed
+QUANT_CALIB, QUANT_CHECK, QUANT_BATCHES = 256, 16, (64, 1024)
+# int8 f32 forward, card vs CPU (TF32 off): the float model's MODEL_TOL.
+# An int8 code moves only where an upstream f32 value, a few ulps apart
+# between the devices, sits at a .5 boundary of its scale (a 1-ulp
+# perturbation of 16 crops' inputs moved no logit bit on the CPU); one
+# moved code changes one input of one conv by 1/127 of its range
+INT8_MODEL_TOL = 1e-3
+# a reloaded exported program vs the eager forward: the same operators
+# on the same inputs, so the same bits are expected; held at the f32
+# card tolerance of one rounding and one bf16 ulp (2^-8 of |x| < 4)
+EXPORT_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8": INT8_MODEL_TOL}
+# int8 dense peak (H100 SXM data sheet): 1,979 TOP/s
+INT8_PEAK_OPS = 1979e12
 
 
 
@@ -1623,7 +1649,7 @@ def loop_phase(torch, n_bn: int, work: str, cfg, write_s: float):
     }})
     for name, profile in profiles.items():
         emit({"loop_profile_3_steps": {"run": name, **profile}})
-    return counts
+    return counts, save
 
 
 def _rank_counts(save: str, world: int) -> list:
@@ -1939,17 +1965,19 @@ def model_phase(torch, state):
     return forwards
 
 
-def serve_phase(torch, state):
+def serve_phase(torch, state, model=None, line="serve"):
     """2048 crops through ClassifierService from 4 client threads, then
-    POST /classify through the port's HTTP handler."""
+    POST /classify through the port's HTTP handler: the bf16 model of
+    ``state``, or ``model`` (emitted as ``line``)."""
     from hgr_tpu_torch.cli.serve import make_handler
     from hgr_tpu_torch.config import DEFAULT_NAMES
     from hgr_tpu_torch.models import MultiTaskNet
     from hgr_tpu_torch.serve import ClassifierService
 
-    model = MultiTaskNet(image_size=(IMAGE, IMAGE), dtype=torch.bfloat16)
-    model.load_state_dict(state, strict=True)
-    model = model.eval().to("cuda")
+    if model is None:
+        model = MultiTaskNet(image_size=(IMAGE, IMAGE), dtype=torch.bfloat16)
+        model.load_state_dict(state, strict=True)
+        model = model.eval().to("cuda")
     svc = ClassifierService(model, class_names=DEFAULT_NAMES,
                             max_batch=SERVE_BATCH, max_wait_ms=5.0,
                             pipeline_depth=4)
@@ -2015,7 +2043,7 @@ def serve_phase(torch, state):
         with urllib.request.urlopen(f"{base}/stats", timeout=30) as r:
             stats = json.loads(r.read())
         check(stats["errors"] == 0, "no serving errors")
-        emit({"serve": {
+        emit({line: {
             "dtype": "bfloat16", "max_batch": SERVE_BATCH,
             "clients": n_clients, "crops": len(answers),
             "seconds": seconds, "crops_per_s": len(answers) / seconds,
@@ -2346,6 +2374,329 @@ def video_phase(torch, work: str) -> int:
     return pipeline.batches
 
 
+def _calib_crops(n: int, seed: int):
+    """``n`` seeded synthetic 192 px uint8 BGR hand crops."""
+    from hgr_tpu_torch.data.synthetic import make_hand_image
+
+    rng = np.random.RandomState(seed)
+    return np.stack([make_hand_image(rng, IMAGE)[0] for _ in range(n)])
+
+
+def _normalized(crops):
+    from hgr_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+
+    return ((crops.astype(np.float32) / 255.0 - np.asarray(
+        IMAGENET_MEAN, np.float32)) / np.asarray(IMAGENET_STD, np.float32))
+
+
+def _conv_inputs(torch, model, x):
+    """One forward of ``model`` on ``x``: its logits, and (name, ConvBnAct,
+    int8 input) of every quantized conv, the input quantized as the
+    branch does."""
+    from hgr_tpu_torch.models.layers import ConvBnAct
+
+    seen = []
+
+    def hook(name):
+        def record(mod, inputs):
+            q = mod.quant
+            seen.append((name, mod, torch.clamp(torch.round(
+                inputs[0].float() / q.act_scale), -127, 127).to(torch.int8)))
+        return record
+
+    handles = [m.register_forward_pre_hook(hook(n))
+               for n, m in model.named_modules()
+               if isinstance(m, ConvBnAct) and m.quant is not None]
+    try:
+        with torch.inference_mode():
+            logits = model(x, need_attnmap=False)[0]
+    finally:
+        for h in handles:
+            h.remove()
+    return logits, seen
+
+
+def _int8_bound(convs, batch: int, in_bytes: int = 2) -> dict:
+    """The least time of the int8 backbone's convs at ``batch`` as one
+    fused implicit-GEMM kernel each would have it: the compute-type input
+    read once, the output written once, the int8 weights once, against
+    2·M·K·N int8 operations at the int8 peak."""
+    nbytes = ops = 0
+    for _name, mod, xq in convs:
+        k, _, cin, cout = mod.quant.kernel_q.shape
+        s, p = mod.conv.stride, mod.conv.padding
+        _, h, w, _ = xq.shape
+        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        nbytes += batch * (h * w * cin + ho * wo * cout) * in_bytes \
+            + k * k * cin * cout
+        ops += 2 * batch * ho * wo * k * k * cin * cout
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_PEAK_OPS * 1e3
+    return {"bytes": nbytes, "int8_ops": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _loop_checkpoint(loop_save: str) -> str:
+    """The loop phase's best checkpoint (its last where none is best)."""
+    weight = os.path.join(loop_save, "weight")
+    best = os.path.join(weight, "best.pt")
+    return best if os.path.exists(best) else os.path.join(weight, "last.pt")
+
+
+def quant_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
+    """int8 PTQ on the card (``infer/quant.py``), MultiTaskNet small at 192
+    px, calibrated on QUANT_CALIB seeded synthetic crops through the
+    serving CLI's ``quantize_from_crops``: (a) every quantized conv's
+    int32 accumulators, card vs CPU vs the plain version, on the same int8
+    input; (b) the int8 f32 forward, card vs CPU, on QUANT_CHECK crops;
+    (c) bf16 and int8 forwards at QUANT_BATCHES by CUDA events, peak
+    memory and device kernels a call; (d) int8 serving under the serve
+    phase's load; (e) ``tools.quant_bench`` on the loop phase's
+    checkpoint and synthetic split."""
+    from hgr_tpu_torch.cli.serve import quantize_from_crops
+    from hgr_tpu_torch.infer.weights import build_classifier
+    from hgr_tpu_torch.models.layers import ConvBnAct
+    from hgr_tpu_torch.ops.int8_conv import conv_int8, conv_int8_reference
+    from hgr_tpu_torch.tools import quant_bench
+
+    calib = os.path.join(work, "calib.npy")
+    np.save(calib, _calib_crops(QUANT_CALIB, seed=11))
+    check_x = _normalized(_calib_crops(QUANT_CHECK, seed=12))
+    result = {"calibration_crops": QUANT_CALIB}
+
+    def quantized(dtype):
+        model = build_classifier(state, (IMAGE, IMAGE), dtype, device="cuda")
+        t0 = time.perf_counter()
+        quantize_from_crops(model, calib)
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    served, result["bf16_quantize_seconds"] = quantized(torch.bfloat16)
+    n_quant = sum(isinstance(m, ConvBnAct) and m.quant is not None
+                  for m in served.modules())
+    check(n_quant == 22, f"{n_quant} quantized convs, expected 22")
+
+    # (a) the int32 accumulators of every conv, on the same int8 input
+    _, convs = _conv_inputs(torch, served, torch.from_numpy(check_x).cuda())
+    check(len(convs) == 22, f"{len(convs)} conv inputs recorded")
+    acc_rows = []
+    for name, mod, xq in convs:
+        args = (mod.quant.kernel_q, mod.conv.stride, mod.conv.padding)
+        card = conv_int8(xq, *args)
+        cpu = conv_int8(xq.cpu(), *(a.cpu() if torch.is_tensor(a) else a
+                                    for a in args))
+        plain = conv_int8_reference(xq, *args)
+        torch.cuda.synchronize()
+        same = (torch.equal(card.cpu(), cpu)
+                and torch.equal(card, plain))
+        check(same, f"int8 conv {name}: card, CPU and plain accumulators "
+                    "differ")
+        acc_rows.append({"conv": name, "input": list(xq.shape),
+                         "kernel": list(mod.quant.kernel_q.shape),
+                         "same_bits": same})
+    result["accumulators_card_cpu_plain"] = {
+        "convs": len(acc_rows), "all_same_bits": all(
+            r["same_bits"] for r in acc_rows), "batch": QUANT_CHECK}
+
+    # (b) the whole int8 forward in f32, card vs CPU
+    f32_card, _ = quantized(torch.float32)
+    f32_cpu = build_classifier(f32_card.state_dict(), (IMAGE, IMAGE),
+                               torch.float32, device="cpu")
+    x_cpu = torch.from_numpy(check_x)
+    lc, codes_card = _conv_inputs(torch, f32_card, x_cpu.cuda())
+    lp, codes_cpu = _conv_inputs(torch, f32_cpu, x_cpu)
+    lc = lc.cpu()
+    moved = sum(int((a[2].cpu() != b[2]).sum())
+                for a, b in zip(codes_card, codes_cpu))
+    err = (lc - lp).abs().max().item()
+    top2 = lp.topk(2, dim=-1).values
+    disagree = (lc.argmax(-1) != lp.argmax(-1))
+    unexplained = int((disagree & (top2[:, 0] - top2[:, 1] > err)).sum())
+    check(err <= INT8_MODEL_TOL and unexplained == 0,
+          f"int8 f32 forward card vs CPU: {err}, {unexplained} argmax "
+          "changes beyond the logits' difference")
+    result["f32_card_vs_cpu"] = {
+        "crops": QUANT_CHECK, "max_abs_err_logits": err,
+        "tol": INT8_MODEL_TOL, "argmax_agree": int((~disagree).sum()),
+        "int8_codes_moved": moved,
+        "int8_codes": sum(int(c[2].numel()) for c in codes_cpu)}
+    del f32_card, f32_cpu
+
+    # (c) bf16 against int8 forwards
+    float_model = build_classifier(state, (IMAGE, IMAGE), torch.bfloat16,
+                                   device="cuda")
+    timing = {}
+    for b in QUANT_BATCHES:
+        x = torch.from_numpy(np.random.RandomState(b).uniform(
+            -2.1, 2.6, (b, IMAGE, IMAGE, 3)).astype(np.float32)).cuda()
+        fns = {name: (lambda m=m: m(x, need_attnmap=False))
+               for name, m in (("bf16", float_model), ("int8", served))}
+        row = {"ms": {}}
+        with torch.inference_mode():
+            for name in ("bf16", "int8", "int8", "bf16"):
+                torch.cuda.reset_peak_memory_stats()
+                row["ms"].setdefault(name, []).append(cuda_time_ms(
+                    torch, fns[name], iters=20 if b <= 64 else 5,
+                    warmup=2))
+                row.setdefault("peak_gib", {})[name] = (
+                    torch.cuda.max_memory_allocated() / 2**30)
+            for name, fn in fns.items():
+                row.setdefault("profile", {})[name] = _device_profile(
+                    torch, fn, calls=2)
+        row["crops_per_s"] = {n: b / float(np.mean(v)) * 1e3
+                              for n, v in row["ms"].items()}
+        row["int8_convs_fused_bound"] = _int8_bound(convs, b)
+        timing[f"b{b}"] = row
+        del x
+    result["forward"] = timing
+    emit({"quant": result})
+
+    # (d) int8 serving under the serve phase's load
+    forwards = serve_phase(torch, state, model=served, line="quant_serve")
+
+    # (e) the accuracy cost on the loop phase's checkpoint
+    ckpt = _loop_checkpoint(loop_save)
+    bench = quant_bench.run(quant_bench.build_parser().parse_args(
+        ["--workdir", os.path.join(work, "quantbench"), "--weights", ckpt,
+         "--calib_batches", "1", "--eval_batch", "256", "--bench_batch",
+         "256", "--device", "cuda"]), cfg)
+    check(0.0 <= bench["test_f1_int8"] <= 1.0
+          and 0.0 <= bench["test_f1_float"] <= 1.0
+          and bench["test_images"] == LOOP_SPLITS[2][1],
+          f"quant_bench {bench}")
+    emit({"quant_bench": bench})
+    return {"serve_forwards": forwards}
+
+
+def export_phase(torch, state, work: str, cfg, loop_save: str) -> None:
+    """``torch.export`` on the card (``infer/export.py``): the f32 and bf16
+    2-output forwards at batch 1 and 64 and the int8 model at 64, each
+    saved, loaded (the attention operator a node of the graph), held
+    against the eager forward; eager vs loaded times at 64; then
+    ``hgr_tpu_torch.cli.export`` on the loop phase's checkpoint and
+    synthetic test split (pt2, its F1 against the eager eval's) and
+    ``--format onnx`` from the same weights, parsed by the port's reader."""
+    from hgr_tpu_torch.cli import export as cli_export
+    from hgr_tpu_torch.cli.serve import quantize_from_crops
+    from hgr_tpu_torch.infer.export import (
+        eval_exported,
+        export_program,
+        load_program,
+        make_inference_fn,
+        program_ops,
+    )
+    from hgr_tpu_torch.infer.weights import (
+        build_classifier,
+        load_classifier_weights,
+    )
+    from hgr_tpu_torch.utils.onnx_reader import load_onnx_graph
+
+    attn_op = "hgr_tpu_torch.attention_qkv_fwd.default"
+    rows = []
+    for kind, dtype, batches in (("float32", torch.float32, (1, 64)),
+                                 ("bfloat16", torch.bfloat16, (1, 64)),
+                                 ("int8", torch.bfloat16, (64,))):
+        model = build_classifier(state, (IMAGE, IMAGE), dtype, device="cuda")
+        if kind == "int8":
+            quantize_from_crops(model, os.path.join(work, "calib.npy"))
+        eager = make_inference_fn(model)
+        for b in batches:
+            path = os.path.join(work, f"export_{kind}_b{b}.pt2")
+            t0 = time.perf_counter()
+            export_program(model, path, batch=b)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = load_program(path)
+            load_s = time.perf_counter() - t0
+            ops = program_ops(loaded)
+            check(ops.get(attn_op) == 4,
+                  f"{kind} b{b}: the loaded graph holds {ops.get(attn_op)} "
+                  "attention nodes, expected 4")
+            x = torch.from_numpy(_normalized(_calib_crops(b, seed=20 + b))
+                                 ).cuda()
+            with torch.inference_mode():
+                want, got = eager(x), loaded(x)
+            torch.cuda.synchronize()
+            err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            check(err <= EXPORT_TOL[kind],
+                  f"{kind} b{b}: loaded vs eager {err}")
+            row = {"model": kind, "batch": b, "export_s": export_s,
+                   "load_s": load_s, "bytes": os.path.getsize(path),
+                   "attention_nodes": ops[attn_op],
+                   "int_mm_nodes": ops.get("aten._int_mm.default", 0),
+                   "same_bits": same, "max_abs_err": err,
+                   "tol": EXPORT_TOL[kind]}
+            if b == 64:
+                t = {"eager": [], "loaded": []}
+                with torch.inference_mode():
+                    for name in ("eager", "loaded", "loaded", "eager"):
+                        fn = eager if name == "eager" else loaded
+                        t[name].append(cuda_time_ms(
+                            torch, lambda fn=fn: fn(x), iters=20, warmup=3))
+                row["ms"] = t
+            rows.append(row)
+    emit({"export": rows})
+
+    # the export CLI on the loop phase's checkpoint and test split
+    ckpt = _loop_checkpoint(loop_save)
+    yaml_path = os.path.join(work, "export_data.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(f"path: {cfg.path}\ntrain: {cfg.train}\nval: {cfg.val}\n"
+                f"test: {cfg.test}\nnum_joints: {cfg.num_joints}\n"
+                f"num_classes: {cfg.num_classes}\n")
+    out = os.path.join(work, "cli_export.pt2")
+    t0 = time.perf_counter()
+    res = cli_export.main(["--data_config", yaml_path, "--weight_path", ckpt,
+                           "--out", out, "--batch", "64", "--device",
+                           "cuda"])
+    cli_s = time.perf_counter() - t0
+    loop_state = load_classifier_weights(ckpt)
+    eager = eval_exported(
+        make_inference_fn(build_classifier(loop_state, (IMAGE, IMAGE),
+                                           torch.float32, device="cuda")),
+        cli_export._loader(cfg, 64, 256), cfg.num_classes, (IMAGE, IMAGE),
+        "cuda")
+    check(res["images"] == eager["images"] == LOOP_SPLITS[2][1]
+          and res["test_f1"] == eager["test_f1"],
+          f"cli.export eval {res} vs the eager eval {eager}")
+    onnx = os.path.join(work, "cli_export.onnx")
+    cli_export.main(["--data_config", yaml_path, "--weight_path", ckpt,
+                     "--out", onnx, "--format", "onnx", "--skip_eval",
+                     "--device", "cuda"])
+    graph = load_onnx_graph(onnx)
+    check(graph.inputs == {"input": (1, 3, IMAGE, IMAGE)}
+          and graph.outputs == {"label_pred": (1, 19),
+                                "heatmap_pred": (1, 21, IMAGE // 4,
+                                                 IMAGE // 4)},
+          f"onnx signature {graph.inputs} {graph.outputs}")
+    inits = [t.to_numpy() for t in graph.initializers.values()]
+
+    def present(a):
+        return any(b.shape == a.shape and np.array_equal(b, a)
+                   for b in inits)
+
+    missing = [k for k, t in loop_state.items()
+               if not k.endswith((".bn.weight", ".bn.var"))
+               and not (present(t.numpy()) or (t.dim() == 2
+                                               and present(t.numpy().T)))]
+    check(not missing, f"onnx initializers miss {missing[:3]}")
+    emit({"export_cli": {
+        "checkpoint": os.path.relpath(ckpt, work), "pt2": {
+            "test_f1": res["test_f1"], "eager_test_f1": eager["test_f1"],
+            "images": res["images"],
+            "mean_latency_s_per_image": res["mean_latency_s"],
+            "eager_mean_latency_s_per_image": eager["mean_latency_s"],
+            "seconds": cli_s},
+        "onnx": {"bytes": os.path.getsize(onnx), "inputs": graph.inputs,
+                 "outputs": graph.outputs,
+                 "nodes": len(graph.nodes),
+                 "initializers": len(graph.initializers),
+                 "state_dict_entries_found": len(loop_state)
+                 - len(missing)}}})
+
+
 def main() -> int:
     import torch
 
@@ -2404,7 +2755,7 @@ def main() -> int:
     # main path 3, training from files through the CLI
     work, cfg, write_s = write_dataset()
     _zero_counts()
-    looped = loop_phase(torch, n_bn, work, cfg, write_s)
+    looped, loop_save = loop_phase(torch, n_bn, work, cfg, write_s)
     for name in single_path:
         check(looped[name] > 0, f"the training loop launched {name}")
 
@@ -2437,13 +2788,32 @@ def main() -> int:
     check(detected["attention_qkv_fwd"] > 0,
           "the detect path launched the attention kernel")
 
+    # main path 7, int8 serving: the serving CLI's calibration, the int8
+    # forward, ClassifierService, quant_bench's eval (attention forward;
+    # the warp kernel crops the eval split)
+    _zero_counts()
+    quant_phase(torch, state, work, cfg, loop_save)
+    quanted = _counts()
+    for name in ("attention_qkv_fwd", "warp_twopass"):
+        check(quanted[name] > 0, f"the int8 path launched {name}")
+
+    # main path 8, export: torch.export programs, loaded and run, and the
+    # export CLI's eval through the loaded program (attention forward in
+    # f32 and bf16, the warp in the eval's crops)
+    _zero_counts()
+    export_phase(torch, state, work, cfg, loop_save)
+    exported = _counts()
+    for name in ("attention_qkv_fwd", "warp_twopass"):
+        check(exported[name] > 0, f"the export path launched {name}")
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"hgr_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
         "launches": served[name] + trained[name] + looped[name]
-        + meshed[name] + longer[name] + detected[name],
+        + meshed[name] + longer[name] + detected[name] + quanted[name]
+        + exported[name],
         "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],

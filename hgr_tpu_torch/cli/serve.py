@@ -22,14 +22,18 @@ dynamic micro-batching (port of cli/serve.py). Endpoints:
 
 Usage:
   python -m hgr_tpu_torch.cli.serve --weights cls.npz [--device cuda]
-      [--dtype bfloat16] [--det_weight det.npz --frame_hw 360 640]
+      [--dtype bfloat16] [--quantize calib.npy]
+      [--det_weight det.npz --frame_hw 360 640]
       [--port 8000] [--max_batch 64] [--max_wait_ms 5]
 
 ``--weights`` takes a .npz written by the JAX package (save_weights_npz,
-cli/convert.py) or a reference .ckpt; an empty value serves a seeded
-random init. ``--det_weight`` takes a .npz of Flax-path arrays or a
-yolov7-tiny .onnx; an empty value serves a seeded random detector.
-``--quantize`` is not ported yet (ROADMAP A11).
+cli/convert.py), a reference .ckpt or a training checkpoint .pt of the
+port; an empty value serves a seeded random init. ``--quantize`` takes a
+.npy/.npz of calibration crops (N, H, W, 3) uint8 BGR (an .npz's first
+array): the GELAN backbone is quantized to int8 (infer/quant.py) from
+them, and /classify and /detect both serve the int8 backbone.
+``--det_weight`` takes a .npz of Flax-path arrays or a yolov7-tiny .onnx;
+an empty value serves a seeded random detector.
 """
 
 from __future__ import annotations
@@ -55,10 +59,9 @@ def build_service(args):
         load_data_config,
     )
     from hgr_tpu_torch.infer.weights import (
-        infer_backbone_variant,
+        build_classifier,
         load_classifier_weights,
     )
-    from hgr_tpu_torch.models.multitasknet import MultiTaskNet
     from hgr_tpu_torch.serve.engine import ClassifierService
 
     device = torch.device(args.device)
@@ -73,15 +76,13 @@ def build_service(args):
                 "gelanl": "large"}[args.backbone]
     state = load_classifier_weights(args.weights, image_size,
                                     backbone=backbone)
-    model = MultiTaskNet(
-        num_joints=data_cfg.num_joints,
-        num_classes=data_cfg.num_classes,
-        image_size=image_size,
-        backbone=infer_backbone_variant(state),
-        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
-    )
-    model.load_state_dict(state, strict=True)
-    model = model.eval().to(device)
+    model = build_classifier(
+        state, image_size,
+        torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        device=device, num_joints=data_cfg.num_joints,
+        num_classes=data_cfg.num_classes)
+    if args.quantize:
+        quantize_from_crops(model, args.quantize)
     service = ClassifierService(
         model, class_names=data_cfg.names, max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, pipeline_depth=args.pipeline_depth)
@@ -89,10 +90,31 @@ def build_service(args):
     return service
 
 
+def quantize_from_crops(model, path: str, batch: int = 64) -> None:
+    """Quantize ``model``'s backbone to int8 in place from the calibration
+    crops at ``path`` (cli/serve.py:107-121): a .npy, or an .npz's first
+    array, of (N, H, W, 3) uint8 crops, normalized with /255, −mean, /std
+    and calibrated in batches of ``batch``."""
+    from hgr_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+    from hgr_tpu_torch.infer.quant import quantize_model
+
+    crops = np.load(path)
+    if hasattr(crops, "files"):  # npz
+        crops = crops[crops.files[0]]
+    mean = np.asarray(IMAGENET_MEAN, np.float32)
+    std = np.asarray(IMAGENET_STD, np.float32)
+    batches = [((crops[i:i + batch].astype(np.float32) / 255.0) - mean)
+               / std for i in range(0, len(crops), batch)]
+    quantize_model(model, batches, need_attnmap=False)
+    print(f"quantized backbone from {len(crops)} calibration crops")
+
+
 def build_detector_service(args, service):
     """A warmed ``DetectorService`` on ``args.device`` around the
     two-stage pipeline, with the classifier weights of ``service`` (one
-    frame geometry per server, serve/engine.py)."""
+    frame geometry per server, serve/engine.py): under ``--quantize``
+    its int8 state too, so /detect serves the backbone /classify serves
+    (cli/serve.py:131-135)."""
     from hgr_tpu_torch.config import DEFAULT_NAMES, load_data_config
     from hgr_tpu_torch.infer.detect import HandGesturePipeline
     from hgr_tpu_torch.infer.weights import load_detector_weights
@@ -279,6 +301,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["auto", "gelans", "gelanl"],
                     help="GELAN variant of the weights; auto detects it")
     ap.add_argument("--image_size", nargs=2, type=int, default=[192, 192])
+    ap.add_argument("--quantize", default=None,
+                    help="calibration crops (.npy/.npz, (N, H, W, 3) uint8 "
+                         "BGR): serve an int8 backbone (PTQ)")
     ap.add_argument("--det_weight", default=None,
                     help="detector weights (.npz / .onnx; empty = random "
                          "init from seed 0): enables POST /detect for "

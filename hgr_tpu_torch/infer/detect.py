@@ -42,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from hgr_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
-from hgr_tpu_torch.models.multitasknet import MultiTaskNet, heatmaps_to_nchw
+from hgr_tpu_torch.infer.weights import build_classifier
+from hgr_tpu_torch.models.multitasknet import heatmaps_to_nchw
 from hgr_tpu_torch.models.yolo import YOLOv7Tiny, best_box, decode_predictions
 from hgr_tpu_torch.ops.affine import build_affine
 from hgr_tpu_torch.ops.color import true_divide
@@ -92,14 +93,10 @@ class HandGesturePipeline:
                  dtype: torch.dtype = torch.bfloat16,
                  backbone: str = "auto", device="cuda"):
         self.device = resolve_device(device)
-        if backbone == "auto":
-            from hgr_tpu_torch.infer.weights import infer_backbone_variant
-
-            backbone = infer_backbone_variant(classifier_state)
-        self.classifier = MultiTaskNet(image_size=tuple(cls_img_size),
-                                       backbone=backbone, dtype=dtype)
-        self.classifier.load_state_dict(classifier_state, strict=True)
-        self.classifier = self.classifier.eval().to(self.device)
+        # an int8 state (``quant`` entries) builds the int8 backbone, so
+        # /detect serves the classifier /classify serves
+        self.classifier = build_classifier(
+            classifier_state, cls_img_size, dtype, backbone, self.device)
         self.detector = YOLOv7Tiny(num_classes=1, dtype=dtype)
         self.detector.load_state_dict(detector_state, strict=True)
         self.detector = self.detector.eval().to(self.device)

@@ -2,8 +2,12 @@
 
 Classifier: a ``.npz`` written by the JAX package (``save_weights_npz``,
 cli/convert.py) loads through the weight bridge, a reference Lightning
-``.ckpt`` through ``utils/torch_port.py``; an empty path gives a seeded
-random init. Orbax directories are not ported yet (ROADMAP A7).
+``.ckpt`` through ``utils/torch_port.py``, a ``.pt`` checkpoint of the
+port's own training loop (``train/checkpoint.py``) as it is; an empty
+path gives a seeded random init. Orbax directories are not ported yet
+(ROADMAP A7). A state dict with int8 entries (``<module>.quant.*``, from
+an .npz with a 'quant' collection or a quantized model's ``state_dict``)
+builds an int8 model in ``build_classifier``.
 
 Detector: a ``.npz`` of Flax-path arrays, or a yolov7-tiny ``.onnx``
 through the port's own reader and porter; an empty path gives a seeded
@@ -74,9 +78,9 @@ def load_classifier_weights(path: str,
                             image_size: Tuple[int, int] = (192, 192),
                             backbone: str = "auto",
                             seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Classifier state_dict (float32, CPU) from a .npz or a reference
-    .ckpt, or a seeded random init for an empty path ('auto' then means
-    'small')."""
+    """Classifier state_dict (CPU) from a .npz, a reference .ckpt or a
+    training checkpoint .pt of the port, or a seeded random init for an
+    empty path ('auto' then means 'small')."""
     if not path:
         from hgr_tpu_torch.models.multitasknet import MultiTaskNet
 
@@ -91,6 +95,9 @@ def load_classifier_weights(path: str,
         from hgr_tpu_torch.utils.torch_port import load_reference_checkpoint
 
         loaded = load_reference_checkpoint(path)
+    elif path.endswith(".pt"):
+        loaded = torch.load(path, map_location="cpu",
+                            weights_only=True)["model"]
     else:
         raise NotImplementedError(
             f"{path}: orbax checkpoint directories are not ported yet "
@@ -104,6 +111,27 @@ def load_classifier_weights(path: str,
                 f"{found!r} checkpoint (distinguished by the cspelan1/cv2_1 "
                 "block)")
     return loaded
+
+
+def build_classifier(state_dict: Dict[str, torch.Tensor],
+                     image_size: Tuple[int, int] = (192, 192),
+                     dtype: torch.dtype = torch.float32,
+                     backbone: str = "auto", device="cpu",
+                     **model_kwargs):
+    """A MultiTaskNet in eval mode on ``device`` holding ``state_dict``
+    (loaded with ``strict=True``): an int8 backbone where the state dict
+    holds ``quant`` entries. ``model_kwargs`` go to the constructor
+    (num_joints, num_classes, fused_attention)."""
+    from hgr_tpu_torch.infer.quant import add_quant_slots
+    from hgr_tpu_torch.models.multitasknet import MultiTaskNet
+
+    if backbone == "auto":
+        backbone = infer_backbone_variant(state_dict)
+    model = MultiTaskNet(image_size=tuple(image_size), backbone=backbone,
+                         dtype=dtype, **model_kwargs)
+    add_quant_slots(model, state_dict)
+    model.load_state_dict(state_dict, strict=True)
+    return model.eval().to(device)
 
 
 def load_detector_weights(path: str, seed: int = 0

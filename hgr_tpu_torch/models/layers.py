@@ -19,6 +19,12 @@ kernel computes the variance and its gradient another way.
 variance, and a hand-derived backward whose two passes are CUDA kernels
 on the card. Off unless asked for.
 
+int8 inference (hgr_tpu/models/layers.py:354-389, built by
+``infer/quant.py``): a ``ConvBnAct`` with a ``QuantConv`` child
+(``quant``) runs, in eval mode, its input quantized against a calibrated
+per-tensor scale, the int8 conv with exact int32 accumulation
+(``ops/int8_conv.py``) and the BN-folded dequantization, then SiLU.
+
 Data parallelism: ``sync_batch_stats(model, group)`` makes every
 BatchNorm of the model take its train-mode statistics over ``group``
 (the mesh's data group): the per-channel sums and the row count are
@@ -39,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hgr_tpu_torch.ops.bn_act import bn_act
+from hgr_tpu_torch.ops.int8_conv import conv_int8
 from hgr_tpu_torch.parallel.collectives import all_sum_grad
 
 # Fused BN(+SiLU) training route: the module-level override wins when set
@@ -201,10 +208,32 @@ def sync_batch_stats(module: nn.Module, group) -> nn.Module:
     return module
 
 
+class QuantConv(nn.Module):
+    """The int8 state of one quantized ``ConvBnAct``, as buffers (the
+    'quant' collection of hgr_tpu/models/layers.py:362-367):
+
+    kernel_q  (k, k, Cin, Cout) int8, BN-folded, per output channel
+    act_scale () float32, the calibrated input scale (absmax / 127)
+    out_scale (Cout,) float32, act_scale · the weight scale
+    bias      (Cout,) float32, the BN-folded bias
+    """
+
+    def __init__(self, k: int, c_in: int, c_out: int):
+        super().__init__()
+        self.register_buffer("kernel_q", torch.zeros(k, k, c_in, c_out,
+                                                     dtype=torch.int8))
+        self.register_buffer("act_scale", torch.ones(()))
+        self.register_buffer("out_scale", torch.ones(c_out))
+        self.register_buffer("bias", torch.zeros(c_out))
+
+
 class ConvBnAct(nn.Module):
     """conv(bias=False) + BatchNorm + SiLU (reference model/gelan.py:18-56
     ``Conv``): the conv in ``dtype``, BN and SiLU in float32, the output
     cast to ``dtype`` (hgr_tpu/models/layers.py:267).
+
+    With a ``quant`` child (``add_quant``) and not in train mode it takes
+    the int8 branch (layers.py:306, ``_quantized``).
 
     In train mode with ``fused_bn()`` the BN(+SiLU) is ``ops/bn_act.bn_act``
     on the conv output, with the running statistics updated from its
@@ -228,8 +257,23 @@ class ConvBnAct(nn.Module):
         self.bn = BatchNorm(features)
         self.use_act = use_act
         self.dtype = dtype
+        self.add_module("quant", None)
+
+    def add_quant(self) -> QuantConv:
+        """Give the module an (empty) int8 state: it then loads a state
+        dict with ``quant.*`` entries and takes the int8 branch in eval
+        mode."""
+        conv = self.conv
+        if conv.groups != 1 or conv.dilation != 1:
+            raise ValueError("the int8 branch takes plain convs only "
+                             "(groups 1, dilation 1)")
+        c_out, c_in, k, _ = conv.weight.shape
+        self.quant = QuantConv(k, c_in, c_out).to(conv.weight.device)
+        return self.quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant is not None and not self.training:
+            return self._quantized(x)
         if self.training and fused_bn():
             bn = self.bn
             y, mean, var = bn_act(self.conv(x), bn.weight, bn.bias, bn.eps,
@@ -237,6 +281,21 @@ class ConvBnAct(nn.Module):
             bn.update_stats(mean, var)
             return y.to(self.dtype)
         y = self.bn(self.conv(x))
+        if self.use_act:
+            y = F.silu(y)
+        return y.to(self.dtype)
+
+    def _quantized(self, x: torch.Tensor) -> torch.Tensor:
+        """Quantize the input, int8 conv with int32 accumulation, dequant
+        with the BN-folded scale and bias, SiLU (layers.py:372-385). The
+        division is by a 0-dim tensor on x's device: a true division, as
+        JAX divides (a CUDA division by a Python scalar multiplies by the
+        reciprocal, and one ulp moves round() at a .5 boundary)."""
+        q = self.quant
+        xq = torch.clamp(torch.round(x.float() / q.act_scale), -127, 127
+                         ).to(torch.int8)
+        acc = conv_int8(xq, q.kernel_q, self.conv.stride, self.conv.padding)
+        y = acc.float() * q.out_scale + q.bias
         if self.use_act:
             y = F.silu(y)
         return y.to(self.dtype)

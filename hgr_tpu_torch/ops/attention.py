@@ -2,9 +2,14 @@
 hgr_tpu/ops/attention_pallas.py).
 
 * ``fused_attention_qkv`` — the no-map core on the packed ``to_qkv``
-  output (B, N, 3·H·D), differentiable through a
-  ``torch.autograd.Function`` that saves only ``qkv`` (the custom VJP of
-  attention_pallas.py:393-414). On CUDA tensors the forward launches
+  output (B, N, 3·H·D), through the registered operators
+  ``torch.ops.hgr_tpu_torch.attention_qkv_fwd`` and ``...attention_qkv_bwd``
+  (``torch.library.custom_op``: importing this module registers them,
+  and builds nothing). The forward's autograd saves only ``qkv`` (the
+  custom VJP of attention_pallas.py:393-414); its fake (shape) functions
+  let ``torch.export`` record each as one node of a graph, so an exported
+  program runs the hand-written kernel. Each operator dispatches by
+  device: on CUDA tensors the forward launches
   ``csrc/attention_qkv_fwd.cu`` (port of ``_attention_qkv_kernel`` :51)
   and the backward ``csrc/attention_qkv_bwd.cu`` (port of
   ``_attention_qkv_bwd_kernel`` :175), counted in
@@ -378,6 +383,49 @@ def _device_type(t: torch.Tensor, op: str) -> str:
     return t.device.type
 
 
+@torch.library.custom_op("hgr_tpu_torch::attention_qkv_bwd", mutates_args=())
+def _attention_qkv_bwd_op(qkv: torch.Tensor, g: torch.Tensor, heads: int,
+                          head_dim: int, scale: float) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale)
+    return _launch_bwd(qkv, g, heads, head_dim, scale)
+
+
+@_attention_qkv_bwd_op.register_fake
+def _(qkv, g, heads, head_dim, scale):
+    return torch.empty_like(qkv)
+
+
+@torch.library.custom_op("hgr_tpu_torch::attention_qkv_fwd", mutates_args=())
+def _attention_qkv_fwd_op(qkv: torch.Tensor, heads: int, head_dim: int,
+                          scale: float) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return attention_qkv_reference(qkv, heads, head_dim, scale)
+    return _launch(qkv, heads, head_dim, scale)
+
+
+@_attention_qkv_fwd_op.register_fake
+def _(qkv, heads, head_dim, scale):
+    b, n, _ = qkv.shape
+    return qkv.new_empty((b, n, heads * head_dim))
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    qkv, heads, head_dim, scale = inputs
+    ctx.save_for_backward(qkv)  # the recompute backward: no N×N tensor
+    ctx.cfg = (heads, head_dim, scale)
+
+
+def _fwd_backward(ctx, g):
+    (qkv,) = ctx.saved_tensors
+    return _attention_qkv_bwd_op(qkv, g.contiguous(), *ctx.cfg), None, None, \
+        None
+
+
+_attention_qkv_fwd_op.register_autograd(_fwd_backward,
+                                        setup_context=_fwd_setup_context)
+
+
 def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
                             head_dim: int, scale: float) -> torch.Tensor:
     """The packed gradient (B, N, 3·H·D) of ``fused_attention_qkv`` at
@@ -386,28 +434,9 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     CUDA tensors launch the backward kernel (or raise: there is no
     fallback); CPU tensors run ``attention_qkv_bwd_reference``.
     """
-    if _device_type(qkv, "fused_attention_qkv_bwd") == "cpu":
-        return attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale)
-    return _launch_bwd(qkv, g, heads, head_dim, scale)
-
-
-class _FusedAttentionQKV(torch.autograd.Function):
-    """The fused core with its recompute backward: only ``qkv`` is saved,
-    no N×N tensor."""
-
-    @staticmethod
-    def forward(ctx, qkv, heads, head_dim, scale):
-        ctx.save_for_backward(qkv)
-        ctx.cfg = (heads, head_dim, scale)
-        if qkv.device.type == "cpu":
-            return attention_qkv_reference(qkv, heads, head_dim, scale)
-        return _launch(qkv, heads, head_dim, scale)
-
-    @staticmethod
-    def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        d = fused_attention_qkv_bwd(qkv, g.contiguous(), *ctx.cfg)
-        return d, None, None, None
+    _device_type(qkv, "fused_attention_qkv_bwd")
+    return _attention_qkv_bwd_op(qkv, g, int(heads), int(head_dim),
+                                 float(scale))
 
 
 def fused_attention_qkv(qkv: torch.Tensor, heads: int, head_dim: int,
@@ -419,7 +448,8 @@ def fused_attention_qkv(qkv: torch.Tensor, heads: int, head_dim: int,
     a CPU tensor runs the plain versions.
     """
     _device_type(qkv, "fused_attention_qkv")
-    return _FusedAttentionQKV.apply(qkv, heads, head_dim, scale)
+    return _attention_qkv_fwd_op(qkv, int(heads), int(head_dim),
+                                 float(scale))
 
 
 def fused_attention_split_bwd(q: torch.Tensor, k: torch.Tensor,

@@ -105,7 +105,8 @@ def upsample_bilinear_align_corners(
     The matrices and x are cast to ``compute_dtype``; each of the two
     products rounds to it; the result comes back in x's dtype.
     """
-    h, w = x.shape[-3], x.shape[-2]
+    # int(): the ONNX exporter's tracer gives sizes as tensors
+    h, w = int(x.shape[-3]), int(x.shape[-2])
     ah = torch.tensor(_align_corners_matrix(h, h * scale), dtype=compute_dtype,
                       device=x.device)
     aw = torch.tensor(_align_corners_matrix(w, w * scale), dtype=compute_dtype,

@@ -9,12 +9,16 @@ array type numpy can read) and joins the module path with dots:
   transposes them. The packed ``to_qkv`` columns (q | k | v, each
   head-major) become weight rows in the same order;
 * LayerNorm/BatchNorm ``scale`` -> ``weight``; ``bias``, ``cls_token``
-  and the BatchNorm statistics ``mean``/``var`` are copied as they are.
+  and the BatchNorm statistics ``mean``/``var`` are copied as they are;
+* the int8 ``quant`` collection (hgr_tpu/infer/quant.py) -> the
+  ``<module>.quant.<leaf>`` buffers of ``models/layers.py:QuantConv``, in
+  their own dtypes: ``kernel_q`` int8 in the JAX (k, k, Cin, Cout) order,
+  ``act_scale``, ``out_scale`` and ``bias`` float32.
 
-``to_flax`` is the exact inverse. ``load_weights_npz`` reads the flat
-``collection/path/leaf`` .npz that hgr_tpu/infer/export.py:133
-``save_weights_npz`` (and cli/convert.py) writes, without JAX, and
-``save_weights_npz`` writes one.
+Every other leaf becomes float32. ``to_flax`` is the exact inverse.
+``load_weights_npz`` reads the flat ``collection/path/leaf`` .npz that
+hgr_tpu/infer/export.py:133 ``save_weights_npz`` (and cli/convert.py)
+writes, without JAX, and ``save_weights_npz`` writes one.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 _STATS = ("mean", "var")
+_QUANT = "quant"  # the module name of QuantConv and the Flax collection
 
 
 def _leaf_to_torch(name: str, a: np.ndarray):
@@ -40,7 +45,8 @@ def _leaf_to_torch(name: str, a: np.ndarray):
 
 
 def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax variables -> the port's state_dict (float32 CPU tensors)."""
+    """Flax variables -> the port's state_dict (CPU tensors: float32, and
+    the ``quant`` leaves in their own dtypes)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -52,16 +58,32 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             out[".".join(path + (name,))] = torch.from_numpy(
                 np.ascontiguousarray(a).copy())
 
+    def walk_quant(node, path):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                walk_quant(v, path + (k,))
+            else:
+                out[".".join(path + (_QUANT, k))] = torch.from_numpy(
+                    np.array(v))
+
     walk(variables["params"], ())
     walk(variables.get("batch_stats", {}), ())
+    walk_quant(variables.get(_QUANT, {}), ())
     return out
 
 
 def to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's state_dict -> Flax variables of numpy float32 arrays."""
+    """The port's state_dict -> Flax variables of numpy float32 arrays (and
+    a ``quant`` collection in its own dtypes where the model holds one)."""
     tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         *path, name = key.split(".")
+        if path and path[-1] == _QUANT:
+            node = tree.setdefault(_QUANT, {})
+            for p in path[:-1]:
+                node = node.setdefault(p, {})
+            node[name] = t.detach().cpu().numpy().copy()
+            continue
         a = t.detach().cpu().float().numpy()
         if name in _STATS:
             coll = "batch_stats"

@@ -250,12 +250,40 @@ class OnnxGraph:
     name: str
     nodes: List[OnnxNode]
     initializers: Dict[str, OnnxTensor]
+    # graph inputs / outputs: name -> shape (an int per fixed dimension, the
+    # dimension's parameter name for a symbolic one), in graph order
+    inputs: Dict[str, Tuple] = dataclasses.field(default_factory=dict)
+    outputs: Dict[str, Tuple] = dataclasses.field(default_factory=dict)
+
+
+def _parse_value_info(buf: bytes) -> Tuple[str, Tuple]:
+    """ValueInfoProto -> (name, shape): name = 1, type = 2; TypeProto
+    tensor_type = 1; its shape = 2; TensorShapeProto dim = 1; a dimension's
+    dim_value = 1 or dim_param = 2."""
+    name, dims = "", []
+    for field, _wire, payload in _fields(buf):
+        if field == 1:
+            name = payload.decode("utf-8")
+        elif field == 2:
+            for tf, _w, tensor_type in _fields(payload):
+                if tf != 1:
+                    continue
+                for sf, _w2, shape in _fields(tensor_type):
+                    if sf != 2:
+                        continue
+                    for df, _w3, dim in _fields(shape):
+                        if df != 1:
+                            continue
+                        for vf, _w4, v in _fields(dim):
+                            dims.append(v if vf == 1 else v.decode("utf-8"))
+    return name, tuple(dims)
 
 
 def _parse_graph(buf: bytes) -> OnnxGraph:
     name = ""
     nodes: List[OnnxNode] = []
     inits: Dict[str, OnnxTensor] = {}
+    ios: Dict[int, Dict[str, Tuple]] = {11: {}, 12: {}}
     for field, _wire, payload in _fields(buf):
         if field == 1:  # node (repeated, graph order)
             nodes.append(_parse_node(payload))
@@ -264,7 +292,11 @@ def _parse_graph(buf: bytes) -> OnnxGraph:
         elif field == 5:  # initializer
             t = _parse_tensor(payload)
             inits[t.name] = t
-    return OnnxGraph(name=name, nodes=nodes, initializers=inits)
+        elif field in ios:  # input = 11, output = 12
+            vname, shape = _parse_value_info(payload)
+            ios[field][vname] = shape
+    return OnnxGraph(name=name, nodes=nodes, initializers=inits,
+                     inputs=ios[11], outputs=ios[12])
 
 
 def load_onnx_graph(path: str) -> OnnxGraph:

@@ -1036,3 +1036,101 @@ def test_detect_over_http_on_card_with_jpeg_and_npy_bodies():
         httpd.shutdown()
         httpd.server_close()
         det.stop()
+
+
+# -- int8 serving and export -------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,cin,cout,k,s", [(1, 3, 3, 64, 3, 2),
+                                              (2, 96, 3, 64, 3, 2),
+                                              (2, 48, 128, 64, 3, 1),
+                                              (1, 4, 64, 8, 1, 1),
+                                              (4, 24, 256, 512, 3, 2)])
+def test_int8_conv_on_card_equals_cpu_and_plain_version(b, h, cin, cout, k,
+                                                        s):
+    """torch._int_mm on the card (cuBLASLt) behind the route's padding:
+    the same int32 accumulators as the CPU and the float64 plain version,
+    at the stem's depth 27 and below 17 rows too."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.ops.int8_conv import conv_int8, conv_int8_reference
+
+    rng = np.random.RandomState(b + h + cin + k)
+    xq = torch.from_numpy(rng.randint(-127, 128, (b, h, h, cin), np.int8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (k, k, cin, cout),
+                                      np.int8))
+    cpu = conv_int8(xq, wq, s, k // 2)
+    card = conv_int8(xq.cuda(), wq.cuda(), s, k // 2)
+    plain = conv_int8_reference(xq.cuda(), wq.cuda(), s, k // 2)
+    torch.cuda.synchronize()
+    assert torch.equal(card.cpu(), cpu) and torch.equal(card, plain)
+
+
+def _int8_model(px=64):
+    from hgr_tpu_torch.infer.quant import quantize_model
+    from hgr_tpu_torch.models import MultiTaskNet
+
+    model = MultiTaskNet(image_size=(px, px)).eval()
+    x = torch.from_numpy(np.random.RandomState(3).randn(
+        4, px, px, 3).astype(np.float32))
+    return quantize_model(model, [x], need_attnmap=False), x
+
+
+@pytest.mark.gpu
+def test_int8_model_on_card_matches_cpu_and_launches_kernel():
+    _cuda_or_skip()
+    model, x = _int8_model()
+    with torch.inference_mode():
+        want = model(x, need_attnmap=False)[0]
+        model = model.to("cuda")
+        before = A.fused_attention_qkv.launches
+        got = model(x.cuda(), need_attnmap=False)[0]
+        torch.cuda.synchronize()
+    assert A.fused_attention_qkv.launches == before + 4
+    # chip_smoke.py INT8_MODEL_TOL: the f32 card forward's 1e-3
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_exported_program_on_card_runs_the_kernel(tmp_path, int8):
+    _cuda_or_skip()
+    from hgr_tpu_torch.infer.export import (
+        export_program,
+        load_program,
+        make_inference_fn,
+        program_ops,
+    )
+    from hgr_tpu_torch.models import MultiTaskNet
+
+    if int8:
+        model, x = _int8_model()
+    else:
+        model = MultiTaskNet(image_size=(64, 64)).eval()
+        x = torch.from_numpy(np.random.RandomState(3).randn(
+            4, 64, 64, 3).astype(np.float32))
+    model = model.to("cuda")
+    path = export_program(model, str(tmp_path / "m.pt2"), batch=4)
+    loaded = load_program(path)
+    assert program_ops(loaded)["hgr_tpu_torch.attention_qkv_fwd.default"] \
+        == 4
+    with torch.inference_mode():
+        want = make_inference_fn(model)(x.cuda())
+        before = A.fused_attention_qkv.launches
+        got = loaded(x.cuda())
+        torch.cuda.synchronize()
+    assert A.fused_attention_qkv.launches == before + 4
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_attention_operator_launches_the_kernel():
+    _cuda_or_skip()
+    x = _qkv(8, 145, 12, "bfloat16")
+    before = A.fused_attention_qkv.launches
+    got = torch.ops.hgr_tpu_torch.attention_qkv_fwd(x, H, D, SCALE)
+    torch.cuda.synchronize()
+    assert A.fused_attention_qkv.launches == before + 1
+    assert torch.equal(got, A.fused_attention_qkv(x, H, D, SCALE))
