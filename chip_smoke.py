@@ -175,12 +175,12 @@ QUANT_CALIB, QUANT_CHECK, QUANT_BATCHES = 256, 16, (64, 1024)
 # perturbation of 16 crops' inputs moved no logit bit on the CPU); one
 # moved code changes one input of one conv by 1/127 of its range
 INT8_MODEL_TOL = 1e-3
-# a reloaded exported program vs the eager forward: the same operators
-# on the same inputs, so the same bits are expected; held at the f32
-# card tolerance of one rounding and one bf16 ulp (2^-8 of |x| < 4)
-EXPORT_TOL = {"float32": 1e-5, "bfloat16": 2e-2, "int8": INT8_MODEL_TOL}
 # int8 dense peak (H100 SXM data sheet): 1,979 TOP/s
 INT8_PEAK_OPS = 1979e12
+# bytes of an element of the int8 backbone's compute type (bf16)
+INT8_IO_BYTES = 2
+# the export CLI's batch on the loop's test split
+CLI_EXPORT_BATCH = 64
 
 
 
@@ -265,11 +265,15 @@ def kernel_phase(torch):
     )
 
     checks, main = [], None
-    # (16, bf16) and (4, f32): the detect path's classifier batches
+    # (16, bf16) and (4, f32): the detect path's classifier batches;
+    # (1024, bf16): the int8 path's timed batch; (16, f32): its card vs
+    # CPU forward; (1, bf16 and f32): the exported programs at batch 1
     for b, n, dtype in [(64, 145, "bfloat16"), (64, 145, "float32"),
                         (256, 145, "bfloat16"), (DET_BATCH, 145, "bfloat16"),
                         (4, 145, "float32"), (1, 37, "bfloat16"),
-                        (1, 37, "float32")]:
+                        (1, 37, "float32"), (1024, 145, "bfloat16"),
+                        (1, 145, "bfloat16"), (1, 145, "float32"),
+                        (QUANT_CHECK, 145, "float32")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
                           generator=gen).to(getattr(torch, dtype))
@@ -2382,13 +2386,6 @@ def _calib_crops(n: int, seed: int):
     return np.stack([make_hand_image(rng, IMAGE)[0] for _ in range(n)])
 
 
-def _normalized(crops):
-    from hgr_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
-
-    return ((crops.astype(np.float32) / 255.0 - np.asarray(
-        IMAGENET_MEAN, np.float32)) / np.asarray(IMAGENET_STD, np.float32))
-
-
 def _conv_inputs(torch, model, x):
     """One forward of ``model`` on ``x``: its logits, and (name, ConvBnAct,
     int8 input) of every quantized conv, the input quantized as the
@@ -2416,10 +2413,10 @@ def _conv_inputs(torch, model, x):
     return logits, seen
 
 
-def _int8_bound(convs, batch: int, in_bytes: int = 2) -> dict:
+def _int8_bound(convs, batch: int) -> dict:
     """The least time of the int8 backbone's convs at ``batch`` as one
-    fused implicit-GEMM kernel each would have it: the compute-type input
-    read once, the output written once, the int8 weights once, against
+    fused implicit-GEMM kernel each would have it: the bf16 input read
+    once, the output written once, the int8 weights once, against
     2·M·K·N int8 operations at the int8 peak."""
     nbytes = ops = 0
     for _name, mod, xq in convs:
@@ -2427,7 +2424,7 @@ def _int8_bound(convs, batch: int, in_bytes: int = 2) -> dict:
         s, p = mod.conv.stride, mod.conv.padding
         _, h, w, _ = xq.shape
         ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
-        nbytes += batch * (h * w * cin + ho * wo * cout) * in_bytes \
+        nbytes += batch * (h * w * cin + ho * wo * cout) * INT8_IO_BYTES \
             + k * k * cin * cout
         ops += 2 * batch * ho * wo * k * k * cin * cout
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2435,13 +2432,6 @@ def _int8_bound(convs, batch: int, in_bytes: int = 2) -> dict:
     return {"bytes": nbytes, "int8_ops": ops,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def _loop_checkpoint(loop_save: str) -> str:
-    """The loop phase's best checkpoint (its last where none is best)."""
-    weight = os.path.join(loop_save, "weight")
-    best = os.path.join(weight, "best.pt")
-    return best if os.path.exists(best) else os.path.join(weight, "last.pt")
 
 
 def quant_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
@@ -2453,16 +2443,25 @@ def quant_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
     (c) bf16 and int8 forwards at QUANT_BATCHES by CUDA events, peak
     memory and device kernels a call; (d) int8 serving under the serve
     phase's load; (e) ``tools.quant_bench`` on the loop phase's
-    checkpoint and synthetic split."""
-    from hgr_tpu_torch.cli.serve import quantize_from_crops
+    checkpoint and synthetic split. Returns the forwards on the card and
+    the warp calls that the code below makes, which main holds the launch
+    counts to."""
+    from hgr_tpu_torch.infer.quant import (
+        CALIB_BATCH,
+        normalize_crops,
+        quantize_from_crops,
+    )
     from hgr_tpu_torch.infer.weights import build_classifier
     from hgr_tpu_torch.models.layers import ConvBnAct
     from hgr_tpu_torch.ops.int8_conv import conv_int8, conv_int8_reference
     from hgr_tpu_torch.tools import quant_bench
+    from hgr_tpu_torch.train.checkpoint import best_or_last
 
+    calib_forwards = -(-QUANT_CALIB // CALIB_BATCH)
+    forwards = 0
     calib = os.path.join(work, "calib.npy")
     np.save(calib, _calib_crops(QUANT_CALIB, seed=11))
-    check_x = _normalized(_calib_crops(QUANT_CHECK, seed=12))
+    check_x = normalize_crops(_calib_crops(QUANT_CHECK, seed=12))
     result = {"calibration_crops": QUANT_CALIB}
 
     def quantized(dtype):
@@ -2473,12 +2472,14 @@ def quant_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
         return model, time.perf_counter() - t0
 
     served, result["bf16_quantize_seconds"] = quantized(torch.bfloat16)
+    forwards += calib_forwards
     n_quant = sum(isinstance(m, ConvBnAct) and m.quant is not None
                   for m in served.modules())
     check(n_quant == 22, f"{n_quant} quantized convs, expected 22")
 
     # (a) the int32 accumulators of every conv, on the same int8 input
     _, convs = _conv_inputs(torch, served, torch.from_numpy(check_x).cuda())
+    forwards += 1
     check(len(convs) == 22, f"{len(convs)} conv inputs recorded")
     acc_rows = []
     for name, mod, xq in convs:
@@ -2506,6 +2507,7 @@ def quant_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
     x_cpu = torch.from_numpy(check_x)
     lc, codes_card = _conv_inputs(torch, f32_card, x_cpu.cuda())
     lp, codes_cpu = _conv_inputs(torch, f32_cpu, x_cpu)
+    forwards += calib_forwards + 1  # the CPU's forward launches nothing
     lc = lc.cpu()
     moved = sum(int((a[2].cpu() != b[2]).sum())
                 for a, b in zip(codes_card, codes_cpu))
@@ -2533,17 +2535,19 @@ def quant_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
         fns = {name: (lambda m=m: m(x, need_attnmap=False))
                for name, m in (("bf16", float_model), ("int8", served))}
         row = {"ms": {}}
+        iters, warmup, profiled = (20 if b <= 64 else 5), 2, 2
         with torch.inference_mode():
             for name in ("bf16", "int8", "int8", "bf16"):
                 torch.cuda.reset_peak_memory_stats()
                 row["ms"].setdefault(name, []).append(cuda_time_ms(
-                    torch, fns[name], iters=20 if b <= 64 else 5,
-                    warmup=2))
+                    torch, fns[name], iters=iters, warmup=warmup))
                 row.setdefault("peak_gib", {})[name] = (
                     torch.cuda.max_memory_allocated() / 2**30)
             for name, fn in fns.items():
                 row.setdefault("profile", {})[name] = _device_profile(
-                    torch, fn, calls=2)
+                    torch, fn, calls=profiled)
+        # four timed turns; a profile makes a warm call before its calls
+        forwards += 4 * (iters + warmup) + len(fns) * (profiled + 1)
         row["crops_per_s"] = {n: b / float(np.mean(v)) * 1e3
                               for n, v in row["ms"].items()}
         row["int8_convs_fused_bound"] = _int8_bound(convs, b)
@@ -2553,53 +2557,69 @@ def quant_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
     emit({"quant": result})
 
     # (d) int8 serving under the serve phase's load
-    forwards = serve_phase(torch, state, model=served, line="quant_serve")
+    forwards += serve_phase(torch, state, model=served, line="quant_serve")
 
-    # (e) the accuracy cost on the loop phase's checkpoint
-    ckpt = _loop_checkpoint(loop_save)
+    # (e) the accuracy cost on the loop phase's checkpoint: one calibration
+    # batch, the float and the int8 eval (a warm call each, then every
+    # batch; the warp crops each batch), the two timed forwards
+    ckpt = best_or_last(loop_save)
+    calib_batches, eval_batch = 1, 256
     bench = quant_bench.run(quant_bench.build_parser().parse_args(
         ["--workdir", os.path.join(work, "quantbench"), "--weights", ckpt,
-         "--calib_batches", "1", "--eval_batch", "256", "--bench_batch",
-         "256", "--device", "cuda"]), cfg)
+         "--calib_batches", str(calib_batches), "--eval_batch",
+         str(eval_batch), "--bench_batch", "256", "--device", "cuda"]), cfg)
     check(0.0 <= bench["test_f1_int8"] <= 1.0
           and 0.0 <= bench["test_f1_float"] <= 1.0
           and bench["test_images"] == LOOP_SPLITS[2][1],
           f"quant_bench {bench}")
     emit({"quant_bench": bench})
-    return {"serve_forwards": forwards}
+    eval_batches = -(-bench["test_images"] // eval_batch)
+    forwards += (calib_batches + 2 * (eval_batches + 1)
+                 + 2 * (quant_bench.TIME_ITERS + quant_bench.TIME_WARMUP))
+    return {"forwards": forwards, "warps": calib_batches + 2 * eval_batches}
 
 
-def export_phase(torch, state, work: str, cfg, loop_save: str) -> None:
+def export_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
     """``torch.export`` on the card (``infer/export.py``): the f32 and bf16
     2-output forwards at batch 1 and 64 and the int8 model at 64, each
     saved, loaded (the attention operator a node of the graph), held
     against the eager forward; eager vs loaded times at 64; then
     ``hgr_tpu_torch.cli.export`` on the loop phase's checkpoint and
     synthetic test split (pt2, its F1 against the eager eval's) and
-    ``--format onnx`` from the same weights, parsed by the port's reader."""
+    ``--format onnx`` from the same weights, parsed by the port's reader.
+    Returns the forwards on the card and the warp calls that the code
+    below makes (tracing runs no kernel), which main holds the launch
+    counts to."""
     from hgr_tpu_torch.cli import export as cli_export
-    from hgr_tpu_torch.cli.serve import quantize_from_crops
+    from hgr_tpu_torch.infer.quant import (
+        CALIB_BATCH,
+        normalize_crops,
+        quantize_from_crops,
+    )
     from hgr_tpu_torch.infer.export import (
         eval_exported,
         export_program,
         load_program,
         make_inference_fn,
         program_ops,
+        split_loader,
     )
     from hgr_tpu_torch.infer.weights import (
         build_classifier,
         load_classifier_weights,
     )
+    from hgr_tpu_torch.train.checkpoint import best_or_last
     from hgr_tpu_torch.utils.onnx_reader import load_onnx_graph
 
     attn_op = "hgr_tpu_torch.attention_qkv_fwd.default"
-    rows = []
+    rows, forwards = [], 0
     for kind, dtype, batches in (("float32", torch.float32, (1, 64)),
                                  ("bfloat16", torch.bfloat16, (1, 64)),
                                  ("int8", torch.bfloat16, (64,))):
         model = build_classifier(state, (IMAGE, IMAGE), dtype, device="cuda")
         if kind == "int8":
             quantize_from_crops(model, os.path.join(work, "calib.npy"))
+            forwards += -(-QUANT_CALIB // CALIB_BATCH)
         eager = make_inference_fn(model)
         for b in batches:
             path = os.path.join(work, f"export_{kind}_b{b}.pt2")
@@ -2613,34 +2633,37 @@ def export_phase(torch, state, work: str, cfg, loop_save: str) -> None:
             check(ops.get(attn_op) == 4,
                   f"{kind} b{b}: the loaded graph holds {ops.get(attn_op)} "
                   "attention nodes, expected 4")
-            x = torch.from_numpy(_normalized(_calib_crops(b, seed=20 + b))
+            x = torch.from_numpy(normalize_crops(_calib_crops(b, seed=20 + b))
                                  ).cuda()
             with torch.inference_mode():
                 want, got = eager(x), loaded(x)
+            forwards += 2
             torch.cuda.synchronize()
             err = max((g - w).abs().max().item() for g, w in zip(got, want))
+            # the same operators on the same inputs: the same bits
             same = all(torch.equal(g, w) for g, w in zip(got, want))
-            check(err <= EXPORT_TOL[kind],
-                  f"{kind} b{b}: loaded vs eager {err}")
+            check(same, f"{kind} b{b}: loaded vs eager differ by {err}")
             row = {"model": kind, "batch": b, "export_s": export_s,
                    "load_s": load_s, "bytes": os.path.getsize(path),
                    "attention_nodes": ops[attn_op],
                    "int_mm_nodes": ops.get("aten._int_mm.default", 0),
-                   "same_bits": same, "max_abs_err": err,
-                   "tol": EXPORT_TOL[kind]}
+                   "same_bits": same, "max_abs_err": err}
             if b == 64:
                 t = {"eager": [], "loaded": []}
+                iters, warmup = 20, 3
                 with torch.inference_mode():
                     for name in ("eager", "loaded", "loaded", "eager"):
                         fn = eager if name == "eager" else loaded
                         t[name].append(cuda_time_ms(
-                            torch, lambda fn=fn: fn(x), iters=20, warmup=3))
+                            torch, lambda fn=fn: fn(x), iters=iters,
+                            warmup=warmup))
+                forwards += 4 * (iters + warmup)
                 row["ms"] = t
             rows.append(row)
     emit({"export": rows})
 
     # the export CLI on the loop phase's checkpoint and test split
-    ckpt = _loop_checkpoint(loop_save)
+    ckpt = best_or_last(loop_save)
     yaml_path = os.path.join(work, "export_data.yaml")
     with open(yaml_path, "w") as f:
         f.write(f"path: {cfg.path}\ntrain: {cfg.train}\nval: {cfg.val}\n"
@@ -2649,18 +2672,21 @@ def export_phase(torch, state, work: str, cfg, loop_save: str) -> None:
     out = os.path.join(work, "cli_export.pt2")
     t0 = time.perf_counter()
     res = cli_export.main(["--data_config", yaml_path, "--weight_path", ckpt,
-                           "--out", out, "--batch", "64", "--device",
-                           "cuda"])
+                           "--out", out, "--batch", str(CLI_EXPORT_BATCH),
+                           "--device", "cuda"])
     cli_s = time.perf_counter() - t0
     loop_state = load_classifier_weights(ckpt)
     eager = eval_exported(
         make_inference_fn(build_classifier(loop_state, (IMAGE, IMAGE),
                                            torch.float32, device="cuda")),
-        cli_export._loader(cfg, 64, 256), cfg.num_classes, (IMAGE, IMAGE),
-        "cuda")
+        split_loader(cfg, cfg.test, CLI_EXPORT_BATCH), cfg.num_classes,
+        (IMAGE, IMAGE), "cuda")
     check(res["images"] == eager["images"] == LOOP_SPLITS[2][1]
           and res["test_f1"] == eager["test_f1"],
           f"cli.export eval {res} vs the eager eval {eager}")
+    # each eval: a warm call, then every batch (the warp crops each)
+    eval_batches = -(-res["images"] // CLI_EXPORT_BATCH)
+    forwards += 2 * (eval_batches + 1)
     onnx = os.path.join(work, "cli_export.onnx")
     cli_export.main(["--data_config", yaml_path, "--weight_path", ckpt,
                      "--out", onnx, "--format", "onnx", "--skip_eval",
@@ -2695,6 +2721,7 @@ def export_phase(torch, state, work: str, cfg, loop_save: str) -> None:
                  "initializers": len(graph.initializers),
                  "state_dict_entries_found": len(loop_state)
                  - len(missing)}}})
+    return {"forwards": forwards, "warps": 2 * eval_batches}
 
 
 def main() -> int:
@@ -2792,8 +2819,12 @@ def main() -> int:
     # forward, ClassifierService, quant_bench's eval (attention forward;
     # the warp kernel crops the eval split)
     _zero_counts()
-    quant_phase(torch, state, work, cfg, loop_save)
+    made = quant_phase(torch, state, work, cfg, loop_save)
     quanted = _counts()
+    check(quanted["attention_qkv_fwd"] == 4 * made["forwards"]
+          and quanted["warp_twopass"] == made["warps"],
+          f"int8 path launches {quanted} != 4 x {made['forwards']} "
+          f"forwards, {made['warps']} warps")
     for name in ("attention_qkv_fwd", "warp_twopass"):
         check(quanted[name] > 0, f"the int8 path launched {name}")
 
@@ -2801,8 +2832,12 @@ def main() -> int:
     # export CLI's eval through the loaded program (attention forward in
     # f32 and bf16, the warp in the eval's crops)
     _zero_counts()
-    export_phase(torch, state, work, cfg, loop_save)
+    made = export_phase(torch, state, work, cfg, loop_save)
     exported = _counts()
+    check(exported["attention_qkv_fwd"] == 4 * made["forwards"]
+          and exported["warp_twopass"] == made["warps"],
+          f"export path launches {exported} != 4 x {made['forwards']} "
+          f"forwards, {made['warps']} warps")
     for name in ("attention_qkv_fwd", "warp_twopass"):
         check(exported[name] > 0, f"the export path launched {name}")
 

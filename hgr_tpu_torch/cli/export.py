@@ -24,7 +24,6 @@ cpu`` takes the place of the JAX CLI's ``--host_device_count``.
 from __future__ import annotations
 
 import argparse
-import os
 from typing import Optional, Sequence
 
 
@@ -57,17 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _loader(data_cfg, batch: int, canvas_size: int):
-    from hgr_tpu_torch.data.dataset import read_annotations
-    from hgr_tpu_torch.data.loader import BatchLoader
-
-    idx = read_annotations(os.path.join(data_cfg.path, data_cfg.test),
-                           data_cfg.names)
-    return BatchLoader(idx, batch_size=batch, canvas_size=canvas_size,
-                       num_joints=data_cfg.num_joints, shuffle=False,
-                       drop_last=False, num_workers=4)
-
-
 def run(args: argparse.Namespace, data_cfg) -> Optional[dict]:
     """Export (and unless ``--skip_eval`` evaluate) with ``data_cfg``;
     returns the eval's result, or None."""
@@ -78,6 +66,7 @@ def run(args: argparse.Namespace, data_cfg) -> Optional[dict]:
         eval_exported,
         export_program,
         load_program,
+        split_loader,
     )
     from hgr_tpu_torch.infer.weights import (
         build_classifier,
@@ -113,8 +102,9 @@ def run(args: argparse.Namespace, data_cfg) -> Optional[dict]:
 
             print("Testing the traced module on the test split (the module "
                   "torch.onnx.export serialized; no onnxruntime here)...")
-            res = eval_exported(fn, _loader(data_cfg, args.batch,
-                                            args.canvas_size),
+            res = eval_exported(fn, split_loader(data_cfg, data_cfg.test,
+                                                 args.batch,
+                                                 args.canvas_size),
                                 data_cfg.num_classes, image_size, device)
             print("Test F1 Score: {:.4f}".format(res["test_f1"]))
         return res
@@ -130,8 +120,8 @@ def run(args: argparse.Namespace, data_cfg) -> Optional[dict]:
     if not args.skip_eval:
         fn = load_program(out)
         print("Testing the exported model on the test split...")
-        res = eval_exported(fn, _loader(data_cfg, args.batch,
-                                        args.canvas_size),
+        res = eval_exported(fn, split_loader(data_cfg, data_cfg.test,
+                                             args.batch, args.canvas_size),
                             data_cfg.num_classes, image_size, device)
         print("Test F1 Score: {:.4f}".format(res["test_f1"]))
         print("Average time taken to process one image: {:.4f} seconds"

@@ -58,6 +58,7 @@ def build_service(args):
         DataConfig,
         load_data_config,
     )
+    from hgr_tpu_torch.infer.quant import quantize_from_crops
     from hgr_tpu_torch.infer.weights import (
         build_classifier,
         load_classifier_weights,
@@ -88,25 +89,6 @@ def build_service(args):
         max_wait_ms=args.max_wait_ms, pipeline_depth=args.pipeline_depth)
     service.warm()
     return service
-
-
-def quantize_from_crops(model, path: str, batch: int = 64) -> None:
-    """Quantize ``model``'s backbone to int8 in place from the calibration
-    crops at ``path`` (cli/serve.py:107-121): a .npy, or an .npz's first
-    array, of (N, H, W, 3) uint8 crops, normalized with /255, −mean, /std
-    and calibrated in batches of ``batch``."""
-    from hgr_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
-    from hgr_tpu_torch.infer.quant import quantize_model
-
-    crops = np.load(path)
-    if hasattr(crops, "files"):  # npz
-        crops = crops[crops.files[0]]
-    mean = np.asarray(IMAGENET_MEAN, np.float32)
-    std = np.asarray(IMAGENET_STD, np.float32)
-    batches = [((crops[i:i + batch].astype(np.float32) / 255.0) - mean)
-               / std for i in range(0, len(crops), batch)]
-    quantize_model(model, batches, need_attnmap=False)
-    print(f"quantized backbone from {len(crops)} calibration crops")
 
 
 def build_detector_service(args, service):

@@ -19,6 +19,7 @@ The weights bundle beside an artifact is ``utils/convert.py``'s
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict
 
@@ -77,6 +78,20 @@ def program_ops(module: nn.Module) -> Dict[str, int]:
             name = str(node.target)
             counts[name] = counts.get(name, 0) + 1
     return counts
+
+
+def split_loader(data_cfg, split: str, batch: int, canvas_size: int = 256):
+    """The eval loader of one split of ``data_cfg`` (in order, the tail
+    padded and masked by 'valid'), for ``eval_exported`` and for
+    calibration crops."""
+    from hgr_tpu_torch.data.dataset import read_annotations
+    from hgr_tpu_torch.data.loader import BatchLoader
+
+    idx = read_annotations(os.path.join(data_cfg.path, split),
+                           data_cfg.names)
+    return BatchLoader(idx, batch_size=batch, canvas_size=canvas_size,
+                       num_joints=data_cfg.num_joints, shuffle=False,
+                       drop_last=False, num_workers=4)
 
 
 def _sync(device: torch.device) -> None:

@@ -35,6 +35,7 @@ from hgr_tpu_torch.models.layers import ConvBnAct
 from hgr_tpu_torch.utils.convert import to_flax
 
 BN_EPS = 1e-5  # models/layers.py BatchNorm epsilon
+CALIB_BATCH = 64  # the serving CLI's calibration batch (cli/serve.py:107-121)
 
 
 def _set_leaf(tree: Dict[str, Any], path: str, name: str, value) -> None:
@@ -204,4 +205,30 @@ def quantize_model(model: nn.Module, calibration_batches: Iterable,
     stats = calibrate_act_scales(model, calibration_batches, **forward_kwargs)
     qvars = quantize_variables(to_flax(model.state_dict()), stats, eps)
     return attach_quant(model, qvars["quant"])
+
+
+def normalize_crops(crops: np.ndarray) -> np.ndarray:
+    """uint8 (N, H, W, 3) crops -> float32 model inputs: /255, −mean, /std
+    in numpy float32, as the JAX serving CLI normalizes its calibration
+    crops."""
+    from hgr_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+
+    return ((crops.astype(np.float32) / 255.0)
+            - np.asarray(IMAGENET_MEAN, np.float32)) / np.asarray(
+                IMAGENET_STD, np.float32)
+
+
+def quantize_from_crops(model: nn.Module, path: str) -> nn.Module:
+    """Quantize ``model``'s backbone to int8 in place from the calibration
+    crops at ``path`` (cli/serve.py:107-121): a .npy, or an .npz's first
+    array, of (N, H, W, 3) uint8 crops, normalized and calibrated in
+    batches of CALIB_BATCH. Returns the model."""
+    crops = np.load(path)
+    if hasattr(crops, "files"):  # npz
+        crops = crops[crops.files[0]]
+    batches = [normalize_crops(crops[i:i + CALIB_BATCH])
+               for i in range(0, len(crops), CALIB_BATCH)]
+    quantize_model(model, batches, need_attnmap=False)
+    print(f"quantized backbone from {len(crops)} calibration crops")
+    return model
 

@@ -30,6 +30,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+# the forward's timing: calls timed, after calls to warm it
+TIME_ITERS, TIME_WARMUP = 30, 5
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -70,6 +73,7 @@ def build_fixture(root: str, args):
 def train_fixture_model(data_cfg, workdir: str, args) -> str:
     """Train through the port's training CLI; returns the best checkpoint."""
     from hgr_tpu_torch.cli import train as cli
+    from hgr_tpu_torch.train.checkpoint import best_or_last
 
     argv = ["--data_config", "(the fixture's DataConfig)",
             "--suffix", "quantbench", "--batch_size", str(args.batch),
@@ -79,20 +83,7 @@ def train_fixture_model(data_cfg, workdir: str, args) -> str:
             "--save_dir", os.path.join(workdir, "output"),
             "--num_workers", "8", "--device", args.device]
     _, save = cli.run(cli.parse_args(argv), data_cfg)
-    weight = os.path.join(save, "weight")
-    best = os.path.join(weight, "best.pt")
-    return best if os.path.exists(best) else os.path.join(weight, "last.pt")
-
-
-def _loader(data_cfg, split: str, batch: int):
-    from hgr_tpu_torch.data.dataset import read_annotations
-    from hgr_tpu_torch.data.loader import BatchLoader
-
-    idx = read_annotations(os.path.join(data_cfg.path, split),
-                           data_cfg.names)
-    return BatchLoader(idx, batch_size=batch,
-                       num_joints=data_cfg.num_joints, shuffle=False,
-                       drop_last=False, num_workers=8)
+    return best_or_last(save)
 
 
 def calibration_batches(loader, n_batches: int, image_size, device):
@@ -119,19 +110,20 @@ def calibration_batches(loader, n_batches: int, image_size, device):
     return out
 
 
-def time_forward_ms(fn, x, iters: int = 30, warmup: int = 5) -> float:
-    """Mean ms of ``fn(x)`` over ``iters`` calls by CUDA events."""
-    for _ in range(warmup):
+def time_forward_ms(fn, x) -> float:
+    """Mean ms of ``fn(x)`` over TIME_ITERS calls by CUDA events, after
+    TIME_WARMUP."""
+    for _ in range(TIME_WARMUP):
         fn(x)
     torch.cuda.synchronize(x.device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
+    for _ in range(TIME_ITERS):
         fn(x)
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / TIME_ITERS
 
 
 def run(args: argparse.Namespace, data_cfg=None) -> dict:
@@ -139,7 +131,11 @@ def run(args: argparse.Namespace, data_cfg=None) -> dict:
     caller without a YAML file). Returns what it writes."""
     from hgr_tpu_torch.config import load_data_config
     from hgr_tpu_torch.infer.detect import resolve_device
-    from hgr_tpu_torch.infer.export import eval_exported, make_inference_fn
+    from hgr_tpu_torch.infer.export import (
+        eval_exported,
+        make_inference_fn,
+        split_loader,
+    )
     from hgr_tpu_torch.infer.quant import quantize_model
     from hgr_tpu_torch.infer.weights import (
         build_classifier,
@@ -172,8 +168,8 @@ def run(args: argparse.Namespace, data_cfg=None) -> dict:
 
     f_float = make_inference_fn(model())
     t0 = time.perf_counter()
-    calib = calibration_batches(_loader(data_cfg, data_cfg.train,
-                                        args.eval_batch),
+    calib = calibration_batches(split_loader(data_cfg, data_cfg.train,
+                                             args.eval_batch),
                                 args.calib_batches, image_size, device)
     f_int8 = make_inference_fn(quantize_model(model(), calib,
                                               need_attnmap=False))
@@ -181,12 +177,10 @@ def run(args: argparse.Namespace, data_cfg=None) -> dict:
     calib_crops = sum(len(c) for c in calib)
     print(f"calibrated on {calib_crops} crops ({calib_s:.1f}s)", flush=True)
 
-    res_f = eval_exported(f_float, _loader(data_cfg, data_cfg.test,
-                                           args.eval_batch),
-                          data_cfg.num_classes, image_size, device)
-    res_q = eval_exported(f_int8, _loader(data_cfg, data_cfg.test,
-                                          args.eval_batch),
-                          data_cfg.num_classes, image_size, device)
+    res_f, res_q = (eval_exported(fn, split_loader(data_cfg, data_cfg.test,
+                                                   args.eval_batch),
+                                  data_cfg.num_classes, image_size, device)
+                    for fn in (f_float, f_int8))
 
     t_float = t_int8 = None
     if device.type == "cuda":

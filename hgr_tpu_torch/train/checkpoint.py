@@ -60,6 +60,14 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
     return state
 
 
+def best_or_last(save_path: str) -> str:
+    """The checkpoint a finished run under ``save_path`` leaves to deploy:
+    its best, else its last (a run whose validation never improved)."""
+    best = os.path.join(save_path, "weight", "best.pt")
+    return best if os.path.exists(best) else os.path.join(
+        save_path, "weight", "last.pt")
+
+
 class CheckpointManager:
     """``best.pt`` and ``last.pt`` under ``directory``; ``mesh``: this
     rank's place on a mesh (the module docstring)."""

@@ -24,6 +24,7 @@ from hgr_tpu_torch.infer.export import (
     load_program,
     make_inference_fn,
     program_ops,
+    split_loader,
 )
 from hgr_tpu_torch.infer.onnx_export import export_onnx
 from hgr_tpu_torch.models import MultiTaskNet
@@ -185,8 +186,8 @@ def test_cli_export_pt2_end_to_end_on_cpu(export_fixture):
 
     data_cfg = load_data_config(cfg)
     eager = eval_exported(make_inference_fn(_model(seed=9)),
-                          cli_export._loader(data_cfg, 2, 256), 19, (PX, PX),
-                          "cpu")
+                          split_loader(data_cfg, data_cfg.test, 2), 19,
+                          (PX, PX), "cpu")
     assert res["images"] == eager["images"] == 4
     assert res["test_f1"] == eager["test_f1"]
 

@@ -45,7 +45,11 @@ def _qkv(b, n, seed, dtype):
                                        (16, 145, "bfloat16"),
                                        (4, 145, "float32"),
                                        (1, 37, "bfloat16"),
-                                       (1, 37, "float32")])
+                                       (1, 37, "float32"),
+                                       (1024, 145, "bfloat16"),
+                                       (1, 145, "bfloat16"),
+                                       (1, 145, "float32"),
+                                       (16, 145, "float32")])
 def test_kernel_matches_plain_version(b, n, dtype):
     _cuda_or_skip()
     x = _qkv(b, n, 11, dtype)

@@ -349,8 +349,9 @@ def test_serve_quantize_serves_int8_on_classify_and_detect(tmp_path, capsys):
 
 def test_quantize_from_crops_matches_jax_calibration_input(tmp_path,
                                                           monkeypatch):
-    """The serving CLI's calibration batches are the JAX CLI's: /255,
-    −mean, /std in numpy float32, 64 a batch (cli/serve.py:107-121)."""
+    """The serving CLI's calibration batches (``--quantize``) are the JAX
+    CLI's: /255, −mean, /std in numpy float32, 64 a batch
+    (cli/serve.py:107-121)."""
     from hgr_tpu.config import IMAGENET_MEAN, IMAGENET_STD
 
     crops = np.random.RandomState(6).randint(0, 256, (65, 16, 16, 3),
@@ -360,7 +361,7 @@ def test_quantize_from_crops_matches_jax_calibration_input(tmp_path,
     seen = []
     monkeypatch.setattr(Q, "quantize_model",
                         lambda m, batches, need_attnmap: seen.extend(batches))
-    cli_serve.quantize_from_crops(None, path)
+    Q.quantize_from_crops(None, path)
     mean = np.asarray(IMAGENET_MEAN, np.float32)
     std = np.asarray(IMAGENET_STD, np.float32)
     assert [len(b) for b in seen] == [64, 1]
