@@ -48,7 +48,19 @@ random weights:
 - export: ``torch.export`` programs of the f32, bf16 and int8 forwards
   saved, loaded (the attention operator a node of each graph) and held
   against the eager forward, then ``hgr_tpu_torch.cli.export`` on the
-  loop's checkpoint (pt2, its eval through the loaded program, and onnx).
+  loop's checkpoint (pt2, its eval through the loaded program, and onnx);
+- detector training: YOLOv7-tiny at 416 px (published widths), bf16,
+  B = 16, Adam, 300 steps of ``tools/train_detector_smoke.py``'s step on
+  seeded synthetic scenes (the loss must fall), best-box IoU on fresh
+  scenes, the weights written as the JAX tool writes them and driving
+  ``HandGesturePipeline``, and an f32 B = 2 step against the CPU;
+- the classifier's precision and lowering knobs through
+  ``make_train_step`` at B = 256: ``--dtype mixed`` (the f32 attention
+  kernels at (256, 145, 768)), ``--early_dtype float32`` with fused BN
+  (the f32 bn kernels in the early units), bf16 BN (no bn launches),
+  remat, and the 's2d' and 'dense_grad' stride-2 lowerings; remat's
+  running statistics and the lowerings' gradients against the plain
+  model on the card, and the mixed and early steps against the CPU.
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -181,6 +193,29 @@ INT8_PEAK_OPS = 1979e12
 INT8_IO_BYTES = 2
 # the export CLI's batch on the loop's test split
 CLI_EXPORT_BATCH = 64
+# detector training: the batch, the pool of seeded scene batches cycled,
+# the steps (the first 5 untimed), the fresh eval scenes, and YOLOv7-tiny's
+# variables at the published widths with one class (6,014,038 parameters
+# and 2 x 7,392 BatchNorm statistics)
+DET_TRAIN_BATCH, DET_TRAIN_POOL, DET_TRAIN_STEPS = 16, 16, 300
+DET_EVAL, DET_VARIABLES = 64, 6028822
+# the detector's f32 B = 2 step card vs CPU: f32 alone moves its gradients
+# by up to 3.3% per tensor (median 1.2%) from a float64 evaluation at a
+# fresh init, on the CPU; the card's gradients must be as near float64 as
+# the CPU's (within a factor 2 in norm over all tensors: two f32
+# evaluations) and within DET_GRAD_TOL of the CPU's per tensor
+DET_F64_FACTOR, DET_GRAD_TOL = 2.0, 0.1
+# the precision and lowering knobs' train steps: warm-up and timed steps
+KNOB_WARMUP, KNOB_STEPS = 2, 6
+# a knob's B = 8 step, card vs CPU: its bf16 convolutions round apart on
+# the two devices (cuDNN, oneDNN), so the step is held as the CPU tests
+# hold a bf16 step against JAX: the gradients' difference within 0.1 of
+# their norm over all tensors, the loss within 2e-2; the f32 decoder of
+# 'mixed' (fed the bf16 backbone's features) within 1e-2 per tensor
+KNOB_CPU_TOL, KNOB_LOSS_TOL, KNOB_F32_TOL = 0.1, 2e-2, 1e-2
+# ConvBnAct layers of the first three GELAN units (conv1, conv2 and
+# cspelan1's six), the layers --early_dtype float32 puts in f32
+EARLY_BN_LAYERS = 8
 
 
 
@@ -273,7 +308,8 @@ def kernel_phase(torch):
                         (4, 145, "float32"), (1, 37, "bfloat16"),
                         (1, 37, "float32"), (1024, 145, "bfloat16"),
                         (1, 145, "bfloat16"), (1, 145, "float32"),
-                        (QUANT_CHECK, 145, "float32")]:
+                        (QUANT_CHECK, 145, "float32"),
+                        (TRAIN_BATCH, 145, "float32")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
                           generator=gen).to(getattr(torch, dtype))
@@ -415,7 +451,7 @@ def bwd_kernel_phase(torch):
     checks, main = [], None
     for b, n, dtype in [(TRAIN_BATCH, 145, "bfloat16"), (64, 145, "bfloat16"),
                         (64, 145, "float32"), (1, 37, "bfloat16"),
-                        (1, 37, "float32")]:
+                        (1, 37, "float32"), (TRAIN_BATCH, 145, "float32")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n + 1)
         dt = getattr(torch, dtype)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
@@ -449,7 +485,7 @@ def bwd_kernel_phase(torch):
             row.update(_bound((2 * qkv.numel() + g.numel())
                               * qkv.element_size(),
                               10 * n * n * HEAD_DIM * HEADS * b, dtype))
-            if b == TRAIN_BATCH:  # the training shape
+            if (b, dtype) == (TRAIN_BATCH, "bfloat16"):  # the training path
                 main = row
         checks.append(row)
     emit({"kernel_checks": checks})
@@ -1170,8 +1206,10 @@ def bn_kernel_phase(torch, path_layers):
     shapes = sorted({(h, w, c) for h, w, c, _ in path_layers}, reverse=True)
     cases = [(shape, "bfloat16", act) for shape in shapes
              for act in (True, False)]
-    f32_shape = path_layers[1][:3]  # conv2's 48x48x128
-    cases += [(f32_shape, "float32", True), (f32_shape, "float32", False)]
+    # f32: the early units' shapes (--early_dtype float32 with fused BN)
+    cases += [(shape, "float32", act) for shape in sorted(
+        {(h, w, c) for h, w, c, _ in path_layers[:EARLY_BN_LAYERS]},
+        reverse=True) for act in (True, False)]
     rows, by_case = [], {}
     for (h, w, c), dtype, act in cases:
         gen = torch.Generator(device="cuda").manual_seed(h * 1000 + c)
@@ -2724,6 +2762,390 @@ def export_phase(torch, state, work: str, cfg, loop_save: str) -> dict:
     return {"forwards": forwards, "warps": 2 * eval_batches}
 
 
+def detector_train_phase(torch, state, work: str) -> int:
+    """Main path 9, detector training: YOLOv7-tiny at 416 px, the
+    published widths, bf16, B = DET_TRAIN_BATCH, Adam 1e-3, through the
+    train step of ``tools/train_detector_smoke.py`` for DET_TRAIN_STEPS
+    steps on a pool of DET_TRAIN_POOL seeded ``make_scene`` batches: ms
+    per step and frames/s by CUDA events, peak memory, the loss falling,
+    best-box IoU on DET_EVAL fresh scenes, the weights written as the JAX
+    tool writes them and read back equal, and ``HandGesturePipeline``
+    driven by them on this path's 360x640 scenes. Then an f32 B = 2 step
+    on the card against the CPU. Returns the classifier forwards the
+    pipeline ran (the only kernel launches of the path)."""
+    from hgr_tpu_torch.config import DEFAULT_NAMES
+    from hgr_tpu_torch.infer.detect import HandGesturePipeline
+    from hgr_tpu_torch.infer.weights import load_detector_weights
+    from hgr_tpu_torch.models.yolo import YOLOv7Tiny
+    from hgr_tpu_torch.tools import train_detector_smoke as tool
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(0)
+    pool = [tuple(torch.from_numpy(a).cuda() for a in tool.make_batch(
+        rng, DET_TRAIN_BATCH, 416)) for _ in range(DET_TRAIN_POOL)]
+    pool_s = time.perf_counter() - t0
+    model = YOLOv7Tiny(num_classes=1, dtype=torch.bfloat16,
+                       generator=torch.Generator().manual_seed(0)).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_vars = sum(v.numel() for v in model.state_dict().values())
+    check(n_vars == DET_VARIABLES, f"YOLOv7-tiny variables {n_vars}")
+    step = tool.make_detector_train_step(model, tool.adam(
+        model.parameters(), 1e-3))
+    losses = []
+    warm = 5
+    for i in range(warm):
+        losses.append(step(*pool[i % DET_TRAIN_POOL])[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    for i in range(warm, DET_TRAIN_STEPS):
+        losses.append(step(*pool[i % DET_TRAIN_POOL])[0])
+    end.record()
+    end.synchronize()
+    host_s = time.perf_counter() - h0
+    timed = DET_TRAIN_STEPS - warm
+    ms = start.elapsed_time(end) / timed
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), "finite detector losses")
+    last = float(np.mean(losses[-20:]))
+    check(last < 0.5 * losses[0],
+          f"detector loss fell: {losses[0]} -> last 20 mean {last}")
+    frames, gts = tool.make_batch(np.random.RandomState(999), DET_EVAL, 416)
+    boxes, scores = tool.best_boxes(model, torch.from_numpy(frames).cuda())
+    ious = tool.iou_xyxy(boxes, tool.cxcywh_to_xyxy(gts))
+    profile = _device_profile(torch, lambda: step(*pool[0]))
+
+    # the weights as the JAX tool writes them, read back
+    path = os.path.join(work, "det_train", "yolo_smoke_weights.npz")
+    tool.save_detector_npz(model, path)
+    det_state = load_detector_weights(path)
+    rounded = {k: v.detach().cpu().half().float()
+               for k, v in model.state_dict().items()}
+    check(all(torch.equal(det_state[k], rounded[k]) for k in rounded)
+          and det_state.keys() == rounded.keys(),
+          "the .npz holds the model's variables (float16)")
+    loaded = YOLOv7Tiny(num_classes=1, dtype=torch.bfloat16)
+    loaded.load_state_dict(det_state)
+    in_memory = YOLOv7Tiny(num_classes=1, dtype=torch.bfloat16)
+    in_memory.load_state_dict(rounded)
+    x = torch.from_numpy(frames[:8]).cuda().float() / 255.0
+    with torch.no_grad():
+        same = all(torch.equal(a, b) for a, b in zip(
+            loaded.cuda().eval()(x), in_memory.cuda().eval()(x)))
+    check(same, "the loaded .npz gives the in-memory model's heads")
+    del loaded, in_memory
+
+    pipe = HandGesturePipeline(state, det_state, DEFAULT_NAMES,
+                               dtype=torch.bfloat16, device="cuda")
+    scenes, scene_gts = _scenes(DET_EVAL, seed=5)
+    results = []
+    for i in range(0, DET_EVAL, DET_BATCH):
+        results += pipe.infer_frames(scenes[i:i + DET_BATCH])
+    hits = _hits(results, scene_gts)
+    check(len(results) == DET_EVAL, "the pipeline answered every frame")
+
+    # an f32 B = 2 step on the card against the CPU (TF32 off), and both
+    # against the same step in float64 on the CPU: f32 itself moves this
+    # model's gradients by percents at a fresh init (many train-mode BNs
+    # in a row), so the card is held to be as near float64 as the CPU is
+    f2, g2 = tool.make_batch(np.random.RandomState(7), 2, 416)
+    out = {}
+    for name, dev, dt in (("cpu", "cpu", torch.float32),
+                          ("cuda", "cuda", torch.float32),
+                          ("float64", "cpu", torch.float64)):
+        m = YOLOv7Tiny(dtype=dt, generator=torch.Generator().manual_seed(1))
+        m = m.to(dev, dt)
+        out[name] = tool.detector_loss_and_grads(
+            m, torch.from_numpy(f2).to(dev),
+            torch.from_numpy(g2).to(dev)) + (m.state_dict(),)
+    (lc, _, gc, sc), (lp, _, gp, sp) = out["cuda"], out["cpu"]
+    g64 = out["float64"][2]
+    loss_err = abs(float(lc) - float(lp)) / abs(float(lp))
+    grad_errs = {k: _rel(gc[k].cpu(), gp[k]) for k in gp}
+    worst = max(grad_errs, key=grad_errs.get)
+    def flat(g):
+        return torch.cat([g[k].cpu().double().ravel() for k in gp])
+
+    to64 = {"card": _rel(flat(gc), flat(g64)),
+            "cpu": _rel(flat(gp), flat(g64))}
+    stats_err = max(float(((sc[k].cpu() - sp[k]).abs()
+                           / (1.0 + sp[k].abs())).max())
+                    for k in sp if k.endswith((".mean", ".var")))
+    emit({"detector_train": {
+        "model": "YOLOv7-tiny 416 px, published widths, seeded random init",
+        "params": n_params, "variables": n_vars, "dtype": "bfloat16",
+        "batch": DET_TRAIN_BATCH,
+        "pool_batches": DET_TRAIN_POOL, "pool_seconds": pool_s,
+        "steps": DET_TRAIN_STEPS, "timed_steps": timed, "lr": 1e-3,
+        "ms_per_step": ms, "host_ms_per_step": host_s / timed * 1e3,
+        "frames_per_s": DET_TRAIN_BATCH / ms * 1e3,
+        "max_memory_allocated_gib":
+            torch.cuda.max_memory_allocated() / 2**30,
+        "step_profile": profile,
+        "loss_first": losses[0], "loss_last20_mean": last,
+        "eval_scenes": DET_EVAL, "mean_iou": float(ious.mean()),
+        "iou_gt_0_5_share": float((ious > 0.5).mean()),
+        "npz": os.path.relpath(path, work), "pipeline_hits": hits,
+        "pipeline_frames": DET_EVAL, "hit_iou": DET_HIT_IOU,
+        "f32_b2_vs_cpu": {"loss_rel_err": loss_err,
+                          "max_rel_grad_err": grad_errs[worst],
+                          "worst_tensor": worst,
+                          "median_rel_grad_err": float(np.median(
+                              list(grad_errs.values()))),
+                          "grads_rel_err_to_float64": to64,
+                          "stats_max_err": stats_err},
+    }})
+    check(loss_err <= 1e-4, f"detector step card vs CPU loss: {loss_err}")
+    check(to64["card"] <= DET_F64_FACTOR * to64["cpu"]
+          and grad_errs[worst] <= DET_GRAD_TOL,
+          f"detector step card vs CPU grads: {worst} {grad_errs[worst]}, "
+          f"to float64 {to64}")
+    check(stats_err <= 1e-4,
+          f"detector step card vs CPU stats: {stats_err}")
+    return pipe.batches
+
+
+# main path 10's configurations (hgr_tpu/cli/train.py flags): model
+# constructor fields, the fused BN route (on, as the train line's faster
+# turn), the BN chain dtype
+PRECISION_PATHS = (
+    ("mixed", dict(decoder_dtype="float32"), True, None),
+    ("early_dtype_f32", dict(early_dtype="float32"), True, None),
+    ("bf16_bn", {}, True, "bfloat16"),
+    ("remat", dict(remat=True), True, None),
+    ("s2d", dict(stride2_impl="s2d"), True, None),
+    ("dense_grad", dict(stride2_impl="dense_grad"), True, None),
+)
+
+
+def _knob_model(torch, kw, dtype="bfloat16", seed=0):
+    from hgr_tpu_torch.models import MultiTaskNet
+
+    kw = {k: (getattr(torch, v) if k.endswith("dtype") else v)
+          for k, v in kw.items()}
+    return MultiTaskNet(image_size=(IMAGE, IMAGE),
+                        dtype=getattr(torch, dtype),
+                        generator=torch.Generator().manual_seed(seed), **kw)
+
+
+def _knob_step(torch, fused, bn, fn):
+    """Run ``fn`` with the fused BN route and the BN chain dtype set."""
+    from hgr_tpu_torch.models import layers
+
+    layers._FUSED_BN = fused
+    layers._BN_DTYPE = None if bn is None else getattr(torch, bn)
+    try:
+        return fn()
+    finally:
+        layers._FUSED_BN = None
+        layers._BN_DTYPE = None
+
+
+def _grads_of(torch, model, x):
+    """Outputs, the de-mixed pair of backwards' summed gradients and the
+    running statistics of one train-mode forward of ``model`` on x."""
+    cls, hmap, _ = model.train()(x, need_attnmap=False)
+    params = [p for _, p in model.named_parameters()]
+    g1 = torch.autograd.grad(torch.logsumexp(cls.float(), -1).mean(),
+                             params, retain_graph=True, allow_unused=True,
+                             materialize_grads=True)
+    g2 = torch.autograd.grad(hmap.float().square().mean(), params,
+                             allow_unused=True, materialize_grads=True)
+    stats = {k: v.detach().clone() for k, v in model.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    return cls.detach(), hmap.detach(), [a + 1e-3 * b
+                                         for a, b in zip(g2, g1)], stats
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-12))
+
+
+def precision_paths_phase(torch, n_bn: int) -> dict:
+    """Main path 10, the classifier's precision and lowering knobs through
+    ``make_train_step`` at B = TRAIN_BATCH (MultiTaskNet small 192 px,
+    full width, bf16 compute, grad_demix 'auto' -> on): each of
+    PRECISION_PATHS for KNOB_WARMUP + KNOB_STEPS steps, ms/step, crops/s,
+    peak memory and the launches per step against the code's count. Then
+    the checks on the card: remat's running statistics against the plain
+    step's, 's2d' and 'dense_grad' against 'plain' (f32, B = 8), and the
+    f32 B = 8 'mixed' and 'early_dtype' steps against the CPU."""
+    from hgr_tpu_torch.config import AugmentConfig, ModelConfig, TrainConfig
+    from hgr_tpu_torch.models.layers import ConvBnAct
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_train_step, resolve_grad_demix
+
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _staged_batch(TRAIN_BATCH, seed=2).items()}
+    rows, totals = [], None
+    for name, kw, fused, bn in PRECISION_PATHS:
+        mcfg = ModelConfig(compute_dtype="bfloat16",
+                           decoder_dtype=kw.get("decoder_dtype"),
+                           early_dtype=kw.get("early_dtype"))
+        demix = resolve_grad_demix(TrainConfig(), mcfg)
+        model = _knob_model(torch, kw)
+        if "early_dtype" in kw:
+            check(sum(m.dtype == torch.float32 for m in model.modules()
+                      if isinstance(m, ConvBnAct)) == EARLY_BN_LAYERS,
+                  f"{name}: the early units hold {EARLY_BN_LAYERS} layers")
+        chains_f32 = sum(
+            1 for m in model.modules() if isinstance(m, ConvBnAct)
+            and (m.dtype != torch.bfloat16 or bn is None))
+        check(demix is True and sum(isinstance(m, ConvBnAct)
+                                    for m in model.modules()) == n_bn,
+              f"{name}: grad_demix {demix}")
+        state = create_train_state(model, device="cuda")
+        step = make_train_step(AugmentConfig(), image_size=(IMAGE, IMAGE),
+                               heatmap_size=(IMAGE // 4, IMAGE // 4),
+                               grad_demix=demix)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        bn_launches = 2 * chains_f32 if fused else 0
+        want = {"attention_qkv_fwd": 4, "attention_qkv_bwd": 8,
+                "attention_split_fwd": 0, "attention_split_bwd": 0,
+                "warp_twopass": 1, "bn_act_reduce": bn_launches,
+                "bn_act_elem": bn_launches}
+
+        def run():
+            nonlocal state
+            losses = []
+            for _ in range(KNOB_WARMUP):
+                state, m = step(state, batch, gen)
+                losses.append(m["total_loss"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = _counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(KNOB_STEPS):
+                state, m = step(state, batch, gen)
+                losses.append(m["total_loss"])
+            end.record()
+            end.synchronize()
+            return (losses, start.elapsed_time(end) / KNOB_STEPS,
+                    _delta(_counts(), c0))
+
+        losses, ms, launched = _knob_step(torch, fused, bn, run)
+        per_step = {k: v / KNOB_STEPS for k, v in launched.items()}
+        losses = [float(x) for x in losses]
+        check(all(np.isfinite(losses)), f"{name}: finite losses")
+        check(per_step == want,
+              f"{name}: launches per step {per_step} != {want}")
+        rows.append({"path": name, "fields": kw, "fused_bn": fused,
+                     "bn_dtype": bn or "float32", "grad_demix": demix,
+                     "ms_per_step": ms,
+                     "crops_per_s": TRAIN_BATCH / ms * 1e3,
+                     "max_memory_allocated_gib":
+                         torch.cuda.max_memory_allocated() / 2**30,
+                     "launches_per_step": per_step,
+                     "losses_first_last": [losses[0], losses[-1]]})
+        del state, model, step
+        torch.cuda.empty_cache()
+    emit({"precision_paths": {"batch": TRAIN_BATCH, "image": IMAGE,
+                              "steps": KNOB_WARMUP + KNOB_STEPS,
+                              "rows": rows}})
+
+    # remat: the running statistics are updated once per step, on the card
+    x8 = torch.from_numpy(np.random.RandomState(2).randn(
+        8, IMAGE, IMAGE, 3).astype(np.float32)).cuda()
+    checks = {}
+    for fused in (False, True):
+        runs = [_knob_step(torch, fused, None, lambda r=r: _grads_of(
+            torch, _knob_model(torch, dict(remat=r)).cuda(), x8))
+            for r in (False, True)]
+        (c0, h0, g0, s0), (c1, h1, g1, s1) = runs
+        err = max(float((s1[k] - s0[k]).abs().max()) for k in s0)
+        checks[f"remat_stats_fused_{fused}"] = {
+            "max_abs_err": err, "outputs_equal": bool(
+                torch.equal(c0, c1) and torch.equal(h0, h1)),
+            "max_rel_grad_err": max(_rel(a, b) for a, b in zip(g1, g0))}
+        check(err <= 1e-5, f"remat stats vs plain (fused {fused}): {err}")
+        check(checks[f"remat_stats_fused_{fused}"]["max_rel_grad_err"]
+              <= 1e-3, f"remat grads vs plain: {checks}")
+    # the stride-2 lowerings against 'plain', f32 on the card
+    base = _grads_of(torch, _knob_model(torch, {}, "float32").cuda(), x8)
+    for impl in ("s2d", "dense_grad"):
+        got = _grads_of(torch, _knob_model(
+            torch, dict(stride2_impl=impl), "float32").cuda(), x8)
+        errs = [_rel(a, b) for a, b in zip(got[2], base[2])]
+        checks[impl] = {"max_rel_grad_err": max(errs),
+                        "outputs_rel_err": max(_rel(got[0], base[0]),
+                                               _rel(got[1], base[1]))}
+        check(max(errs) <= 1e-3 and checks[impl]["outputs_rel_err"] <= 1e-3,
+              f"{impl} vs plain on the card: {checks[impl]}")
+    emit({"precision_checks": checks})
+    for name, kw, fused in (("mixed", dict(decoder_dtype="float32"), False),
+                            ("early_dtype", dict(early_dtype="float32"),
+                             True)):
+        knob_vs_cpu_phase(torch, name, kw, fused, n_bn)
+    return {r["path"]: r for r in rows}
+
+
+def knob_vs_cpu_phase(torch, name: str, kw: dict, fused: bool, n_bn: int):
+    """One de-mixed step at B = 8 of a knob's model on the card against the
+    CPU (TF32 off, the draw of ``train_vs_cpu_phase``), held as
+    KNOB_CPU_TOL says; per-tensor errors are reported, the f32 segment's
+    apart."""
+    from hgr_tpu_torch.config import AugmentConfig
+    from hgr_tpu_torch.models import layers
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_train_step
+
+    batch, params = _grid_third_case(torch, 8)
+    out, launches = {}, {}
+    layers._FUSED_BN = fused
+    try:
+        with _fixed_draw(params):
+            for dev in ("cpu", "cuda"):
+                state = create_train_state(_knob_model(torch, kw, seed=1),
+                                           device=dev)
+                step = make_train_step(
+                    AugmentConfig(), image_size=(IMAGE, IMAGE),
+                    heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=True,
+                    debug_return_grads=True, warp_method="kernel")
+                c0 = _counts()
+                _, out[dev] = step(state, batch, torch.Generator(device=dev))
+                torch.cuda.synchronize()
+                launches = _delta(_counts(), c0)
+    finally:
+        layers._FUSED_BN = None
+    g_card, g_cpu = out["cuda"]["_grads"], out["cpu"]["_grads"]
+    errs = {k: _rel(g_card[k].cpu(), w) for k, w in g_cpu.items()}
+    overall = _rel(torch.cat([g_card[k].cpu().ravel() for k in g_cpu]),
+                   torch.cat([w.ravel() for w in g_cpu.values()]))
+    f32_prefix = ("proj.", "decoder.") if name == "mixed" else (
+        "encoder.conv1.", "encoder.conv2.", "encoder.cspelan1.")
+    f32 = {k: v for k, v in errs.items() if k.startswith(f32_prefix)}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(out["cuda"]["total_loss"])
+                   - float(out["cpu"]["total_loss"]))
+    row = {"path": name, "fields": kw, "fused_bn": fused,
+           "card_launches": launches, "rel_grad_err": overall,
+           "max_rel_grad_err": errs[worst],
+           "worst_tensor": worst,
+           "median_rel_grad_err": float(np.median(list(errs.values()))),
+           "f32_segment_max_rel_grad_err": max(f32.values()),
+           "f32_segment_median_rel_grad_err": float(np.median(
+               list(f32.values()))),
+           "tol": KNOB_CPU_TOL, "f32_tol": KNOB_F32_TOL,
+           "loss_abs_err": loss_err,
+           "loss": float(out["cpu"]["total_loss"])}
+    emit({"knob_b8_vs_cpu": row})
+    want_bn = 2 * n_bn if fused else 0
+    check(launches["attention_qkv_bwd"] == 8
+          and launches["bn_act_reduce"] == want_bn,
+          f"{name} card step launches {launches}")
+    check(overall <= KNOB_CPU_TOL, f"{name} card vs CPU step grads: {row}")
+    check(name != "mixed" or max(f32.values()) <= KNOB_F32_TOL,
+          f"{name} card vs CPU f32 decoder grads: {row}")
+    check(loss_err <= KNOB_LOSS_TOL * abs(row["loss"]),
+          f"{name} card vs CPU step loss: {loss_err}")
+
+
 def main() -> int:
     import torch
 
@@ -2841,6 +3263,27 @@ def main() -> int:
     for name in ("attention_qkv_fwd", "warp_twopass"):
         check(exported[name] > 0, f"the export path launched {name}")
 
+    # main path 9, detector training (plain torch ops: no TPU kernel on
+    # the detector) and its weights driving the pipeline, whose
+    # classifier launches the attention forward, 4 a forward
+    _zero_counts()
+    forwards = detector_train_phase(torch, state, work)
+    det_trained = _counts()
+    check(det_trained["attention_qkv_fwd"] == 4 * forwards
+          and sum(det_trained.values()) == 4 * forwards and forwards > 0,
+          f"detector training path launches {det_trained}, {forwards} "
+          "pipeline forwards")
+
+    # main path 10, the classifier's precision and lowering knobs through
+    # make_train_step (f32 attention under --dtype mixed, f32 bn kernels
+    # in the early units)
+    _zero_counts()
+    precision_paths_phase(torch, n_bn)
+    knobbed = _counts()
+    for name in single_path:
+        check(knobbed[name] > 0,
+              f"the precision knobs' steps launched {name}")
+
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
@@ -2848,7 +3291,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": served[name] + trained[name] + looped[name]
         + meshed[name] + longer[name] + detected[name] + quanted[name]
-        + exported[name],
+        + exported[name] + det_trained[name] + knobbed[name],
         "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],

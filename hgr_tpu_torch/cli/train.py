@@ -7,8 +7,9 @@ train.py:244-283 plus the JAX package's extensions and ``--device``).
 Trains on the card unless ``--device cpu``. ``HGR_TPU_FUSED_BN=on`` routes
 the train-mode BatchNorm(+SiLU) layers through the fused two-pass
 backward (ops/bn_act.py). Every flag of the JAX CLI is accepted; the ones
-whose feature is not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item. ``main`` reads the YAML data config and calls
+whose feature is not ported yet (``--grad_demix batched``,
+``--debug_images``) raise ``NotImplementedError`` naming their ROADMAP
+item. ``main`` reads the YAML data config and calls
 ``run(args, data_cfg)``, which does everything after it.
 
 Meshes (parallel/), with the JAX CLI's meaning and refusals; every rank
@@ -66,14 +67,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--seed', type=int, default=42)
     parser.add_argument('--dtype', type=str, default='bfloat16',
                         choices=['bfloat16', 'float32', 'mixed'],
-                        help="compute dtype ('mixed' is not ported yet, "
-                             "ROADMAP A13)")
+                        help="compute dtype; 'mixed' = bf16 backbone + f32 "
+                             "decoder (ModelConfig.decoder_dtype)")
     parser.add_argument('--decoder_dtype', type=str, default='',
                         choices=['', 'float32', 'bfloat16'],
-                        help='not ported yet (ROADMAP A13)')
+                        help='explicit decoder dtype override (--dtype '
+                             'mixed is the supported recipe)')
     parser.add_argument('--early_dtype', type=str, default='',
                         choices=['', 'float32', 'bfloat16'],
-                        help='not ported yet (ROADMAP A13)')
+                        help='dtype of the first --early_units GELAN units '
+                             '(ModelConfig.early_dtype)')
     parser.add_argument('--early_units', type=int, default=3)
     parser.add_argument('--grad_demix', type=str, default='auto',
                         choices=['auto', 'on', 'off', 'batched'],
@@ -106,7 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
                              'DIR and refill the device cache from them on '
                              'later runs')
     parser.add_argument('--remat', action='store_true',
-                        help='not ported yet (ROADMAP A13)')
+                        help='recompute the backbone body and the pose '
+                             'head in the backward (less memory, one more '
+                             'backbone forward)')
     parser.add_argument('--grad_accum', type=int, default=1,
                         help='sequential microbatches per optimizer step')
     parser.add_argument('--debug_images', action='store_true',
@@ -123,10 +128,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def _refuse_unported(args: argparse.Namespace) -> None:
     unported = [
-        (args.remat, "--remat", "A13"),
-        (args.early_dtype, "--early_dtype", "A13"),
-        (args.decoder_dtype, "--decoder_dtype", "A13"),
-        (args.dtype == "mixed", "--dtype mixed", "A13"),
         (args.grad_demix == "batched", "--grad_demix batched", "A15"),
         (args.debug_images, "--debug_images", "A14"),
     ]
@@ -134,6 +135,24 @@ def _refuse_unported(args: argparse.Namespace) -> None:
         if value:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP {item})")
+
+
+def model_config(args: argparse.Namespace, data_cfg, fused_attention=True):
+    """The ModelConfig of the flags, as the JAX CLI builds it
+    (cli/train.py:179-191): ``--dtype mixed`` is a bf16 compute dtype with
+    a float32 decoder unless ``--decoder_dtype`` names another."""
+    from hgr_tpu_torch.config import ModelConfig
+
+    mixed = args.dtype == "mixed"
+    return ModelConfig(
+        num_joints=data_cfg.num_joints, num_classes=data_cfg.num_classes,
+        image_size=(args.image_size[0], args.image_size[-1]),
+        backbone='large' if args.backbone == 'gelanl' else 'small',
+        compute_dtype='bfloat16' if mixed else args.dtype,
+        decoder_dtype=args.decoder_dtype or ('float32' if mixed else None),
+        early_dtype=args.early_dtype or None,
+        early_units=args.early_units, fused_attention=fused_attention,
+        remat=args.remat)
 
 
 def snapshot_dir(root: str, split_dir: str) -> str:
@@ -295,15 +314,9 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
     save_path = _save_path(args)
     model_name = os.path.basename(save_path)
     os.makedirs(save_path, exist_ok=True)
-    image_size = (args.image_size[0], args.image_size[-1])
     mesh_shape = train_cfg.mesh_shape or {}
-    model_cfg = ModelConfig(
-        num_joints=data_cfg.num_joints, num_classes=data_cfg.num_classes,
-        image_size=image_size,
-        backbone='large' if args.backbone == 'gelanl' else 'small',
-        compute_dtype=args.dtype, early_units=args.early_units,
-        fused_attention=resolve_fused_attention(mesh_shape,
-                                                ModelConfig.heads))
+    model_cfg = model_config(args, data_cfg, resolve_fused_attention(
+        mesh_shape, ModelConfig.heads))
     mesh = make_mesh(mesh_shape) if mesh_shape else None
     tensor_parallel = mesh is not None and mesh.tensor_parallel
     if mesh is not None and main:
@@ -344,12 +357,8 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
     _, val_loader = make_loader(data_cfg.val, False, cache=True)
     _, test_loader = make_loader(data_cfg.test, False)
 
-    model = MultiTaskNet(
-        num_joints=model_cfg.num_joints, num_classes=model_cfg.num_classes,
-        image_size=image_size, backbone=model_cfg.backbone,
-        dtype=getattr(torch, model_cfg.compute_dtype),
-        fused_attention=model_cfg.fused_attention,
-        generator=torch.Generator().manual_seed(train_cfg.seed))
+    model = MultiTaskNet.from_config(
+        model_cfg, generator=torch.Generator().manual_seed(train_cfg.seed))
     steps_per_epoch = len(train_loader)
     milestones = [m * steps_per_epoch for m in train_cfg.lr_step]
     state = create_train_state(model, lr=train_cfg.lr,

@@ -84,8 +84,9 @@ def load_data_config(path: str) -> DataConfig:
 class ModelConfig:
     """MultiTaskNet hyper-parameters (reference model/multitasknet.py:9-22).
 
-    The precision and lowering knobs keep the JAX package's names; the
-    ones not ported yet are refused by ``models.MultiTaskNet``.
+    The precision knobs keep the JAX package's names and meaning
+    (``models.MultiTaskNet.from_config`` builds the model); the stride-2
+    lowering is a constructor field of the model only, as in JAX.
     """
 
     num_joints: int = 21

@@ -116,14 +116,18 @@ def load_classifier_weights(path: str,
 def build_classifier(state_dict: Dict[str, torch.Tensor],
                      image_size: Tuple[int, int] = (192, 192),
                      dtype: torch.dtype = torch.float32,
-                     backbone: str = "auto", device="cpu",
+                     backbone: str = "auto", device="cuda",
                      **model_kwargs):
-    """A MultiTaskNet in eval mode on ``device`` holding ``state_dict``
-    (loaded with ``strict=True``): an int8 backbone where the state dict
-    holds ``quant`` entries. ``model_kwargs`` go to the constructor
-    (num_joints, num_classes, fused_attention)."""
+    """A MultiTaskNet in eval mode on ``device`` (the card unless the
+    caller asks for the CPU; without a card, 'cuda' raises) holding
+    ``state_dict`` (loaded with ``strict=True``): an int8 backbone where
+    the state dict holds ``quant`` entries. ``model_kwargs`` go to the
+    constructor (num_joints, num_classes, fused_attention)."""
     from hgr_tpu_torch.infer.quant import add_quant_slots
     from hgr_tpu_torch.models.multitasknet import MultiTaskNet
+    from hgr_tpu_torch.train.state import resolve_device
+
+    device = resolve_device(device)
 
     if backbone == "auto":
         backbone = infer_backbone_variant(state_dict)

@@ -1,16 +1,26 @@
 """GELAN (CSP-ELAN) backbone (port of hgr_tpu/models/gelan.py; reference
 model/gelan.py:124-176). NHWC in and out.
 
-Unported knobs of the JAX backbone (``remat``, ``early_dtype``,
-``stride2_impl`` other than 'plain') are refused by ``MultiTaskNet``.
+The JAX backbone's knobs (hgr_tpu/models/gelan.py:99-140): ``early_dtype``
+runs the first ``early_units`` of the seven units [conv1, conv2, cspelan1,
+down1, cspelan2, down2, cspelan3] in that dtype, ``stride2_impl`` lowers
+the four stride-2 convs, ``remat`` recomputes the whole body in the
+backward (``layers.remat``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from hgr_tpu_torch.models.layers import ConvBnAct, ResBasicBlock, ResBottleneck
+from hgr_tpu_torch.models.layers import (
+    ConvBnAct,
+    ResBasicBlock,
+    ResBottleneck,
+    remat,
+)
 
 GELAN_SPEC = {
     # name -> (block type, blocks-per-chain per stage)
@@ -62,23 +72,38 @@ class GELANNet(nn.Module):
     """
 
     def __init__(self, variant: str = "small",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 stride2_impl: str = "plain",
+                 early_dtype: Optional[torch.dtype] = None,
+                 early_units: int = 3):
         super().__init__()
         if variant not in GELAN_SPEC:
             raise ValueError(f"unknown GELAN variant {variant!r}")
         block, layers = GELAN_SPEC[variant]
-        self.conv1 = ConvBnAct(3, 64, 3, 2, dtype=dtype)
-        self.conv2 = ConvBnAct(64, 128, 3, 2, dtype=dtype)
+
+        def d(i: int) -> torch.dtype:
+            return (early_dtype if early_dtype is not None
+                    and i < early_units else dtype)
+
+        s2 = stride2_impl
+        self.conv1 = ConvBnAct(3, 64, 3, 2, dtype=d(0), stride2_impl=s2)
+        self.conv2 = ConvBnAct(64, 128, 3, 2, dtype=d(1), stride2_impl=s2)
         self.cspelan1 = GELANBlock(128, 128, 128, 64, block, layers[0],
-                                   dtype=dtype)
-        self.down1 = ConvBnAct(128, 256, 3, 2, dtype=dtype)
+                                   dtype=d(2))
+        self.down1 = ConvBnAct(128, 256, 3, 2, dtype=d(3), stride2_impl=s2)
         self.cspelan2 = GELANBlock(256, 256, 256, 128, block, layers[1],
-                                   dtype=dtype)
-        self.down2 = ConvBnAct(256, 512, 3, 2, dtype=dtype)
+                                   dtype=d(4))
+        self.down2 = ConvBnAct(256, 512, 3, 2, dtype=d(5), stride2_impl=s2)
         self.cspelan3 = GELANBlock(512, 512, 512, 256, block, layers[2],
-                                   dtype=dtype)
+                                   dtype=d(6))
+        self.remat = remat
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat:
+            return remat(self._body, x)
+        return self._body(x)
+
+    def _body(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv2(self.conv1(x))
         x = self.down1(self.cspelan1(x))
         x = self.down2(self.cspelan2(x))

@@ -1,5 +1,5 @@
 """Building-block layers: Conv+BN+SiLU, ResNet basic/bottleneck blocks
-(port of hgr_tpu/models/layers.py, plain stride-2 route).
+(port of hgr_tpu/models/layers.py).
 
 Layout: modules take and return NHWC tensors, as the JAX modules do;
 convolutions run on the NCHW view of the same memory (channels-last),
@@ -19,6 +19,21 @@ kernel computes the variance and its gradient another way.
 variance, and a hand-derived backward whose two passes are CUDA kernels
 on the card. Off unless asked for.
 
+``bn_dtype()`` (HGR_TPU_BN_DTYPE, hgr_tpu/models/layers.py:27-45) is the
+dtype of the normalize chain under a bf16 conv: 'bfloat16' casts the
+BatchNorm output to bf16 before the SiLU, as Flax's ``nn.BatchNorm(dtype=
+bfloat16)`` does (its statistics and normalize stay float32 by type
+promotion), and keeps such a layer off the fused route.
+
+``stride2_impl`` lowers an eligible 3x3/stride-2 conv as the JAX package
+does (layers.py:101-231): 's2d' (space-to-depth and a 2x2 stride-1 conv)
+or 'dense_grad' (the plain forward, the input gradient as four dense
+stride-1 convs). The parameter stays ``conv.weight``.
+
+``remat(fn, *args)`` is Flax's ``nn.remat`` for the backbone body and the
+pose head: ``torch.utils.checkpoint`` without reentry, with the running
+statistics updated by the forward only, never by a recomputation.
+
 int8 inference (hgr_tpu/models/layers.py:354-389, built by
 ``infer/quant.py``): a ``ConvBnAct`` with a ``QuantConv`` child
 (``quant``) runs, in eval mode, its input quantized against a calibrated
@@ -35,13 +50,15 @@ statistics and the running-stat update are those of the global batch.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from hgr_tpu_torch.ops.bn_act import bn_act
@@ -67,6 +84,60 @@ def fused_bn() -> bool:
     if v in ("0", "off", "false"):
         return False
     return _FUSED_BN_AUTO
+
+
+# Dtype of the BatchNorm normalize chain under a bf16 conv (layers.py:27-45):
+# the module-level override wins when set, else HGR_TPU_BN_DTYPE, read at
+# each forward. float32 unless 'bfloat16' is asked for.
+_BN_DTYPE: Optional[torch.dtype] = None
+
+
+def bn_dtype() -> torch.dtype:
+    """The normalize chain's dtype asked for (bf16 or f32)."""
+    if _BN_DTYPE is not None:
+        return _BN_DTYPE
+    return (torch.bfloat16
+            if os.environ.get("HGR_TPU_BN_DTYPE", "") == "bfloat16"
+            else torch.float32)
+
+
+# > 0 while a checkpointed region recomputes its forward: BatchNorm then
+# leaves its running statistics alone (``remat``). A global rather than a
+# thread-local: the backward that recomputes may run on another thread.
+_STATS_FROZEN = 0
+
+
+@contextlib.contextmanager
+def stats_frozen():
+    """No BatchNorm updates its running statistics within the block."""
+    global _STATS_FROZEN
+    _STATS_FROZEN += 1
+    try:
+        yield
+    finally:
+        _STATS_FROZEN -= 1
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as Flax's ``nn.remat``.
+    The first call is the forward and updates the BatchNorm running
+    statistics; every recomputation runs under ``stats_frozen``, so a step
+    updates them once however many pullbacks recompute. Without autograd
+    recording it is a plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    calls = 0
+
+    def run(*a):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return fn(*a)
+        with stats_frozen():
+            return fn(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
@@ -124,6 +195,92 @@ class Conv(nn.Module):
         y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), w, b,
                      self.stride, self.padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
+
+
+def _s2d_kernel(w: torch.Tensor) -> torch.Tensor:
+    """The (O, C, 3, 3) kernel of a 3x3/stride-2 conv as the (O, 4C, 2, 2)
+    kernel of the 2x2 stride-1 conv on the space-to-depth input:
+    W2[o, (p·2 + q)·C + c, ka, kb] = W[o, c, 2ka + p − 1, 2kb + q − 1],
+    zero where a tap index leaves [0, 2] (layers.py:206-218)."""
+    o, c = w.shape[:2]
+    d = torch.arange(2)[:, None] * 2 + torch.arange(2)[None, :] - 1
+    ok = (d >= 0) & (d <= 2)
+    dc = d.clamp(0, 2).to(w.device)
+    w2 = w[:, :, dc][:, :, :, :, dc]  # (O, C, ka, p, kb, q)
+    mask = (ok[:, :, None, None] & ok[None, None]).to(w.device, w.dtype)
+    w2 = w2 * mask
+    return w2.permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 2, 2)
+
+
+class S2DConv3x3s2(Conv):
+    """3x3/stride-2 conv as space-to-depth + a 2x2 stride-1 conv
+    (layers.py:_S2DConv3x3s2): the same multiply-adds, every conv and
+    gradient stride 1. Holds the plain (O, C, 3, 3) ``weight``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if h % 2 or w % 2:
+            raise ValueError(f"s2d takes even sizes, got {(h, w)}")
+        z = x.to(self.dtype).reshape(b, h // 2, 2, w // 2, 2, c)
+        z = z.permute(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c)
+        z = F.pad(z.permute(0, 3, 1, 2), (1, 0, 1, 0))
+        y = F.conv2d(z, _s2d_kernel(self.weight.to(self.dtype)))
+        return y.permute(0, 2, 3, 1)
+
+
+class _Conv3x3s2DenseGrad(torch.autograd.Function):
+    """The plain 3x3/stride-2 conv (NCHW) whose input gradient is four
+    dense stride-1 convs over the cotangent, one per output phase
+    (layers.py:133-162): an even position takes the centre tap, an odd one
+    two. The kernel gradient is the plain conv's."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.conv2d(x, w, None, 2, 1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = ctx.saved_tensors
+        wt = w.transpose(0, 1).to(ct.dtype)  # (C, O, t, u)
+
+        def pconv(k, pad):
+            return F.conv2d(F.pad(ct, pad), k)
+
+        k01 = torch.stack([wt[:, :, 1, 2], wt[:, :, 1, 0]], -1)[:, :, None]
+        k10 = torch.stack([wt[:, :, 2, 1], wt[:, :, 0, 1]], -1)[..., None]
+        k11 = torch.stack([
+            torch.stack([wt[:, :, 2, 2], wt[:, :, 2, 0]], -1),
+            torch.stack([wt[:, :, 0, 2], wt[:, :, 0, 0]], -1)], -2)
+        p00 = pconv(wt[:, :, 1:2, 1:2], (0, 0, 0, 0))
+        p01 = pconv(k01, (0, 1, 0, 0))
+        p10 = pconv(k10, (0, 0, 0, 1))
+        p11 = pconv(k11, (0, 1, 0, 1))
+        b, c, h, wd = p00.shape
+        dx = torch.stack([p00, p01, p10, p11], dim=2).reshape(
+            b, c, 2, 2, h, wd).permute(0, 1, 4, 2, 5, 3)
+        dx = dx.reshape(b, c, 2 * h, 2 * wd).to(x.dtype)
+        dw = torch.ops.aten.convolution_backward(
+            ct, x, w, None, [2, 2], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False])[1]
+        return dx, dw
+
+
+class DenseGradConv3x3s2(Conv):
+    """3x3/stride-2 conv with the phase-decomposed input gradient
+    (layers.py:_DenseGradConv3x3s2). Holds the plain ``weight``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1:3]
+        if h % 2 or w % 2:
+            raise ValueError(f"dense_grad takes even sizes, got {(h, w)}")
+        y = _Conv3x3s2DenseGrad.apply(x.to(self.dtype).permute(0, 3, 1, 2),
+                                      self.weight.to(self.dtype))
+        return y.permute(0, 2, 3, 1)
+
+
+STRIDE2_CONVS = {"plain": Conv, "s2d": S2DConv3x3s2,
+                 "dense_grad": DenseGradConv3x3s2}
 
 
 class Dense(nn.Module):
@@ -193,7 +350,10 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """ra = 0.9·ra + 0.1·batch for the running mean and (biased) var."""
+        """ra = 0.9·ra + 0.1·batch for the running mean and (biased) var;
+        nothing while a checkpointed region recomputes (``remat``)."""
+        if _STATS_FROZEN:
+            return
         m = BN_MOMENTUM
         self.mean.mul_(m).add_((1.0 - m) * mean.detach())
         self.var.mul_(m).add_((1.0 - m) * var.detach())
@@ -229,17 +389,22 @@ class QuantConv(nn.Module):
 
 class ConvBnAct(nn.Module):
     """conv(bias=False) + BatchNorm + SiLU (reference model/gelan.py:18-56
-    ``Conv``): the conv in ``dtype``, BN and SiLU in float32, the output
-    cast to ``dtype`` (hgr_tpu/models/layers.py:267).
+    ``Conv``): the conv in ``dtype``, BN in float32, the SiLU in the chain
+    dtype, the output cast to ``dtype`` (hgr_tpu/models/layers.py:267).
+    The chain dtype is ``bn_dtype()`` under a bf16 ``dtype``, else float32
+    (layers.py:334-336).
 
     With a ``quant`` child (``add_quant``) and not in train mode it takes
     the int8 branch (layers.py:306, ``_quantized``).
 
-    In train mode with ``fused_bn()`` the BN(+SiLU) is ``ops/bn_act.bn_act``
-    on the conv output, with the running statistics updated from its
-    two-pass biased variance (layers.py:259-263). bf16 BN is not ported
-    (ROADMAP A13), so the chain is float32 and the JAX condition on the
-    chain dtype (layers.py:334-340) always holds."""
+    In train mode with ``fused_bn()`` and a float32 chain the BN(+SiLU) is
+    ``ops/bn_act.bn_act`` on the conv output, with the running statistics
+    updated from its two-pass biased variance (layers.py:259-263, :337-342);
+    a bf16 chain keeps the plain route.
+
+    ``stride2_impl`` ('plain' | 's2d' | 'dense_grad') picks the lowering of
+    an eligible 3x3/stride-2 conv (layers.py:308-309); any other conv is
+    plain."""
 
     def __init__(self, c_in: int, features: int, kernel_size: int = 1,
                  strides: int = 1, padding: Optional[int] = None,
@@ -247,12 +412,14 @@ class ConvBnAct(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  stride2_impl: str = "plain"):
         super().__init__()
-        if stride2_impl != "plain":
-            raise NotImplementedError(
-                f"stride2_impl={stride2_impl!r} is not ported yet "
-                "(ROADMAP A13); only 'plain'")
+        if stride2_impl not in STRIDE2_CONVS:
+            raise ValueError(f"stride2_impl must be one of "
+                             f"{sorted(STRIDE2_CONVS)}, got {stride2_impl!r}")
         p = autopad(kernel_size, padding, dilation)
-        self.conv = Conv(c_in, features, kernel_size, strides, p, groups,
+        eligible = (kernel_size == 3 and strides == 2 and groups == 1
+                    and dilation == 1 and p == 1)
+        conv = STRIDE2_CONVS[stride2_impl if eligible else "plain"]
+        self.conv = conv(c_in, features, kernel_size, strides, p, groups,
                          dilation, bias=False, dtype=dtype)
         self.bn = BatchNorm(features)
         self.use_act = use_act
@@ -274,13 +441,15 @@ class ConvBnAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.quant is not None and not self.training:
             return self._quantized(x)
-        if self.training and fused_bn():
+        chain = (bn_dtype() if self.dtype == torch.bfloat16
+                 else torch.float32)
+        if self.training and fused_bn() and chain == torch.float32:
             bn = self.bn
             y, mean, var = bn_act(self.conv(x), bn.weight, bn.bias, bn.eps,
                                   self.use_act, group=bn.sync_group)
             bn.update_stats(mean, var)
             return y.to(self.dtype)
-        y = self.bn(self.conv(x))
+        y = self.bn(self.conv(x)).to(chain)
         if self.use_act:
             y = F.silu(y)
         return y.to(self.dtype)

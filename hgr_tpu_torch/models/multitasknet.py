@@ -13,6 +13,13 @@ forward; ``.eval()`` uses the running statistics. With
 forward and backward are the CUDA kernels on the card;
 ``fused_attention='split'`` feeds them q, k and v as three operands (the
 tensor-parallel form, equal bit for bit to the packed one on one rank).
+
+Precision and lowering knobs (hgr_tpu/models/multitasknet.py:41-82):
+``decoder_dtype`` is the dtype of the 1x1 projection and the ViT (its
+class head stays float32), ``early_dtype`` that of the first
+``early_units`` GELAN units, ``remat`` recomputes the backbone body and
+the pose head in the backward, ``stride2_impl`` lowers the backbone's
+stride-2 convs. None of them changes the parameter tree.
 """
 
 from __future__ import annotations
@@ -27,9 +34,8 @@ from hgr_tpu_torch.models.layers import Conv, torch_init_
 from hgr_tpu_torch.models.vit import ViT
 
 
-def _unported(field: str, value: Any, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"MultiTaskNet({field}={value!r}) is not ported yet (ROADMAP {item})")
+def _dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    return None if name is None else getattr(torch, name)
 
 
 class MultiTaskNet(nn.Module):
@@ -37,8 +43,7 @@ class MultiTaskNet(nn.Module):
 
     Parameters are float32 on the CPU, initialized from ``generator``
     (a fresh ``torch.Generator`` seeded with 0 when None); move the model
-    with ``.to(device)``. Fields of the JAX model that are not ported yet
-    raise ``NotImplementedError`` rather than being ignored.
+    with ``.to(device)``.
     """
 
     def __init__(self, num_joints: int = 21, num_classes: int = 19,
@@ -48,18 +53,11 @@ class MultiTaskNet(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  decoder_dtype: Optional[torch.dtype] = None,
                  early_dtype: Optional[torch.dtype] = None,
+                 early_units: int = 3,
                  fused_attention: Any = True,
                  remat: bool = False, stride2_impl: str = "plain",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if decoder_dtype is not None:
-            raise _unported("decoder_dtype", decoder_dtype, "A13")
-        if early_dtype is not None:
-            raise _unported("early_dtype", early_dtype, "A13")
-        if remat:
-            raise _unported("remat", remat, "A13")
-        if stride2_impl != "plain":
-            raise _unported("stride2_impl", stride2_impl, "A13")
         if fused_attention not in (True, False, "split"):
             raise ValueError(
                 f"fused_attention must be True, False or 'split', got "
@@ -67,15 +65,35 @@ class MultiTaskNet(nn.Module):
         self.image_size = tuple(image_size)
         self.num_joints, self.num_classes = num_joints, num_classes
         self.dtype = dtype
-        self.encoder = GELANNet(backbone, dtype=dtype)
-        self.proj = Conv(512, dim, 1, bias=False, dtype=dtype)
+        self.encoder = GELANNet(backbone, dtype=dtype, remat=remat,
+                                stride2_impl=stride2_impl,
+                                early_dtype=early_dtype,
+                                early_units=early_units)
+        ddt = decoder_dtype if decoder_dtype is not None else dtype
+        self.proj = Conv(512, dim, 1, bias=False, dtype=ddt)
         self.decoder = ViT(num_classes, num_joints,
                            (image_size[0] // 16, image_size[1] // 16), dim,
-                           depth, heads, head_dim, mlp_dim, dtype=dtype,
-                           fused=fused_attention)
+                           depth, heads, head_dim, mlp_dim, dtype=ddt,
+                           fused=fused_attention, remat_pose_head=remat)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         torch_init_(self, generator)
+
+    @classmethod
+    def from_config(cls, cfg, generator: Optional[torch.Generator] = None
+                    ) -> "MultiTaskNet":
+        """The model of a ``config.ModelConfig`` (dtypes by name), as the
+        JAX ``MultiTaskNet.from_config``."""
+        return cls(num_joints=cfg.num_joints, num_classes=cfg.num_classes,
+                   image_size=cfg.image_size, backbone=cfg.backbone,
+                   dim=cfg.dim, depth=cfg.depth, heads=cfg.heads,
+                   head_dim=cfg.head_dim, mlp_dim=cfg.mlp_dim,
+                   dtype=_dtype(cfg.compute_dtype),
+                   decoder_dtype=_dtype(cfg.decoder_dtype),
+                   early_dtype=_dtype(cfg.early_dtype),
+                   early_units=cfg.early_units,
+                   fused_attention=cfg.fused_attention, remat=cfg.remat,
+                   generator=generator)
 
     def forward(self, x: torch.Tensor, need_attnmap: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor,

@@ -5,7 +5,8 @@ Dtype placement mirrors the JAX modules: LayerNorm in float32, its output
 cast to the compute dtype by each dense layer; residuals add in the
 compute dtype; the class head is a float32 LayerNorm + float32 dense; the
 pose head (x4 align-corners upsample -> ReLU -> 1x1 conv) runs in the
-compute dtype and returns float32.
+compute dtype and returns float32; ``remat_pose_head`` recomputes it in
+the backward (hgr_tpu/models/vit.py:244-260, ``layers.remat``).
 
 Attention routes by need (vit.py:105-135): without the map, every layer
 takes ``fused_attention_qkv`` (the hand-written CUDA kernels on the card,
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hgr_tpu_torch.models.layers import Conv, Dense
+from hgr_tpu_torch.models.layers import Conv, Dense, remat
 from hgr_tpu_torch.ops.attention import (
     attention_core,
     fused_attention_qkv,
@@ -155,7 +156,8 @@ class ViT(nn.Module):
     def __init__(self, num_classes: int, num_joints: int,
                  feature_size: Tuple[int, int], dim: int, depth: int,
                  heads: int, head_dim: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.float32, fused=True):
+                 dtype: torch.dtype = torch.float32, fused=True,
+                 remat_pose_head: bool = False):
         super().__init__()
         h, w = feature_size
         self.feature_size = (h, w)
@@ -171,6 +173,7 @@ class ViT(nn.Module):
         self.mlp_head_fc = Dense(dim, num_classes, dtype=torch.float32)
         self.simple_decoder_conv = Conv(dim, num_joints, 1, bias=True,
                                         dtype=dtype)
+        self.remat_pose_head = remat_pose_head
 
     def forward(self, x: torch.Tensor, need_attnmap: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -189,9 +192,15 @@ class ViT(nn.Module):
 
         cls_out = self.mlp_head_fc(self.mlp_head_norm(tokens[:, 0].float()))
 
+        hmap_feat = tokens[:, 1:]
+        hmap_out = (remat(self._pose_head, hmap_feat)
+                    if self.remat_pose_head else self._pose_head(hmap_feat))
+        return cls_out, hmap_out.float(), attnmap
+
+    def _pose_head(self, hmap_feat: torch.Tensor) -> torch.Tensor:
+        h, w = self.feature_size
+        hmap = hmap_feat.reshape(hmap_feat.shape[0], h, w, self.dim)
         # the bf16 upsample rounds the matrices too (vit.py:240-249)
-        hmap = tokens[:, 1:].reshape(b, h, w, self.dim)
         hmap = upsample_bilinear_align_corners(hmap, 4,
                                                compute_dtype=self.dtype)
-        hmap_out = self.simple_decoder_conv(F.relu(hmap))
-        return cls_out, hmap_out.float(), attnmap
+        return self.simple_decoder_conv(F.relu(hmap))

@@ -17,8 +17,11 @@ names follow the Flax tree (``stem1.conv.weight``, ``stem1.bn.mean``,
 variable tree (``load_npz_weights``, the ONNX porter) onto the
 ``state_dict`` and ``to_flax`` back.
 
-Eval only: detector training (hgr_tpu/models/yolo_loss.py) is ROADMAP
-A8's remainder, so a module in training mode raises.
+In training mode (``.train()``) every BatchNorm normalizes with the batch
+statistics and updates its running statistics once per forward, as
+Flax's ``nn.BatchNorm(momentum=0.97)`` does (hgr_tpu/models/yolo.py:70);
+``models/yolo_loss.py`` is the loss and ``tools/train_detector_smoke.py``
+the trainer.
 """
 
 from __future__ import annotations
@@ -46,9 +49,20 @@ ANCHORS = (
 STRIDES = (8, 16, 32)
 
 
+# the running-stat momentum of the detector's BatchNorms (yolo.py:70)
+BN_MOMENTUM = 0.97
+
+
 class _BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over NCHW channels in f32, as Flax computes it:
-    (x - mean) * (rsqrt(var + eps) * weight) + bias."""
+    """BatchNorm over NCHW channels in f32 (or the input's wider type), as
+    Flax computes it:
+    (x - mean) * (rsqrt(var + eps) * weight) + bias.
+
+    Eval mode normalizes with the running statistics. Train mode takes
+    the batch's, Flax's fast variance in f32: mean(x) and var =
+    max(mean(x²) − mean(x)², 0) (the classifier's ``layers.BatchNorm``
+    rule), and updates the running statistics under ``no_grad``:
+    ra = 0.97·ra + 0.03·batch."""
 
     def __init__(self, channels: int, eps: float = BN_EPS):
         super().__init__()
@@ -59,8 +73,20 @@ class _BatchNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.weight
-        return ((x.float() - self.mean[:, None, None]) * mul[:, None, None]
+        # at least f32, as Flax promotes (a float64 model stays float64)
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.mean.mul_(m).add_((1.0 - m) * mean)
+                self.var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
 
 
@@ -145,7 +171,9 @@ class YOLOv7Tiny(nn.Module):
     Parameters are float32 on the CPU, initialized from ``generator`` (a
     fresh one seeded with 0 when None): convs U(+-1/sqrt(fan_in)) as
     torch's defaults, BN identity. Move with ``.to(device)``; call
-    ``.eval()`` before the forward.
+    ``.eval()`` before an inference forward (a module starts in training
+    mode, where BatchNorm takes batch statistics and updates its running
+    ones).
     """
 
     def __init__(self, num_classes: int = 1,
@@ -186,10 +214,6 @@ class YOLOv7Tiny(nn.Module):
                         mod.bias.uniform_(-bound, bound, generator=gen)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "YOLOv7Tiny runs in eval mode only: detector training is "
-                "not ported yet (ROADMAP A8); call .eval()")
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last
         x = self.elan1(self.stem2(self.stem1(x)))                 # /4
         p3 = self.elan2(_maxpool(x, 2, 2))                        # /8
@@ -205,7 +229,8 @@ class YOLOv7Tiny(nn.Module):
         outs = []
         for i, feat in enumerate((n3, n4b, n5b)):
             h = getattr(self, f"head{i}_conv")(feat)
-            o = getattr(self, f"detect{i}")(h.float())
+            o = getattr(self, f"detect{i}")(
+                h.to(torch.promote_types(h.dtype, torch.float32)))
             outs.append(o.permute(0, 2, 3, 1))
         return outs
 

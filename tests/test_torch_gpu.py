@@ -1138,3 +1138,122 @@ def test_attention_operator_launches_the_kernel():
     torch.cuda.synchronize()
     assert A.fused_attention_qkv.launches == before + 1
     assert torch.equal(got, A.fused_attention_qkv(x, H, D, SCALE))
+
+
+@pytest.mark.gpu
+def test_build_classifier_defaults_to_the_card():
+    _cuda_or_skip()
+    from hgr_tpu_torch.infer.weights import (
+        build_classifier,
+        load_classifier_weights,
+    )
+
+    m = build_classifier(load_classifier_weights("", (48, 48)), (48, 48))
+    assert {p.device.type for p in m.parameters()} == {"cuda"}
+
+
+def _rel_err(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-12))
+
+
+@pytest.mark.gpu
+def test_detector_train_step_on_card_matches_cpu():
+    """An f32 detector step at B = 2, 416 px on the card (TF32 off)
+    against the CPU from the same weights: the loss 1e-4 relative, the
+    new running statistics 1e-4. f32 itself moves this model's gradients
+    by percents at a fresh init (1.2% median, 3.3% worst on the CPU
+    against float64), so the card's gradients are held to be as near the
+    float64 step's as the CPU's are (a factor 2 in norm: two f32
+    evaluations) and within 0.1 of the CPU's per tensor."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.models.yolo import YOLOv7Tiny
+    from hgr_tpu_torch.tools import train_detector_smoke as tool
+
+    frames, gts = tool.make_batch(np.random.RandomState(0), 2, 416)
+    out = {}
+    for name, dev, dt in (("cpu", "cpu", torch.float32),
+                          ("cuda", "cuda", torch.float32),
+                          ("float64", "cpu", torch.float64)):
+        m = YOLOv7Tiny(dtype=dt, generator=torch.Generator().manual_seed(1))
+        m = m.to(dev, dt)
+        out[name] = tool.detector_loss_and_grads(
+            m, torch.from_numpy(frames).to(dev),
+            torch.from_numpy(gts).to(dev)) + (m.state_dict(),)
+    (lc, _, gc, sc), (lp, _, gp, sp) = out["cuda"], out["cpu"]
+    g64 = out["float64"][2]
+    assert abs(float(lc) - float(lp)) <= 1e-4 * abs(float(lp))
+
+    def flat(g):
+        return torch.cat([g[k].cpu().double().ravel() for k in gp])
+
+    assert _rel_err(flat(gc), flat(g64)) <= 2 * _rel_err(flat(gp), flat(g64))
+    for k in gp:
+        assert _rel_err(gc[k], gp[k]) <= 0.1, k
+    for k in sp:
+        if k.endswith((".mean", ".var")):
+            np.testing.assert_allclose(sc[k].cpu().numpy(), sp[k].numpy(),
+                                       atol=1e-4, rtol=1e-4, err_msg=k)
+
+
+def _classifier_step(model, x, fused):
+    from hgr_tpu_torch.models import layers
+
+    layers._FUSED_BN = fused
+    try:
+        cls, hmap, _ = model.train()(x, need_attnmap=False)
+        params = [p for _, p in model.named_parameters()]
+        g1 = torch.autograd.grad(torch.logsumexp(cls, -1).mean(), params,
+                                 retain_graph=True, allow_unused=True,
+                                 materialize_grads=True)
+        g2 = torch.autograd.grad(hmap.square().mean(), params,
+                                 allow_unused=True, materialize_grads=True)
+    finally:
+        layers._FUSED_BN = None
+    stats = {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    return cls, hmap, [a + 1e-3 * b for a, b in zip(g2, g1)], stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_remat_on_card_updates_the_stats_once(fused):
+    """bf16 MultiTaskNet small at 192 px, B = 8, the de-mixed pair of
+    backwards: with remat the running statistics equal the plain model's
+    within 1e-5, the outputs too, and the gradients within 1e-3 relative
+    per tensor."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.models import MultiTaskNet
+
+    x = torch.from_numpy(np.random.RandomState(2).randn(
+        8, 192, 192, 3).astype(np.float32)).cuda()
+    runs = [_classifier_step(MultiTaskNet(
+        dtype=torch.bfloat16, remat=remat,
+        generator=torch.Generator().manual_seed(3)).cuda(), x, fused)
+        for remat in (False, True)]
+    (c0, h0, g0, s0), (c1, h1, g1, s1) = runs
+    assert torch.equal(c0, c1) and torch.equal(h0, h1)
+    for k in s0:
+        torch.testing.assert_close(s1[k], s0[k], atol=1e-5, rtol=1e-5)
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b.cpu()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["s2d", "dense_grad"])
+def test_stride2_lowerings_on_card_match_plain(impl):
+    """f32 MultiTaskNet small at 192 px, B = 4 (TF32 off): the lowered
+    model's outputs and gradients against 'plain' on the card, 1e-3
+    relative per tensor."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.models import MultiTaskNet
+
+    x = torch.from_numpy(np.random.RandomState(4).randn(
+        4, 192, 192, 3).astype(np.float32)).cuda()
+    runs = [_classifier_step(MultiTaskNet(
+        stride2_impl=s2, generator=torch.Generator().manual_seed(5)).cuda(),
+        x, False) for s2 in ("plain", impl)]
+    (c0, h0, g0, _), (c1, h1, g1, _) = runs
+    assert _rel_err(c1, c0.cpu()) <= 1e-3 and _rel_err(h1, h0.cpu()) <= 1e-3
+    for a, b in zip(g1, g0):
+        assert _rel_err(a, b.cpu()) <= 1e-3

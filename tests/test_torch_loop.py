@@ -98,9 +98,23 @@ def test_cli_adds_only_device_defaulting_to_the_card():
     (["--debug_images"], "A14"),
 ])
 def test_unported_flags_raise_naming_their_roadmap_item(argv, item):
+    """A14's and A15's flags still raise, naming their item; A13's are
+    ported: they pass the refusal and build the model the JAX CLI builds
+    (``--dtype mixed``: bf16 with an f32 decoder)."""
     args = cli.parse_args(["--data_config", "x", "--device", "cpu"] + argv)
-    with pytest.raises(NotImplementedError, match=item):
-        cli.run(args, DataConfig(names=dict(DEFAULT_NAMES)))
+    data_cfg = DataConfig(names=dict(DEFAULT_NAMES))
+    if item != "A13":
+        with pytest.raises(NotImplementedError, match=item):
+            cli.run(args, data_cfg)
+        return
+    cli._refuse_unported(args)
+    cfg = cli.model_config(args, data_cfg)
+    want = {"--remat": ("bfloat16", None, None, True),
+            "--early_dtype": ("bfloat16", None, "float32", False),
+            "--decoder_dtype": ("bfloat16", "float32", None, False),
+            "--dtype": ("bfloat16", "float32", None, False)}[argv[0]]
+    assert (cfg.compute_dtype, cfg.decoder_dtype, cfg.early_dtype,
+            cfg.remat) == want
 
 
 def test_cli_refuses_a_missing_card(monkeypatch, tmp_path):

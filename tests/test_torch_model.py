@@ -396,5 +396,31 @@ def test_split_attention_model_matches_jax_split_model(train):
     ("decoder_dtype", torch.float32, "A13"),
 ])
 def test_unported_fields_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        MultiTaskNet(image_size=(48, 48), **{field: value})
+    """The fields ROADMAP ``item`` (A13) left unported raised here; they
+    are ported now: each builds, keeps the parameter tree and runs a
+    train-mode forward and backward (held against JAX in
+    tests/test_torch_precision.py)."""
+    m = MultiTaskNet(image_size=(48, 48), dtype=torch.bfloat16,
+                     **{field: value})
+    assert m.state_dict().keys() == MultiTaskNet(
+        image_size=(48, 48)).state_dict().keys()
+    cls, hmap, _ = m.train()(torch.from_numpy(_images(2, 48)),
+                             need_attnmap=False)
+    (cls.float().sum() + hmap.sum()).backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in m.parameters())
+
+
+def test_build_classifier_on_the_cpu_when_asked_else_the_card(monkeypatch):
+    """``build_classifier`` puts the served model on the CPU only when the
+    caller asks; by default it is the card's, and without a card that
+    raises rather than landing on the CPU."""
+    from hgr_tpu_torch.infer.weights import build_classifier
+
+    state = load_classifier_weights("", (48, 48))
+    m = build_classifier(state, (48, 48), device="cpu")
+    assert not m.training
+    assert {p.device.type for p in m.parameters()} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_classifier(state, (48, 48))

@@ -101,8 +101,15 @@ def test_bf16_model_keeps_the_jax_dtypes(det_vars):
 
 
 def test_training_mode_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tyolo.YOLOv7Tiny()(torch.zeros(1, 32, 32, 3))
+    """Training mode raised until detector training was ported (ROADMAP
+    A8): the detector now runs ``.train()``, takes batch statistics and
+    updates its running ones (held against JAX in
+    tests/test_torch_yolo_train.py)."""
+    tm = tyolo.YOLOv7Tiny().train()
+    outs = tm(torch.rand(2, 32, 32, 3))
+    assert [tuple(o.shape) for o in outs] == [(2, 4, 4, 18), (2, 2, 2, 18),
+                                              (2, 1, 1, 18)]
+    assert not torch.equal(tm.stem1.bn.var, torch.ones(32))
 
 
 def _raw_outs(seed, b=2, sizes=((8, 10), (4, 5), (2, 3)), nc=1):
