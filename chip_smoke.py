@@ -60,7 +60,16 @@ random weights:
   (the f32 bn kernels in the early units), bf16 BN (no bn launches),
   remat, and the 's2d' and 'dense_grad' stride-2 lowerings; remat's
   running statistics and the lowerings' gradients against the plain
-  model on the card, and the mixed and early steps against the CPU.
+  model on the card, and the mixed and early steps against the CPU;
+- the measurement tools: ``tools/serve_bench`` (2,048 requests from 64
+  clients at max_batch 128, per-request crops, a crop pool on the card,
+  and the int8 backbone), ``tools/video_bench`` (128 frames of 480x640
+  through ``detect_to_video``, serial and overlapped, and the decode
+  floor), ``tools/fwd_attribution`` at B = 1024 and
+  ``tools/bwd_attribution`` at B = 256 with fused BN off and on, and
+  ``tools/bn_convergence_ab`` at a tiny recipe (its two arms are runs of
+  the training CLI in processes of their own, which write their launch
+  counts).
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -216,6 +225,14 @@ KNOB_CPU_TOL, KNOB_LOSS_TOL, KNOB_F32_TOL = 0.1, 2e-2, 1e-2
 # ConvBnAct layers of the first three GELAN units (conv1, conv2 and
 # cspelan1's six), the layers --early_dtype float32 puts in f32
 EARLY_BN_LAYERS = 8
+# the tools' phases: serve_bench's load, video_bench's frames, the
+# attribution batches (fwd at serving scale, bwd at the train step's
+# batch) and timed calls, bn_convergence_ab's tiny recipe
+SB_REQUESTS, SB_CLIENTS, SB_MAX_BATCH, SB_DEPTH = 2048, 64, 128, 4
+VB_FRAMES, VB_HW, VB_BATCH = 128, (480, 640), 16
+FWD_ATTR_BATCH, BWD_ATTR_BATCH, ATTR_ITERS = 1024, 256, 5
+BN_AB_RECIPE = ["--train_n", "512", "--val_n", "256", "--test_n", "256",
+                "--epochs", "2", "--batch", str(TRAIN_BATCH)]
 
 
 
@@ -302,14 +319,16 @@ def kernel_phase(torch):
     checks, main = [], None
     # (16, bf16) and (4, f32): the detect path's classifier batches;
     # (1024, bf16): the int8 path's timed batch; (16, f32): its card vs
-    # CPU forward; (1, bf16 and f32): the exported programs at batch 1
+    # CPU forward; (1, bf16 and f32): the exported programs at batch 1;
+    # (128, bf16): serve_bench's largest batch
     for b, n, dtype in [(64, 145, "bfloat16"), (64, 145, "float32"),
                         (256, 145, "bfloat16"), (DET_BATCH, 145, "bfloat16"),
                         (4, 145, "float32"), (1, 37, "bfloat16"),
                         (1, 37, "float32"), (1024, 145, "bfloat16"),
                         (1, 145, "bfloat16"), (1, 145, "float32"),
                         (QUANT_CHECK, 145, "float32"),
-                        (TRAIN_BATCH, 145, "float32")]:
+                        (TRAIN_BATCH, 145, "float32"),
+                        (SB_MAX_BATCH, 145, "bfloat16")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
                           generator=gen).to(getattr(torch, dtype))
@@ -3146,6 +3165,205 @@ def knob_vs_cpu_phase(torch, name: str, kw: dict, fused: bool, n_bn: int):
           f"{name} card vs CPU step loss: {loss_err}")
 
 
+def _tool_quiet():
+    """The tools print their own progress; keep chip_smoke's stdout to its
+    JSON lines (the progress goes to stderr)."""
+    import contextlib
+
+    return contextlib.redirect_stdout(sys.stderr)
+
+
+def serve_bench_phase(torch, work: str) -> dict:
+    """``tools/serve_bench`` at SB_REQUESTS requests from SB_CLIENTS
+    clients, max_batch SB_MAX_BATCH, pipeline depth SB_DEPTH, bf16, seeded
+    random weights: per-request crops, ``--device_pool`` and
+    ``--quantize``, each from launch counts at 0. Each run's attention
+    launches equal 4 x the forwards it made (warm-up, ceiling, load and
+    calibration). Returns the launch counts of the three runs summed."""
+    from hgr_tpu_torch.tools import serve_bench
+
+    total, rows = {}, {}
+    for name, extra in (("per_request", []),
+                        ("device_pool", ["--device_pool"]),
+                        ("quantized", ["--quantize"])):
+        args = serve_bench.build_parser().parse_args(
+            ["--requests", str(SB_REQUESTS), "--clients", str(SB_CLIENTS),
+             "--max_batch", str(SB_MAX_BATCH), "--pipeline_depth",
+             str(SB_DEPTH), "--out",
+             os.path.join(work, f"serve_bench_{name}.json")] + extra)
+        _zero_counts()
+        with _tool_quiet():
+            result, forwards = serve_bench.run(args)
+        counts = _counts()
+        check(counts["attention_qkv_fwd"] == 4 * forwards and forwards > 0,
+              f"serve_bench {name}: attention launches {counts} != 4 x "
+              f"{forwards} forwards")
+        check(result["requests"] == SB_REQUESTS and result["errors"] == 0
+              and result["achieved_rps"] > 0 and "latency_ms" in result,
+              f"serve_bench {name}: {result}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        rows[name] = {
+            "crops_per_s": result["achieved_rps"],
+            "latency_ms": result["latency_ms"],
+            "bare_fwd_crops_s": result["bare_fwd_crops_s"],
+            "batcher_overhead_pct": result["batcher_overhead_pct"],
+            "batch_hist": result["batch_hist"], "batches": result["batches"],
+            "wall_s": result["wall_s"], "forwards": forwards}
+    emit({"serve_bench": {"requests": SB_REQUESTS, "clients": SB_CLIENTS,
+                          "max_batch": SB_MAX_BATCH,
+                          "pipeline_depth": SB_DEPTH, "dtype": "bfloat16",
+                          "runs": rows}})
+    return total
+
+
+def video_bench_phase(torch, work: str) -> dict:
+    """``tools/video_bench``: VB_FRAMES JPEG frames of VB_HW through
+    ``detect_to_video`` at batch VB_BATCH, serial (depth 1) and overlapped
+    (depth 3), and the decode floor; bf16, seeded random weights. The
+    attention launches equal 4 x the pipeline's batches."""
+    from hgr_tpu_torch.tools import video_bench
+
+    args = video_bench.build_parser().parse_args(
+        ["--frames", str(VB_FRAMES), "--h", str(VB_HW[0]), "--w",
+         str(VB_HW[1]), "--batch", str(VB_BATCH), "--workdir",
+         os.path.join(work, "video_bench")])
+    _zero_counts()
+    with _tool_quiet():
+        result, batches = video_bench.run(args)
+    counts = _counts()
+    check(counts["attention_qkv_fwd"] == 4 * batches and batches > 0,
+          f"video_bench: attention launches {counts} != 4 x {batches} "
+          "batches")
+    check(result["frames"] == VB_FRAMES and result["serial_fps"] > 0
+          and result["overlapped_fps"] > 0, f"video_bench: {result}")
+    emit({"video_bench": {**result, "frame_hw": list(VB_HW),
+                          "batches": batches, "dtype": "bfloat16"}})
+    return counts
+
+
+def attribution_phase(torch, n_bn: int) -> dict:
+    """``tools/fwd_attribution`` at B = FWD_ATTR_BATCH and
+    ``tools/bwd_attribution`` at the train step's B = BWD_ATTR_BATCH with
+    HGR_TPU_FUSED_BN off and on, ATTR_ITERS timed calls each; every
+    derived figure with the graphs it came from. Launches held to the
+    graphs' calls: 4 attention forwards a model forward, 4 backwards a
+    model backward, 2 x n_bn bn launches a backbone backward with fused
+    BN (none in eval mode or without a backbone backward)."""
+    from hgr_tpu_torch.tools import bwd_attribution, fwd_attribution
+
+    fwd_args = fwd_attribution.build_parser().parse_args(
+        ["--batch", str(FWD_ATTR_BATCH), "--iters", str(ATTR_ITERS)])
+    _zero_counts()
+    with _tool_quiet():
+        res = fwd_attribution.run(fwd_args)
+    fwd_counts = _counts()
+    calls = fwd_attribution.calls(fwd_args)
+    check(fwd_counts["attention_qkv_fwd"] == 4 * calls
+          and sum(fwd_counts.values()) == 4 * calls,
+          f"fwd_attribution launches {fwd_counts}, {calls} full forwards")
+    graphs = {k: res[k] for k in ("full", "bb", "bb_proj", "pose", "cls")}
+    check(all(np.isfinite(v) and v > 0 for v in graphs.values()),
+          f"fwd_attribution times {graphs}")
+    emit({"fwd_attribution": {
+        "batch": FWD_ATTR_BATCH, "iters": ATTR_ITERS, "graphs_ms": graphs,
+        "derived_ms": {
+            "proj": {"ms": res["derived_proj"], "from": "bb_proj - bb"},
+            "transformer": {"ms": res["derived_transformer_glue"],
+                            "from": "full - bb_proj - pose - cls"}},
+        "crops_per_s_full": res["crops_per_s_full"],
+        "launches": fwd_counts}})
+
+    total = dict(fwd_counts)
+    bwd_args = bwd_attribution.build_parser().parse_args(
+        ["--batch", str(BWD_ATTR_BATCH), "--iters", str(ATTR_ITERS)])
+    calls = bwd_attribution.calls(bwd_args)
+    for route in ("off", "on"):
+        os.environ["HGR_TPU_FUSED_BN"] = route
+        try:
+            _zero_counts()
+            with _tool_quiet():
+                res = bwd_attribution.run(bwd_args)
+            counts = _counts()
+        finally:
+            os.environ.pop("HGR_TPU_FUSED_BN")
+        bn = 2 * n_bn * calls if route == "on" else 0
+        # model forwards: fwd_loss, grad_full, grad_head, grad_evalbn;
+        # model backwards: the three grad_ graphs; backbone backwards with
+        # batch statistics: grad_full, grad_bb
+        check(counts["attention_qkv_fwd"] == 4 * 4 * calls
+              and counts["attention_qkv_bwd"] == 4 * 3 * calls
+              and counts["bn_act_reduce"] == counts["bn_act_elem"] == bn
+              and counts["warp_twopass"] == 0,
+              f"bwd_attribution (fused BN {route}) launches {counts}, "
+              f"{calls} calls a graph, {n_bn} ConvBnAct layers")
+        graphs = {k: res[k] for k in ("fwd_loss", "grad_full", "fwd_bb",
+                                      "grad_bb", "grad_head", "grad_evalbn")}
+        check(all(np.isfinite(v) and v > 0 for v in graphs.values()),
+              f"bwd_attribution times {graphs}")
+        emit({"bwd_attribution": {
+            "batch": BWD_ATTR_BATCH, "iters": ATTR_ITERS, "fused_bn": route,
+            "graphs_ms": graphs,
+            "derived_ms": {name.replace("derived: ", ""):
+                           {"ms": res[name], "from": f"{a} - {b}"}
+                           for name, a, b in bwd_attribution.DERIVED},
+            "launches": counts}})
+        for k, v in counts.items():
+            total[k] += v
+    return total
+
+
+def bn_ab_phase(torch, n_bn: int, work: str) -> dict:
+    """``tools/bn_convergence_ab`` at a tiny recipe (BN_AB_RECIPE) with
+    HGR_TPU_FUSED_BN=on inherited by both arms: each arm is the training
+    CLI in a process of its own, which writes its launch counts; the f32
+    arm takes the fused route (2 x n_bn bn launches a step), the bf16-BN
+    arm none; in both, 8 attention backwards a step, and 4 attention
+    forwards and one warp a step or evaluation batch (the loaders pad the
+    tail batch, so every batch is at the train batch, the shapes the
+    kernel phases check). Returns the two arms' counts summed."""
+    from hgr_tpu_torch.tools import bn_convergence_ab
+
+    out = os.path.join(work, "bn_ab", "out")
+    os.environ["HGR_TPU_FUSED_BN"] = "on"
+    try:
+        with _tool_quiet():
+            summary = bn_convergence_ab.main(
+                BN_AB_RECIPE + ["--workdir", os.path.join(work, "bn_ab"),
+                                "--out", out])
+    finally:
+        os.environ.pop("HGR_TPU_FUSED_BN")
+    rec = {k: int(v) for k, v in zip(BN_AB_RECIPE[::2], BN_AB_RECIPE[1::2])}
+    steps = rec["--epochs"] * -(-rec["--train_n"] // rec["--batch"])
+    # validation every epoch, then one test pass
+    evals = (rec["--epochs"] * -(-rec["--val_n"] // rec["--batch"])
+             + -(-rec["--test_n"] // rec["--batch"]))
+    total, arms = {}, {}
+    for name in ("f32", "bf16"):
+        with open(os.path.join(out, f"{name}.json")) as f:
+            arm = json.load(f)
+        counts = arm["launches"]
+        bn = 2 * n_bn * steps if name == "f32" else 0
+        check(arm["steps"] == steps and len(arm["epochs"]) ==
+              rec["--epochs"] and 0.0 <= arm["test_f1"] <= 1.0,
+              f"bn_convergence_ab {name}: {arm}")
+        check(counts["attention_qkv_bwd"] == 8 * steps
+              and counts["attention_qkv_fwd"] == 4 * (steps + evals)
+              and counts["warp_twopass"] == steps + evals
+              and counts["bn_act_reduce"] == counts["bn_act_elem"] == bn,
+              f"bn_convergence_ab {name} launches {counts} for {steps} "
+              f"steps and {evals} evaluation batches of {n_bn} ConvBnAct "
+              "layers")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        arms[name] = {"test_f1": arm["test_f1"],
+                      "final_val": arm["epochs"][-1], "launches": counts}
+    emit({"bn_convergence_ab": {"recipe": summary["recipe"],
+                                "fused_bn": "on", "steps": steps,
+                                "eval_batches": evals, "arms": arms}})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3284,14 +3502,39 @@ def main() -> int:
         check(knobbed[name] > 0,
               f"the precision knobs' steps launched {name}")
 
+    # main paths 11-14, the measurement tools: serve_bench (per-request,
+    # device pool, int8), video_bench, the forward and backward
+    # attribution (fused BN off and on), bn_convergence_ab's two arms
+    _zero_counts()
+    benched = serve_bench_phase(torch, work)
+    check(benched["attention_qkv_fwd"] > 0,
+          "serve_bench launched the attention kernel")
+    _zero_counts()
+    videoed = video_bench_phase(torch, work)
+    _zero_counts()
+    attributed = attribution_phase(torch, n_bn)
+    for name in single_path:
+        check(attributed[name] > 0 or name == "warp_twopass",
+              f"the attribution tools launched {name}")
+    _zero_counts()
+    ab = bn_ab_phase(torch, n_bn, work)
+    for name in single_path:
+        check(ab[name] > 0, f"bn_convergence_ab's arms launched {name}")
+
+    by_path = {"serve": served, "train": trained, "loop": looped,
+               "mesh": meshed, "long": longer, "detect": detected,
+               "quant": quanted, "export": exported,
+               "det_train": det_trained, "knobs": knobbed,
+               "serve_bench": benched, "video_bench": videoed,
+               "attribution": attributed, "bn_convergence_ab": ab}
+    emit({"launches_by_path": {name: {p: c[name] for p, c in by_path.items()}
+                               for name in KERNELS}})
     emit({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"hgr_tpu_torch/csrc/{source}.cu",
         "replaces": replaces,
-        "launches": served[name] + trained[name] + looped[name]
-        + meshed[name] + longer[name] + detected[name] + quanted[name]
-        + exported[name] + det_trained[name] + knobbed[name],
+        "launches": sum(c[name] for c in by_path.values()),
         "max_abs_err": rows[name]["max_abs_err"],
         "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"],

@@ -19,7 +19,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--data_config", type=str, required=True)
     parser.add_argument("--cls_weight", type=str, default="",
-                        help="classifier weights: .npz or reference .ckpt "
+                        help="classifier weights: .npz, reference .ckpt, "
+                             "the port's .pt or a JAX orbax directory "
                              "(empty: a seeded random init)")
     parser.add_argument("--det_weight", type=str, default="",
                         help="detector weights: .npz (Flax paths) or .onnx "

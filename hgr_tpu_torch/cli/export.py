@@ -17,7 +17,8 @@ holds the port's attention operator. The eval runs through the loaded
 program. ``--format onnx``: the reference's 2-output .onnx
 (``infer/onnx_export.py``); the eval runs through the module the
 exporter traced (no onnxruntime). ``--weight_path`` takes a .npz, a
-reference .ckpt or a training checkpoint .pt of the port; ``--device
+reference .ckpt, a training checkpoint .pt of the port or an orbax
+directory of the JAX package; ``--device
 cpu`` takes the place of the JAX CLI's ``--host_device_count``.
 """
 
@@ -34,8 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="crop geometry; default: the checkpoint's recorded "
                          "run_meta.json, else 192 192")
     ap.add_argument("--weight_path", type=str, required=True,
-                    help=".npz, reference .ckpt, or the port's training "
-                         "checkpoint .pt")
+                    help=".npz, reference .ckpt, the port's training "
+                         "checkpoint .pt, or a JAX orbax directory")
     ap.add_argument("--out", type=str, default="",
                     help="output artifact path (default: <weight_path>.pt2 "
                          "or .onnx)")

@@ -27,11 +27,13 @@ Usage:
       [--port 8000] [--max_batch 64] [--max_wait_ms 5]
 
 ``--weights`` takes a .npz written by the JAX package (save_weights_npz,
-cli/convert.py), a reference .ckpt or a training checkpoint .pt of the
-port; an empty value serves a seeded random init. ``--quantize`` takes a
-.npy/.npz of calibration crops (N, H, W, 3) uint8 BGR (an .npz's first
-array): the GELAN backbone is quantized to int8 (infer/quant.py) from
-them, and /classify and /detect both serve the int8 backbone.
+cli/convert.py), a reference .ckpt, a training checkpoint .pt of the
+port or an orbax directory of the JAX package (read with tensorstore,
+``infer/weights.py``); an empty value serves a seeded random init.
+``--quantize`` takes a .npy/.npz of calibration crops (N, H, W, 3) uint8
+BGR (an .npz's first array): the GELAN backbone is quantized to int8
+(infer/quant.py) from them, and /classify and /detect both serve the
+int8 backbone.
 ``--det_weight`` takes a .npz of Flax-path arrays or a yolov7-tiny .onnx;
 an empty value serves a seeded random detector.
 """
@@ -269,8 +271,9 @@ def serve_forever(service, host: str, port: int, detector=None):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--weights", default="",
-                    help=".npz written by the JAX package or a reference "
-                         ".ckpt; empty = random init from seed 0")
+                    help=".npz written by the JAX package, a reference "
+                         ".ckpt, the port's .pt or a JAX orbax directory; "
+                         "empty = random init from seed 0")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; without a card, cuda "
                          "raises instead of running on the CPU")

@@ -26,7 +26,8 @@ is a process:
   NPROC, one per host; pure data parallelism, as in JAX.
 
 Each rank writes its kernel launch counts to
-``<save_dir>/<run>/ranks/rank<r>.json``.
+``<save_dir>/<run>/ranks/rank<r>.json`` (a run without a mesh is rank 0),
+so a parent process can read what a run launched.
 """
 
 from __future__ import annotations
@@ -380,11 +381,11 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
                 log_dir=train_cfg.log_dir, run_name=model_name,
                 mesh=mesh, tensor_parallel=tensor_parallel,
                 lr_fn=state.schedule, profile_steps=args.profile)
-    if mesh is not None:
-        launches.write(os.path.join(
-            save_path, "ranks", f"rank{distributed.process_index()}.json"),
-            step=state.step, mesh=mesh_shape, rank=mesh.rank,
-            device=str(device), backend=distributed.backend())
+    launches.write(os.path.join(
+        save_path, "ranks", f"rank{distributed.process_index()}.json"),
+        step=state.step, mesh=mesh_shape or None,
+        rank=mesh.rank if mesh is not None else None, device=str(device),
+        backend=distributed.backend())
     return state, save_path
 
 

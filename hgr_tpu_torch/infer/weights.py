@@ -4,10 +4,15 @@ Classifier: a ``.npz`` written by the JAX package (``save_weights_npz``,
 cli/convert.py) loads through the weight bridge, a reference Lightning
 ``.ckpt`` through ``utils/torch_port.py``, a ``.pt`` checkpoint of the
 port's own training loop (``train/checkpoint.py``) as it is; an empty
-path gives a seeded random init. Orbax directories are not ported yet
-(ROADMAP A7). A state dict with int8 entries (``<module>.quant.*``, from
-an .npz with a 'quant' collection or a quantized model's ``state_dict``)
-builds an int8 model in ``build_classifier``.
+path gives a seeded random init. An orbax directory that the JAX package
+wrote (bare variables, or a training checkpoint's {step, params,
+batch_stats, opt_state}) is read without JAX through
+``utils/orbax_read.py``, which needs ``tensorstore``: where it is
+missing (the card's machine), convert the run with
+``cli/convert_orbax.py`` and load its ``.pt``. A state dict with int8
+entries (``<module>.quant.*``, from an .npz with a 'quant' collection or
+a quantized model's ``state_dict``) builds an int8 model in
+``build_classifier``.
 
 Detector: a ``.npz`` of Flax-path arrays, or a yolov7-tiny ``.onnx``
 through the port's own reader and porter; an empty path gives a seeded
@@ -78,9 +83,10 @@ def load_classifier_weights(path: str,
                             image_size: Tuple[int, int] = (192, 192),
                             backbone: str = "auto",
                             seed: int = 0) -> Dict[str, torch.Tensor]:
-    """Classifier state_dict (CPU) from a .npz, a reference .ckpt or a
-    training checkpoint .pt of the port, or a seeded random init for an
-    empty path ('auto' then means 'small')."""
+    """Classifier state_dict (CPU) from a .npz, a reference .ckpt, a
+    training checkpoint .pt of the port or an orbax directory of the JAX
+    package, or a seeded random init for an empty path ('auto' then means
+    'small')."""
     if not path:
         from hgr_tpu_torch.models.multitasknet import MultiTaskNet
 
@@ -99,10 +105,7 @@ def load_classifier_weights(path: str,
         loaded = torch.load(path, map_location="cpu",
                             weights_only=True)["model"]
     else:
-        raise NotImplementedError(
-            f"{path}: orbax checkpoint directories are not ported yet "
-            "(ROADMAP A7); export the weights to .npz with the JAX "
-            "package's save_weights_npz")
+        loaded = from_flax(orbax_variables(path))
     if backbone != "auto":
         found = infer_backbone_variant(loaded)
         if found != backbone:
@@ -111,6 +114,20 @@ def load_classifier_weights(path: str,
                 f"{found!r} checkpoint (distinguished by the cspelan1/cv2_1 "
                 "block)")
     return loaded
+
+
+def orbax_variables(path: str) -> Dict[str, Any]:
+    """``{"params", "batch_stats"}`` of the orbax checkpoint at ``path``:
+    bare variables, or the train-state payload of
+    hgr_tpu/train/checkpoint.py:_save, whose step and optimizer state
+    are dropped (hgr_tpu/infer/weights.py:_restore_orbax reads both)."""
+    from hgr_tpu_torch.utils.orbax_read import read_orbax
+
+    tree = read_orbax(path)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: an orbax checkpoint without 'params'")
+    return {"params": tree["params"],
+            "batch_stats": tree.get("batch_stats") or {}}
 
 
 def build_classifier(state_dict: Dict[str, torch.Tensor],

@@ -482,12 +482,18 @@ class ClassifierService:
 
     def _dispatch(self, stacked: np.ndarray):
         """Stage the uint8 batch and enqueue the forward; runs on the
-        dispatcher thread, where inference mode must be entered (it is
-        thread-local)."""
+        dispatcher thread."""
+        x = torch.from_numpy(stacked)
+        if self.device.type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        return self.forward_u8(x)
+
+    def forward_u8(self, x: torch.Tensor):
+        """Enqueue the forward of a (B, H, W, 3) uint8 batch on the
+        service's device; returns the (probs, landmarks) handle that
+        ``_materialize`` reads. Inference mode is entered here: it is
+        thread-local and this runs on the dispatcher thread."""
         with torch.inference_mode():
-            x = torch.from_numpy(stacked)
-            if self.device.type == "cuda":
-                x = x.pin_memory().to(self.device, non_blocking=True)
             x = x.float() / 255.0
             x = (x - self._mean) / self._std
             logits, hmap, _ = self.model(x, need_attnmap=False)

@@ -8,8 +8,10 @@ BatchNorm statistics) and the AdamW state, so a run resumes exactly.
 Saves copy every tensor to the host on the calling thread (the train
 step updates the model and the optimizer state in place, so the copy
 must be taken before the next step), then write on a background thread
-to a temporary file renamed into place. Reading the JAX package's orbax
-checkpoints is not ported (ROADMAP A7).
+to a temporary file renamed into place. A checkpoint of the JAX package
+(orbax, read without JAX by ``utils/orbax_read.py``) becomes this
+payload through ``payload_from_jax``; ``cli/convert_orbax.py``
+converts a JAX run directory so that ``--resume`` continues it.
 
 One file format for every mesh. With a ``mesh``, a save first gathers the
 full state (``parallel/tp.py:gather_state``, a collective over the model
@@ -32,6 +34,7 @@ import torch
 from hgr_tpu_torch.parallel import distributed
 from hgr_tpu_torch.parallel.tp import gather_state, shard_state
 from hgr_tpu_torch.train.state import TrainState
+from hgr_tpu_torch.utils.convert import from_flax
 
 
 def _to_host(obj: Any) -> Any:
@@ -58,6 +61,53 @@ def load_payload(state: TrainState, payload: dict) -> TrainState:
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state
+
+
+def _adam_state(opt_state: Any) -> dict:
+    """optax.adamw's ``ScaleByAdamState`` (count, mu, nu) in the restored
+    ``opt_state`` chain (hgr_tpu/train/state.py:67-68: scale_by_adam,
+    add_decayed_weights, scale_by_learning_rate)."""
+    for part in opt_state if isinstance(opt_state, list) else [opt_state]:
+        if isinstance(part, dict) and {"count", "mu", "nu"} <= part.keys():
+            return part
+    raise ValueError("the JAX optimizer state holds no Adam moments "
+                     "(count, mu, nu)")
+
+
+def payload_from_jax(tree: dict, state: TrainState) -> dict:
+    """The JAX package's train-state checkpoint ``tree`` ({step, params,
+    batch_stats, opt_state}, hgr_tpu/train/checkpoint.py:_save, as
+    ``read_orbax`` returns it) as this module's payload for ``state``
+    (whose model fixes the parameters' order in the optimizer state, and
+    whose optimizer gives the hyperparameters).
+
+    Adam's ``mu`` and ``nu`` become each parameter's ``exp_avg`` and
+    ``exp_avg_sq`` through ``from_flax``, with their parameter's renaming
+    and transposes; its ``count`` becomes each parameter's ``step``. The
+    group's lr is left as ``state`` has it: ``TrainState.apply_gradients``
+    sets it from the resuming run's schedule at the step before every
+    update."""
+    model = state.model
+    step = int(tree["step"])
+    model_sd = from_flax({"params": tree["params"],
+                          "batch_stats": tree.get("batch_stats") or {}})
+    want = model.state_dict()
+    if want.keys() != model_sd.keys() or any(
+            want[k].shape != model_sd[k].shape for k in want):
+        diff = sorted(set(want) ^ set(model_sd)) or sorted(
+            k for k in want if want[k].shape != model_sd[k].shape)
+        raise ValueError(f"the JAX checkpoint does not fit the model: "
+                         f"{diff[:5]}")
+    adam = _adam_state(tree["opt_state"])
+    mu = from_flax({"params": adam["mu"]})
+    nu = from_flax({"params": adam["nu"]})
+    count = torch.tensor(float(adam["count"]), dtype=torch.float32)
+    names = [n for n, _ in model.named_parameters()]
+    optimizer = state.optimizer.state_dict()
+    optimizer["state"] = {
+        i: {"step": count.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+        for i, n in enumerate(names)}
+    return {"step": step, "model": model_sd, "optimizer": optimizer}
 
 
 def best_or_last(save_path: str) -> str:
@@ -151,9 +201,14 @@ class CheckpointManager:
             monitored = distributed.coordinator_value(monitored)
         if not better:
             return False
-        self._best_metric = float(monitored)
-        self._save("best", state, metric=self._best_metric)
+        self.save_best(state, monitored)
         return True
+
+    def save_best(self, state: TrainState, metric: Optional[float]) -> None:
+        """Save ``state`` as best with ``metric`` recorded beside it (none
+        where ``metric`` is None), whatever the recorded best."""
+        self._best_metric = None if metric is None else float(metric)
+        self._save("best", state, metric=self._best_metric)
 
     def restore(self, state: TrainState, name: str = "last") -> TrainState:
         """Load checkpoint ``name`` into ``state`` (model, optimizer, update

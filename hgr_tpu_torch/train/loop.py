@@ -37,6 +37,7 @@ from hgr_tpu_torch.train.steps import (
     make_train_step,
     resolve_grad_demix,
 )
+from hgr_tpu_torch.utils import profiling
 
 
 class EpochMetrics:
@@ -104,42 +105,6 @@ def to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _profile_summary(prof, top: int = 15) -> Dict[str, Any]:
-    """Device time by kernel name and the device's idle share over a
-    profiled window, from the trace's device events (kernels, copies and
-    sets; not the ranges that ``record_function`` annotations draw on the
-    device timeline): busy = the union of their intervals, window = first
-    to last event of the trace (host and device events share one clock)."""
-    cuda = torch.autograd.DeviceType.CUDA
-    by_name: Dict[str, list] = {}
-    spans, first, last = [], None, None
-    for ev in prof.events():
-        s, t = ev.time_range.start, ev.time_range.end
-        first = s if first is None else min(first, s)
-        last = t if last is None else max(last, t)
-        if ev.device_type == cuda and not getattr(ev, "is_user_annotation",
-                                                   False):
-            spans.append((s, t))
-            row = by_name.setdefault(ev.name[:160], [0.0, 0])
-            row[0] += (t - s) / 1e3
-            row[1] += 1
-    busy, end = 0.0, None
-    for s, t in sorted(spans):
-        if end is None or s > end:
-            busy += t - s
-            end = t
-        elif t > end:
-            busy += t - end
-            end = t
-    window = (last - first) if first is not None else 0.0
-    rows = sorted(({"name": k, "device_ms": v[0], "count": v[1]}
-                   for k, v in by_name.items()), key=lambda r: -r["device_ms"])
-    return {"window_ms": window / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": (1.0 - busy / window) if spans and window
-            else None,
-            "device_events": len(spans), "top_device_ops": rows[:top]}
-
-
 def train_epoch(
     state: TrainState,
     step_fn: Callable,
@@ -172,14 +137,10 @@ def train_epoch(
         if batch is None:
             break
         if profile_steps and i == 0:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if state.device.type == "cuda":
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
-            prof.__enter__()
+            prof = profiling.start(state.device)
         state, m = step_fn(state, to_device(batch, state.device), generator)
         if prof is not None and i + 1 >= profile_steps:
-            _stop_profile(prof, state, profile_dir)
+            profiling.stop(prof, state.device, profile_dir)
             prof = None
         if i % nan_guard_every == 0:
             loss = float(m["total_loss"])
@@ -196,18 +157,8 @@ def train_epoch(
             logger.log(state.step, line)
         i += 1
     if prof is not None:  # epoch shorter than profile_steps
-        _stop_profile(prof, state, profile_dir)
+        profiling.stop(prof, state.device, profile_dir)
     return state
-
-
-def _stop_profile(prof, state: TrainState, profile_dir: str) -> None:
-    if state.device.type == "cuda":
-        torch.cuda.synchronize(state.device)
-    prof.__exit__(None, None, None)
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-    with open(os.path.join(profile_dir, "profile_summary.json"), "w") as f:
-        json.dump(_profile_summary(prof), f, indent=2)
 
 
 def eval_epoch(state: TrainState, eval_fn: Callable, loader,

@@ -49,7 +49,8 @@ def _qkv(b, n, seed, dtype):
                                        (1024, 145, "bfloat16"),
                                        (1, 145, "bfloat16"),
                                        (1, 145, "float32"),
-                                       (16, 145, "float32")])
+                                       (16, 145, "float32"),
+                                       (128, 145, "bfloat16")])
 def test_kernel_matches_plain_version(b, n, dtype):
     _cuda_or_skip()
     x = _qkv(b, n, 11, dtype)

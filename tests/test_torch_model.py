@@ -195,12 +195,13 @@ def test_npz_from_jax_package_loads_without_jax(jax_model, tmp_path,
 
 
 def test_unported_checkpoint_formats_raise(tmp_path):
-    """Orbax directories are not ported (ROADMAP A7). Reference .ckpt
-    files load (tests/test_torch_yolo.py), so a missing one is a missing
-    file, not an unported format."""
+    """Every format the JAX loader reads is ported: reference .ckpt files
+    load (tests/test_torch_yolo.py) and orbax directories too
+    (tests/test_torch_orbax.py), so a missing .ckpt is a missing file, and
+    a directory without orbax's _METADATA is no checkpoint."""
     with pytest.raises(FileNotFoundError):
         load_classifier_weights(str(tmp_path / "ref.ckpt"))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
         load_classifier_weights(str(tmp_path))
 
 

@@ -194,6 +194,7 @@ def test_bf16_bn_changes_only_the_chain_rounding(variables, bf16_bn):
     x = torch.from_numpy(_images(seed=5))
     for dtype in (torch.bfloat16, torch.float32):
         m = layers.ConvBnAct(3, 8, 3, 2, dtype=dtype).eval()
+        layers.torch_init_(m, torch.Generator().manual_seed(5))
         with torch.no_grad():
             m.bn.mean.uniform_(-0.2, 0.2)
             got = m(x)

@@ -174,9 +174,10 @@ def test_quantized_convbnact_matches_jax(k, stride, cin):
 
 
 def test_train_mode_takes_the_float_route():
+    gen = torch.Generator().manual_seed(0)
     mod = ConvBnAct(8, 16, 3, 1)
-    torch.nn.init.normal_(mod.conv.weight)
-    x = torch.randn(1, 6, 6, 8)
+    torch.nn.init.normal_(mod.conv.weight, generator=gen)
+    x = torch.randn(1, 6, 6, 8, generator=gen)
     Q.quantize_model(mod, [x])
     mod.train()
     ref = ConvBnAct(8, 16, 3, 1)
