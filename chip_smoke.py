@@ -69,7 +69,17 @@ random weights:
   ``tools/bwd_attribution`` at B = 256 with fused BN off and on, and
   ``tools/bn_convergence_ab`` at a tiny recipe (its two arms are runs of
   the training CLI in processes of their own, which write their launch
-  counts).
+  counts);
+- the batched de-mixed step (``grad_demix='batched'``: both pullbacks as
+  one ``torch.autograd.grad(..., is_grads_batched=True)``) at the CLI
+  defaults, fused BN off and on, in turns with the two-pullback step:
+  step times, peak memory, the operators torch's legacy vmap loops over,
+  the gradients against two pullbacks in bf16 and f32 and against the
+  CPU; the 2x2 mesh checks run it too, and the 2x2 eval step's attention
+  map against one rank's;
+- ``--debug_images`` through the training CLI (the JAX loop's dump files
+  and cadence), and ``tools/display_data`` on the card (32 sheets from
+  one augmented batch).
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -174,6 +184,10 @@ LOOP_SPLITS = (("train", 2048), ("val", 512), ("test", 512))
 # the multi-rank phase: the global batch, and the f32 parity step's
 MESH_BATCH, PARITY_BATCH = 128, 8
 TP_MESH, DP_MESH = {"data": 2, "model": 2}, {"data": 2}
+# the 2x2 eval step's attention map (f32, TF32 off) vs one rank's: softmax
+# probabilities of logits whose f32 sums differ in order (the row-parallel
+# reduces upstream)
+TP_MAP_TOL = 1e-5
 # the detect path: the detector's weights in the repository, the served
 # frame geometry and batch, the HTTP run's frames and clients, the video's
 # frames
@@ -233,7 +247,17 @@ VB_FRAMES, VB_HW, VB_BATCH = 128, (480, 640), 16
 FWD_ATTR_BATCH, BWD_ATTR_BATCH, ATTR_ITERS = 1024, 256, 5
 BN_AB_RECIPE = ["--train_n", "512", "--val_n", "256", "--test_n", "256",
                 "--epochs", "2", "--batch", str(TRAIN_BATCH)]
-
+# the batched de-mixed path: its A/B turns (batched, two pullbacks), the
+# f32 gradient check's batch (train_vs_cpu_phase's, so that its f32
+# attention and bn kernels run at shapes held against the CPU), and the
+# JAX package's tolerances of batched against two pullbacks
+# (tests/test_grad_demix.py:125-135): each gradient's difference within
+# this share of its norm
+BATCHED_TURNS = ("batched", "pullbacks", "pullbacks", "batched")
+DEMIX_F32_B = 8
+DEMIX_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# tools/display_data's default batch, which path 17 warps
+DISPLAY_BATCH = 32
 
 
 def emit(obj) -> None:
@@ -1035,10 +1059,10 @@ def warp_kernel_phase(torch):
     with jitter at 0° and 90° (the transpose route), f32 and bf16
     canvases, a shrinking affine (scale 0.25: smaller sub-tiles), and the
     train steps' own inputs (a staged batch and an augment draw) at every
-    canvas a path of this script warps: 256 -> 192 (B=256), 512 -> 448
-    (B=64) and 384 -> 320 (B=16). Per case ``same_bits`` against the plain
-    version on the card and ``same_bits_cpu`` against the plain version
-    on the CPU (which equals the JAX package's crop bit for bit,
+    canvas a path of this script warps: 256 -> 192 (B=256, and B=32 for
+    display_data), 512 -> 448 (B=64) and 384 -> 320 (B=16). Per case
+    ``same_bits`` against the plain version on the card and
+    ``same_bits_cpu`` against the plain version on the CPU (which equals the JAX package's crop bit for bit,
     tests/test_torch_augment.py); wrapper and plain times with the spread
     of their turns; the bound from the footprint the affines give (the
     canvas pixels the taps reach, each read once) and the output in its
@@ -1062,11 +1086,12 @@ def warp_kernel_phase(torch):
     cases.append(({"rot": "shrink", "scale": WARP_SHRINK}, canvas,
                   _shrinking_affines(torch, TRAIN_BATCH), gains, do_j, IMAGE))
     inverses = {}
-    for px, b in ((IMAGE, TRAIN_BATCH), (LONG_BF16, LONG_BF16_BATCH),
-                  (LONG_F32, LONG_F32_BATCH)):
+    for px, b in ((IMAGE, TRAIN_BATCH), (IMAGE, DISPLAY_BATCH),
+                  (LONG_BF16, LONG_BF16_BATCH), (LONG_F32, LONG_F32_BATCH)):
         canvas, m, gains, do_j, o2c = _step_warp_inputs(torch, b, px, seed=7)
         cases.append(({"rot": "step draw"}, canvas, m, gains, do_j, px))
-        inverses[f"step_{px}_orig_to_canvas"] = _inverse_reading(torch, o2c)
+        inverses[f"step_{px}_b{b}_orig_to_canvas"] = _inverse_reading(
+            torch, o2c)
     batch, params = _grid_third_case(torch, 8)
     _, m = crop_affines(
         torch.from_numpy(batch["orig_to_canvas"]).cuda(),
@@ -1522,10 +1547,13 @@ def _grid_third_case(torch, b: int):
     return batch, params
 
 
-def train_vs_cpu_phase(torch, fused: bool, n_bn: int):
+def train_vs_cpu_phase(torch, fused: bool, n_bn: int, demix=True,
+                       line: str = "train_f32_b8_vs_cpu"):
     """One f32 de-mixed step at B=8 on the card (the kernels) against the
     same step on the CPU (warp_method 'kernel' runs the kernel's plain
-    version there), with the fused BN route off or on; TF32 is off."""
+    version there), with the fused BN route off or on; TF32 is off.
+    ``demix='batched'`` takes both steps' pullbacks as one batched
+    backward (and the card's step must have taken it)."""
     from hgr_tpu_torch.config import AugmentConfig
     from hgr_tpu_torch.data.pipeline import AugmentParams, apply_augment_batch
     from hgr_tpu_torch.models import MultiTaskNet, layers
@@ -1554,7 +1582,7 @@ def train_vs_cpu_phase(torch, fused: bool, n_bn: int):
                 state = create_train_state(model, device=dev)
                 step = make_train_step(
                     AugmentConfig(), image_size=(IMAGE, IMAGE),
-                    heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=True,
+                    heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=demix,
                     debug_return_grads=True, warp_method="kernel")
                 c0 = _counts()
                 _, out[dev] = step(state, batch, torch.Generator(device=dev))
@@ -1563,16 +1591,19 @@ def train_vs_cpu_phase(torch, fused: bool, n_bn: int):
     finally:
         layers._FUSED_BN = None
     bn = 2 * n_bn if fused else 0
-    check(launches["bn_act_reduce"] == bn and launches["bn_act_elem"] == bn,
-          f"card step with fused BN {fused}: bn launches {launches}")
+    check(launches["bn_act_reduce"] == bn and launches["bn_act_elem"] == bn
+          and launches["attention_qkv_bwd"] == 8,
+          f"card step with fused BN {fused}: launches {launches}")
+    check(step.batched_backwards == (demix == "batched"),
+          f"card step {demix}: {step.batched_backwards} batched backwards")
     g_card, g_cpu = out["cuda"]["_grads"], out["cpu"]["_grads"]
     errs = {k: float((g_card[k].cpu() - w).norm()
                      / w.norm().clamp_min(1e-12)) for k, w in g_cpu.items()}
     worst = max(errs, key=errs.get)
     loss_err = abs(float(out["cuda"]["total_loss"])
                    - float(out["cpu"]["total_loss"]))
-    emit({"train_f32_b8_vs_cpu": {
-        "fused_bn": fused, "card_launches": launches,
+    emit({line: {
+        "fused_bn": fused, "grad_demix": demix, "card_launches": launches,
         "image_max_abs_err": image_err,
         "max_rel_grad_err": errs[worst], "worst_tensor": worst,
         "median_rel_grad_err": float(np.median(list(errs.values()))),
@@ -1816,8 +1847,11 @@ def mesh_phase(torch, n_bn: int, work: str, cfg):
 def _mesh_rank(rank: int, world: int, port: int, in_path: str,
                out_dir: str) -> None:
     """One rank of the 2x2 card checks: the f32 parity step on its rows
-    (its share of the fixed augment draw), then the TP run's best
-    checkpoint restored into its shard and an eval forward of its rows."""
+    (its share of the fixed augment draw), with two pullbacks and with the
+    batched backward, then the TP run's best checkpoint restored into its
+    shard, an eval forward of its rows and the eval step's attention map
+    of its rows of the parity batch (every head: the model group's head
+    groups gathered)."""
     import torch
 
     from hgr_tpu_torch.config import AugmentConfig
@@ -1826,6 +1860,7 @@ def _mesh_rank(rank: int, world: int, port: int, in_path: str,
     from hgr_tpu_torch.parallel import distributed
     from hgr_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from hgr_tpu_torch.parallel.steps import (
+        make_parallel_eval_step,
         make_parallel_train_step,
         shard_state,
     )
@@ -1845,19 +1880,28 @@ def _mesh_rank(rank: int, world: int, port: int, in_path: str,
         steps.draw_augment_params = lambda gen, b, sizes, cfg: \
             pipeline.AugmentParams(**{k: torch.from_numpy(v[:b]).cuda()
                                       for k, v in params.items()})
-        model = MultiTaskNet(image_size=(IMAGE, IMAGE),
-                             fused_attention="split",
-                             generator=torch.Generator().manual_seed(1))
-        state = shard_state(create_train_state(model, device="cuda"), mesh,
-                            tensor_parallel=True)
-        step = make_parallel_train_step(
-            mesh, AugmentConfig(), image_size=(IMAGE, IMAGE),
-            heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=True,
-            debug_return_grads=True, warp_method="kernel")
-        _, m = step(state, shard_batch(inp["batch"], mesh),
-                    torch.Generator(device="cuda"))
-        grads = gather_state({"step": 0, "model": m.pop("_grads")},
-                             mesh)["model"]
+        full = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                            generator=torch.Generator().manual_seed(1)
+                            ).state_dict()
+        parity = {}
+        for demix in (True, "batched"):
+            model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                                 fused_attention="split")
+            model.load_state_dict(full)
+            state = shard_state(create_train_state(model, device="cuda"),
+                                mesh, tensor_parallel=True)
+            step = make_parallel_train_step(
+                mesh, AugmentConfig(), image_size=(IMAGE, IMAGE),
+                heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=demix,
+                debug_return_grads=True, warp_method="kernel")
+            _, m = step(state, shard_batch(inp["batch"], mesh),
+                        torch.Generator(device="cuda"))
+            parity[str(demix)] = {
+                "grads": {k: v.cpu() for k, v in gather_state(
+                    {"step": 0, "model": m.pop("_grads")},
+                    mesh)["model"].items()},
+                "loss": float(m["total_loss"]),
+                "batched_backwards": step.batched_backwards}
         # the TP run's best checkpoint, cut to this rank's shard (f32)
         best = MultiTaskNet(image_size=(IMAGE, IMAGE),
                             fused_attention="split")
@@ -1869,14 +1913,18 @@ def _mesh_rank(rank: int, world: int, port: int, in_path: str,
         rows = shard_batch({"x": x}, mesh)["x"]
         with torch.no_grad():
             logits, hmap, _ = best.model.eval()(rows, need_attnmap=False)
+        _, outputs = make_parallel_eval_step(
+            mesh, image_size=(IMAGE, IMAGE),
+            heatmap_size=(IMAGE // 4, IMAGE // 4), return_outputs=True,
+            with_attnmap=True, warp_method="kernel")(
+                best, shard_batch(inp["batch"], mesh))
         if rank == 0:
-            torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
-                        "loss": float(m["total_loss"]),
-                        "best_step": best.step}, os.path.join(
-                            out_dir, "parity.pt"))
+            torch.save({"parity": parity, "best_step": best.step},
+                       os.path.join(out_dir, "parity.pt"))
         if mesh.model_index == 0:
             torch.save({"logits": logits.float().cpu(),
-                        "hmap": hmap.float().cpu()},
+                        "hmap": hmap.float().cpu(),
+                        "attnmap": outputs["attnmap"].cpu()},
                        os.path.join(out_dir, f"eval{mesh.data_index}.pt"))
     finally:
         distributed.shutdown()
@@ -1884,12 +1932,17 @@ def _mesh_rank(rank: int, world: int, port: int, in_path: str,
 
 def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
     """On the 2x2 mesh (four ranks on the card, gloo), f32 with TF32 off:
-    one de-mixed step at global B=PARITY_BATCH against the single-process
-    step on the card (per-tensor relative gradient error STEP_GRAD_TOL,
-    the loss to 1e-5 relative); and the TP run's best checkpoint, restored
-    on one rank, against the four ranks' f32 eval forward (each its rows,
-    from the same file cut to its shard), within MODEL_TOL of the largest
-    output (f32 sums in another order: the row-parallel reduce)."""
+    one de-mixed step at global B=PARITY_BATCH, with two pullbacks and
+    with the batched backward (the split backward kernel and the
+    all-reduces through their operators, once per cotangent row), each
+    against the single-process two-pullback step on the card (per-tensor
+    relative gradient error STEP_GRAD_TOL, the loss to 1e-5 relative); the
+    TP run's best checkpoint, restored on one rank, against the four
+    ranks' f32 eval forward (each its rows, from the same file cut to its
+    shard), within MODEL_TOL of the largest output (f32 sums in another
+    order: the row-parallel reduce); and the ranks' eval-step attention
+    map (B, heads, N, N) of the parity batch against the one rank's,
+    within TP_MAP_TOL."""
     import torch.multiprocessing as mp
 
     from hgr_tpu_torch.config import AugmentConfig
@@ -1897,7 +1950,7 @@ def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
     from hgr_tpu_torch.parallel.distributed import free_port
     from hgr_tpu_torch.train.checkpoint import CheckpointManager
     from hgr_tpu_torch.train.state import create_train_state
-    from hgr_tpu_torch.train.steps import make_train_step
+    from hgr_tpu_torch.train.steps import make_eval_step, make_train_step
 
     batch, params = _grid_third_case(torch, PARITY_BATCH)
     out_dir = os.path.join(work, "mesh_checks")
@@ -1923,12 +1976,19 @@ def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
             debug_return_grads=True, warp_method="kernel")
         _, single = step(state, batch, torch.Generator(device="cuda"))
     g_one = single["_grads"]
-    errs = {k: float((ranks["grads"][k] - w.cpu()).norm()
-                     / w.cpu().norm().clamp_min(1e-12))
-            for k, w in g_one.items()}
-    worst = max(errs, key=errs.get)
     loss = float(single["total_loss"])
-    loss_err = abs(ranks["loss"] - loss)
+    steps_rows = {}
+    for demix, got in ranks["parity"].items():
+        errs = {k: float((got["grads"][k] - w.cpu()).norm()
+                         / w.cpu().norm().clamp_min(1e-12))
+                for k, w in g_one.items()}
+        worst = max(errs, key=errs.get)
+        steps_rows[demix] = {
+            "max_rel_grad_err": errs[worst], "worst_tensor": worst,
+            "median_rel_grad_err": float(np.median(list(errs.values()))),
+            "tol": STEP_GRAD_TOL, "loss": loss,
+            "loss_abs_err": abs(got["loss"] - loss),
+            "batched_backwards": got["batched_backwards"]}
     # the TP run's best checkpoint on one rank
     one = MultiTaskNet(image_size=(IMAGE, IMAGE))
     one = CheckpointManager(os.path.join(tp_save, "weight")).restore(
@@ -1936,8 +1996,14 @@ def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
     with torch.no_grad():
         lo, hm, _ = one.model.eval()(torch.from_numpy(images).cuda(),
                                      need_attnmap=False)
+    _, one_out = make_eval_step(
+        image_size=(IMAGE, IMAGE), heatmap_size=(IMAGE // 4, IMAGE // 4),
+        return_outputs=True, with_attnmap=True, warp_method="kernel")(
+            one, batch)
     parts = [torch.load(os.path.join(out_dir, f"eval{d}.pt"),
                         weights_only=False) for d in range(2)]
+    tp_map = torch.cat([p["attnmap"] for p in parts])
+    map_err = float((tp_map - one_out["attnmap"].cpu()).abs().max())
     eval_err = max(
         (torch.cat([p["logits"] for p in parts]) - lo.float().cpu()).abs()
         .max().item(),
@@ -1946,22 +2012,27 @@ def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
                              hm.float().abs().max().item(), 1.0)
     emit({"mesh_checks": {
         "mesh": TP_MESH, "ranks": 4, "seconds": seconds,
-        "f32_step_b8": {"max_rel_grad_err": errs[worst],
-                        "worst_tensor": worst,
-                        "median_rel_grad_err": float(np.median(
-                            list(errs.values()))),
-                        "tol": STEP_GRAD_TOL, "loss": loss,
-                        "loss_abs_err": loss_err},
+        "f32_step_b8": steps_rows["True"],
+        "f32_batched_step_b8": steps_rows["batched"],
         "best_checkpoint_step": ranks["best_step"],
         "one_rank_vs_ranks_eval_err_of_max_abs": eval_err,
-        "eval_tol_of_max_abs": MODEL_TOL}})
-    check(errs[worst] <= STEP_GRAD_TOL,
-          f"2x2 mesh vs single-process f32 step grads: {worst} "
-          f"{errs[worst]}")
-    check(loss_err <= 1e-5 * abs(loss), f"2x2 mesh step loss: {loss_err}")
+        "eval_tol_of_max_abs": MODEL_TOL,
+        "attnmap_shape": list(tp_map.shape),
+        "attnmap_max_abs_err": map_err, "attnmap_tol": TP_MAP_TOL}})
+    for demix, row in steps_rows.items():
+        check(row["max_rel_grad_err"] <= STEP_GRAD_TOL,
+              f"2x2 mesh ({demix}) vs single-process f32 step grads: {row}")
+        check(row["loss_abs_err"] <= 1e-5 * abs(loss),
+              f"2x2 mesh ({demix}) step loss: {row}")
+        check(row["batched_backwards"] == (demix == "batched"),
+              f"2x2 mesh ({demix}) batched backwards: {row}")
     check(ranks["best_step"] == one.step, "best checkpoint step")
     check(eval_err <= MODEL_TOL,
           f"best checkpoint on one rank vs the ranks' eval: {eval_err}")
+    n = (IMAGE // 16) ** 2 + 1
+    check(tuple(tp_map.shape) == (PARITY_BATCH, HEADS, n, n)
+          and map_err <= TP_MAP_TOL,
+          f"2x2 attention map {tuple(tp_map.shape)} vs one rank: {map_err}")
 
 
 def model_phase(torch, state):
@@ -3364,7 +3435,290 @@ def bn_ab_phase(torch, n_bn: int, work: str) -> dict:
     return total
 
 
+def _fallback_ops(torch, fn) -> list:
+    """The operators the legacy vmap runs as a loop over the rows while
+    ``fn`` runs (torch's fallback warnings, switched on around it)."""
+    import warnings
+
+    torch._C._debug_only_display_vmap_fallback_warnings(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch._C._debug_only_display_vmap_fallback_warnings(False)
+    found = (re.search(r"batching rule for ([\w:.]+)", str(w.message))
+             for w in caught)
+    return sorted({m.group(1).rstrip(".") for m in found if m})
+
+
+def _demix_grads(torch, dtype: str, demix, fused: bool, b: int):
+    """The pre-update gradients and loss of one step of a seeded model on
+    the card (B = ``b`` of the train phase's batch, one seeded draw)."""
+    from hgr_tpu_torch.config import AugmentConfig
+    from hgr_tpu_torch.models import MultiTaskNet, layers
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_train_step
+
+    layers._FUSED_BN = fused
+    try:
+        model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                             dtype=getattr(torch, dtype),
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, device="cuda")
+        step = make_train_step(AugmentConfig(), image_size=(IMAGE, IMAGE),
+                               heatmap_size=(IMAGE // 4, IMAGE // 4),
+                               grad_demix=demix, debug_return_grads=True)
+        batch = {k: torch.from_numpy(v[:b]).cuda()
+                 for k, v in _staged_batch(TRAIN_BATCH, seed=2).items()}
+        _, m = step(state, batch, torch.Generator(device="cuda")
+                    .manual_seed(0))
+        torch.cuda.synchronize()
+    finally:
+        layers._FUSED_BN = None
+    return m["_grads"], float(m["total_loss"]), step.batched_backwards
+
+
+def batched_phase(torch, n_bn: int) -> dict:
+    """Main path 15, the batched de-mixed step (``grad_demix='batched'``):
+    the CLI default model (bf16 MultiTaskNet small 192 px, B = TRAIN_BATCH
+    staged canvases), fused BN off and on, in BATCHED_TURNS of the batched
+    and the two-pullback step (TURN_WARMUP + TURN_STEPS steps each):
+    ms/step, crops/s and peak memory per arm, the launches per step held
+    to the code's count, and ``batched_backwards`` to the batched steps
+    taken. One untimed batched step lists the operators the legacy vmap
+    loops over. Then the gradients: batched against two pullbacks on the
+    card (DEMIX_TOL of each tensor's norm, the JAX package's tolerances;
+    the loss to 1e-6), bf16 at B = TRAIN_BATCH and f32 at B = DEMIX_F32_B,
+    fused BN off and on, and the f32 B = 8 batched step card vs CPU.
+    Returns the launches of the timed turns."""
+    from hgr_tpu_torch.config import AugmentConfig
+    from hgr_tpu_torch.models import MultiTaskNet, layers
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_train_step
+
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _staged_batch(TRAIN_BATCH, seed=2).items()}
+    rows, fallback = [], None
+    for fused in (False, True):
+        layers._FUSED_BN = fused
+        try:
+            model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                                 dtype=torch.bfloat16,
+                                 generator=torch.Generator().manual_seed(0))
+            state = create_train_state(model, device="cuda")
+            steps = {arm: make_train_step(
+                AugmentConfig(), image_size=(IMAGE, IMAGE),
+                heatmap_size=(IMAGE // 4, IMAGE // 4),
+                grad_demix="batched" if arm == "batched" else True)
+                for arm in ("batched", "pullbacks")}
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            bn = 2 * n_bn if fused else 0
+            want = {"attention_qkv_fwd": 4, "attention_qkv_bwd": 8,
+                    "attention_split_fwd": 0, "attention_split_bwd": 0,
+                    "warp_twopass": 1, "bn_act_reduce": bn,
+                    "bn_act_elem": bn}
+            if fallback is None:
+                def one():
+                    nonlocal state
+                    state, _ = steps["batched"](state, batch, gen)
+                fallback = _fallback_ops(torch, one)
+            turns, losses = [], []
+            before = steps["batched"].batched_backwards
+            for arm in BATCHED_TURNS:
+                step = steps[arm]
+                for _ in range(TURN_WARMUP):
+                    state, m = step(state, batch, gen)
+                    losses.append(m["total_loss"])
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                c0 = _counts()
+                t0 = time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(TURN_STEPS):
+                    state, m = step(state, batch, gen)
+                    losses.append(m["total_loss"])
+                end.record()
+                end.synchronize()
+                wall = time.perf_counter() - t0
+                per_step = {k: v / TURN_STEPS
+                            for k, v in _delta(_counts(), c0).items()}
+                check(per_step == want,
+                      f"batched path, fused BN {fused}, {arm}: launches "
+                      f"per step {per_step} != {want}")
+                ms = start.elapsed_time(end) / TURN_STEPS
+                turns.append({"arm": arm, "ms_per_step": ms,
+                              "host_ms_per_step": wall / TURN_STEPS * 1e3,
+                              "crops_per_s": TRAIN_BATCH / ms * 1e3,
+                              "max_memory_allocated_gib":
+                                  torch.cuda.max_memory_allocated() / 2**30})
+            taken = steps["batched"].batched_backwards - before
+            want_taken = (BATCHED_TURNS.count("batched")
+                          * (TURN_WARMUP + TURN_STEPS))
+            check(taken == want_taken
+                  and steps["pullbacks"].batched_backwards == 0,
+                  f"batched backwards {taken} != {want_taken} batched "
+                  "steps")
+            losses = [float(x) for x in losses]
+            check(all(np.isfinite(losses)), f"finite losses: {losses}")
+        finally:
+            layers._FUSED_BN = None
+        arms = {}
+        for arm in ("batched", "pullbacks"):
+            mine = [t for t in turns if t["arm"] == arm]
+            arms[arm] = {
+                "ms_per_step": float(np.mean([t["ms_per_step"]
+                                              for t in mine])),
+                "crops_per_s": float(np.mean([t["crops_per_s"]
+                                              for t in mine])),
+                "max_memory_allocated_gib": max(
+                    t["max_memory_allocated_gib"] for t in mine)}
+        rows.append({"fused_bn": fused, "turns": turns, "arms": arms,
+                     "batched_over_pullbacks_step_time":
+                         arms["batched"]["ms_per_step"]
+                         / arms["pullbacks"]["ms_per_step"],
+                     "batched_backwards": taken,
+                     "launches_per_step": want,
+                     "losses_first_last": [losses[0], losses[-1]]})
+        del state, model, steps
+        torch.cuda.empty_cache()
+    counts = _counts()
+    emit({"batched_demix": {
+        "model": "MultiTaskNet small 192x192, bf16, seeded random weights",
+        "batch": TRAIN_BATCH, "canvas": CANVAS, "turns": BATCHED_TURNS,
+        "steps_per_turn": TURN_WARMUP + TURN_STEPS, "rows": rows,
+        "legacy_vmap_loops_over": fallback, "launches": counts}})
+
+    grads = []
+    for dtype, b in (("bfloat16", TRAIN_BATCH), ("float32", DEMIX_F32_B)):
+        for fused in (False, True):
+            g0, l0, _ = _demix_grads(torch, dtype, True, fused, b)
+            g1, l1, taken = _demix_grads(torch, dtype, "batched", fused, b)
+            errs = {k: float((g1[k] - a).norm() / a.norm().clamp_min(1e-6))
+                    for k, a in g0.items()}
+            worst = max(errs, key=errs.get)
+            grads.append({"dtype": dtype, "batch": b, "fused_bn": fused,
+                          "max_rel_grad_err": errs[worst],
+                          "worst_tensor": worst,
+                          "median_rel_grad_err": float(np.median(
+                              list(errs.values()))),
+                          "tol": DEMIX_TOL[dtype], "loss": l0,
+                          "loss_rel_err": abs(l1 - l0) / abs(l0)})
+            check(taken == 1, f"{dtype} batched step took {taken}")
+            check(errs[worst] <= DEMIX_TOL[dtype]
+                  and grads[-1]["loss_rel_err"] <= 1e-6,
+                  f"batched vs two pullbacks on the card: {grads[-1]}")
+    emit({"batched_demix_grads": grads})
+    for fused in (False, True):
+        train_vs_cpu_phase(torch, fused=fused, n_bn=n_bn, demix="batched",
+                           line="batched_f32_b8_vs_cpu")
+    return counts
+
+
+def debug_images_phase(torch, work: str, cfg) -> dict:
+    """Main path 16, ``--debug_images`` through the CLI's ``run`` on the
+    loop phase's dataset (bf16, B = TRAIN_BATCH, fused BN off, 1 epoch):
+    the dump files must be the JAX loop's (4 of the train batch after
+    every debug_every-th step, 5 of the first val batch after the epoch),
+    and the launches the run's own (every step, evaluation and test
+    batch) plus the dumps': each dump is one eval-step batch (1 warp),
+    whose forward is 4 fused attention layers for a train dump and 3 plus
+    the unfused last layer for a val dump. Each dump's wall seconds (its
+    eval step and its files, from a synchronized card) are timed by
+    wrapping the loop's two dump hooks, and set against the epoch."""
+    from hgr_tpu_torch.cli import train as cli
+    from hgr_tpu_torch.config import TrainConfig
+    from hgr_tpu_torch.train import loop
+
+    n_train, n_val, n_test = (n for _, n in LOOP_SPLITS)
+    steps = -(-n_train // TRAIN_BATCH)
+    evals = -(-n_val // TRAIN_BATCH) + -(-n_test // TRAIN_BATCH)
+    every = TrainConfig().debug_every
+    dumps = [i + 1 for i in range(steps) if i % every == 0]
+    kinds = ("gt", "pred", "hm_gt", "hm_pred")
+    want_files = ({f"train_{s}_{k}.jpg" for s in dumps for k in kinds}
+                  | {f"val_0_{k}.jpg" for k in kinds + ("attn",)})
+    argv = ["--data_config", "(a DataConfig built by chip_smoke.py)",
+            "--batch_size", str(TRAIN_BATCH), "--canvas_size", str(CANVAS),
+            "--image_size", str(IMAGE), str(IMAGE), "--dtype", "bfloat16",
+            "--seed", "0", "--num_workers", "8", "--device", "cuda",
+            "--epochs", "1", "--debug_images", "--suffix", "debug",
+            "--save_dir", os.path.join(work, "debug_out"),
+            "--log_dir", os.path.join(work, "debug_logs")]
+    dump_s, make_dumps = [], loop._debug_dumps
+
+    def timed(fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            dump_s.append(time.perf_counter() - t)
+        return run
+
+    loop._debug_dumps = lambda *a: tuple(map(timed, make_dumps(*a)))
+    try:
+        t0 = time.perf_counter()
+        state, save = cli.run(cli.parse_args(argv), cfg)
+        seconds = time.perf_counter() - t0
+    finally:
+        loop._debug_dumps = make_dumps
+    counts = _counts()
+    files = sorted(os.listdir(os.path.join(save, "debug")))
+    want = {"attention_qkv_fwd": 4 * (steps + evals) + 4 * len(dumps) + 3,
+            "attention_qkv_bwd": 8 * steps, "attention_split_fwd": 0,
+            "attention_split_bwd": 0,
+            "warp_twopass": steps + evals + len(dumps) + 1,
+            "bn_act_reduce": 0, "bn_act_elem": 0}
+    with open(os.path.join(work, "debug_logs", os.path.basename(save),
+                           "metrics.jsonl")) as f:
+        epoch = [json.loads(x) for x in f if '"epoch"' in x][0]
+    emit({"debug_images": {
+        "steps": steps, "debug_every": every, "train_dumps_at": dumps,
+        "files": files, "seconds": seconds, "dump_seconds": dump_s,
+        "dumps_s": sum(dump_s),
+        "train_time_s": epoch["train_time_s"],
+        "epoch_time_s": epoch["epoch_time_s"],
+        "bytes": sum(os.path.getsize(os.path.join(save, "debug", f))
+                     for f in files), "launches": counts}})
+    check(state.step == steps, f"debug run ended at step {state.step}")
+    check(len(dump_s) == len(dumps) + 1, f"timed dumps {dump_s}")
+    check(set(files) == want_files,
+          f"debug files {files} != the JAX loop's {sorted(want_files)}")
+    check(counts == want, f"debug run launches {counts} != {want}")
+    return counts
+
+
+def display_data_phase(torch, cfg) -> dict:
+    """Main path 17, ``tools/display_data`` on the card: the loop phase's
+    train split, the tool's default batch (DISPLAY_BATCH, whose warp
+    warp_kernel_phase holds against its plain version), one batch: 32
+    sheets and one warp launch."""
+    from hgr_tpu_torch.tools.display_data import build_parser, display_data
+
+    args = build_parser().parse_args([])
+    out_dir = os.path.join(os.path.dirname(cfg.path), "display_out")
+    t0 = time.perf_counter()
+    n = display_data(cfg, out_dir, batch_size=args.batch_size,
+                     num_batches=args.num_batches, device=args.device)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    files = os.listdir(out_dir)
+    emit({"display_data": {"batch": args.batch_size, "written": n,
+                           "files": len(files), "seconds": seconds,
+                           "launches": counts}})
+    check(n == len(files) == args.batch_size == DISPLAY_BATCH,
+          f"display_data wrote {n} sheets, {len(files)} files")
+    check(counts["warp_twopass"] == 1 and sum(counts.values()) == 1,
+          f"display_data launches {counts}")
+    return counts
+
+
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3521,12 +3875,30 @@ def main() -> int:
     for name in single_path:
         check(ab[name] > 0, f"bn_convergence_ab's arms launched {name}")
 
+    # main path 15, the batched de-mixed step, fused BN off and on, in
+    # turns with the two-pullback step (the backward kernels once per
+    # cotangent row, through their operators)
+    _zero_counts()
+    batched = batched_phase(torch, n_bn)
+    for name in single_path:
+        check(batched[name] > 0, f"the batched de-mixed path launched {name}")
+
+    # main path 16, --debug_images through the training CLI
+    _zero_counts()
+    debugged = debug_images_phase(torch, work, cfg)
+
+    # main path 17, tools/display_data on the card (the warp kernel)
+    _zero_counts()
+    displayed = display_data_phase(torch, cfg)
+
     by_path = {"serve": served, "train": trained, "loop": looped,
                "mesh": meshed, "long": longer, "detect": detected,
                "quant": quanted, "export": exported,
                "det_train": det_trained, "knobs": knobbed,
                "serve_bench": benched, "video_bench": videoed,
-               "attribution": attributed, "bn_convergence_ab": ab}
+               "attribution": attributed, "bn_convergence_ab": ab,
+               "batched_demix": batched, "debug_images": debugged,
+               "display_data": displayed}
     emit({"launches_by_path": {name: {p: c[name] for p, c in by_path.items()}
                                for name in KERNELS}})
     emit({"kernels": [{
@@ -3542,6 +3914,7 @@ def main() -> int:
         "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"],
     } for name, (source, replaces) in KERNELS.items()]})
+    emit({"chip_smoke_seconds": time.perf_counter() - started})
     # the run used one card, whatever the host holds
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,11 +6,12 @@ train.py:244-283 plus the JAX package's extensions and ``--device``).
 
 Trains on the card unless ``--device cpu``. ``HGR_TPU_FUSED_BN=on`` routes
 the train-mode BatchNorm(+SiLU) layers through the fused two-pass
-backward (ops/bn_act.py). Every flag of the JAX CLI is accepted; the ones
-whose feature is not ported yet (``--grad_demix batched``,
-``--debug_images``) raise ``NotImplementedError`` naming their ROADMAP
-item. ``main`` reads the YAML data config and calls
-``run(args, data_cfg)``, which does everything after it.
+backward (ops/bn_act.py). Every flag of the JAX CLI is accepted and
+runs: ``--grad_demix batched`` takes the two de-mixed pullbacks as one
+batched backward, ``--debug_images`` writes the reference's debug images
+under ``<save_dir>/<run>/debug`` (not under a mesh, as in JAX). ``main``
+reads the YAML data config and calls ``run(args, data_cfg)``, which does
+everything after it.
 
 Meshes (parallel/), with the JAX CLI's meaning and refusals; every rank
 is a process:
@@ -82,8 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--grad_demix', type=str, default='auto',
                         choices=['auto', 'on', 'off', 'batched'],
                         help='de-mixed per-task gradient pullbacks (auto = '
-                             "on under bf16); 'batched' is not ported yet "
-                             '(ROADMAP A15)')
+                             "on under bf16); 'batched' takes both as one "
+                             'batched backward')
     parser.add_argument('--mesh', type=str, default='',
                         help="mesh spec, e.g. 'data=8' or 'data=4,model=2'; "
                              'empty = single device')
@@ -116,7 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--grad_accum', type=int, default=1,
                         help='sequential microbatches per optimizer step')
     parser.add_argument('--debug_images', action='store_true',
-                        help='not ported yet (ROADMAP A14)')
+                        help='dump GT/pred/heatmap grids every debug_every '
+                             'train batches and one val batch with the '
+                             'attention overlay per epoch')
     parser.add_argument('--device', type=str, default='cuda',
                         help='cuda (default) or cpu; without a card, cuda '
                              'raises instead of running on the CPU')
@@ -125,17 +128,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
-
-
-def _refuse_unported(args: argparse.Namespace) -> None:
-    unported = [
-        (args.grad_demix == "batched", "--grad_demix batched", "A15"),
-        (args.debug_images, "--debug_images", "A14"),
-    ]
-    for value, flag, item in unported:
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP {item})")
 
 
 def model_config(args: argparse.Namespace, data_cfg, fused_attention=True):
@@ -215,7 +207,6 @@ def run(args: argparse.Namespace, data_cfg):
     from hgr_tpu_torch.parallel.mesh import parse_mesh
     from hgr_tpu_torch.train.state import resolve_device
 
-    _refuse_unported(args)
     if args.image_size[0] != args.image_size[-1]:
         raise ValueError("only square images are supported")
     device = resolve_device(args.device)
@@ -379,8 +370,9 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
     state = fit(model_cfg, train_cfg, data_cfg, state, train_loader,
                 val_loader, test_loader, save_path=save_path,
                 log_dir=train_cfg.log_dir, run_name=model_name,
-                mesh=mesh, tensor_parallel=tensor_parallel,
-                lr_fn=state.schedule, profile_steps=args.profile)
+                debug_images=args.debug_images, mesh=mesh,
+                tensor_parallel=tensor_parallel, lr_fn=state.schedule,
+                profile_steps=args.profile)
     launches.write(os.path.join(
         save_path, "ranks", f"rank{distributed.process_index()}.json"),
         step=state.step, mesh=mesh_shape or None,

@@ -119,9 +119,8 @@ class TrainConfig:
     """Training recipe (reference train.py:244-283 defaults + README.md:62-71)
     with the JAX package's names and defaults (hgr_tpu/config.py:139-166):
     the fields that ``cli.train.run`` and ``train.loop.fit`` read. Not
-    ported: ``debug_every`` (debug images, ROADMAP A14) and
-    ``steps_per_epoch``, which nothing reads (an epoch is one pass of the
-    train loader).
+    ported: ``steps_per_epoch``, which nothing reads (an epoch is one pass
+    of the train loader).
     """
 
     batch_size: int = 32
@@ -139,6 +138,8 @@ class TrainConfig:
     # None = one device (parallel/mesh.py)
     mesh_shape: Optional[Dict[str, int]] = None
     canvas_size: int = 256  # host staging canvas (square)
+    # debug image dump cadence in train batches (reference train.py:149)
+    debug_every: int = 100
     # Sequential microbatches per optimizer step (train/steps.py).
     grad_accum: int = 1
     # De-mixed task-gradient pullbacks (train/steps.make_train_step):

@@ -39,7 +39,11 @@ from hgr_tpu_torch.ops.attention import (
 )
 from hgr_tpu_torch.ops.posemb import pos_emb_sincos_2d
 from hgr_tpu_torch.ops.resize import upsample_bilinear_align_corners
-from hgr_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from hgr_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    gather_cat,
+    reduce_from_model,
+)
 
 
 class FeedForward(nn.Module):
@@ -70,8 +74,10 @@ class Attention(nn.Module):
     ``fused``: True routes the no-map case through ``fused_attention_qkv``,
     'split' through ``fused_attention_split`` (the tensor-parallel form,
     vit.py:118-126); False always takes the unfused chain. Under tensor
-    parallelism ``heads`` is this rank's head count and the map is not
-    available (ROADMAP A14).
+    parallelism ``heads`` is this rank's head count; the map is then its
+    head group's, by the unfused chain, gathered over the model group in
+    head order into the full (B, heads, N, N) map (no gradient: it is an
+    output to look at).
     """
 
     def __init__(self, dim: int, heads: int, head_dim: int,
@@ -90,10 +96,6 @@ class Attention(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         h = self.norm(x.float())
         if self.tp_group is not None:
-            if need_map:
-                raise NotImplementedError(
-                    "the attention map under tensor parallelism (each rank "
-                    "holds a head group) is not ported (ROADMAP A14)")
             h = copy_to_model(h, self.tp_group)
         qkv = self.to_qkv(h)
         attn = None
@@ -112,6 +114,8 @@ class Attention(nn.Module):
                                       self.head_dim, self.scale)
         if self.tp_group is None:
             return self.to_out(out), attn
+        if attn is not None:  # the head groups of the ranks, in order
+            attn = gather_cat(attn, self.tp_group, dim=1)
         w = self.to_out.weight.to(self.to_out.dtype)
         part = F.linear(out.to(self.to_out.dtype), w)
         return reduce_from_model(part, self.tp_group), attn

@@ -28,7 +28,13 @@ hgr_tpu/ops/attention_pallas.py).
   ``fused_attention_split_bwd.launches``; on CPU tensors the plain
   versions ``attention_split_reference`` and
   ``attention_split_bwd_reference`` run, which the packed plain versions
-  call on the three thirds.
+  call on the three thirds. The split backward is the operator
+  ``hgr_tpu_torch::attention_split_bwd``.
+* Every backward kernel is reached only through an operator: under a
+  batched backward (``torch.autograd.grad(..., is_grads_batched=True)``,
+  the batched de-mixed step) the legacy vmap calls an operator without a
+  batching rule once per cotangent row, with real tensors, and each row
+  launches (and counts) the kernel once.
 * On CUDA tensors each kernel runs one body per compute type: bf16 on
   Hopper's tensor cores (``mma.sync``), float32 on the CUDA cores, each
   templated over the padded head width (16, 32, 64, 128 or 256). Every
@@ -52,6 +58,8 @@ import functools
 from typing import Tuple
 
 import torch
+
+from hgr_tpu_torch.utils.cuda_build import kernel_device, require_storage
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -274,6 +282,7 @@ def _launch(qkv: torch.Tensor, heads: int, head_dim: int,
 
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
                 head_dim: int, scale: float) -> torch.Tensor:
+    require_storage("attention_qkv_bwd", qkv, g)
     _check(qkv, heads, head_dim)
     b, n, f = qkv.shape
     if tuple(g.shape) != (b, n, f // 3):
@@ -356,6 +365,7 @@ def _launch_split(q, k, v, heads: int, head_dim: int,
 
 def _launch_split_bwd(q, k, v, g, heads: int, head_dim: int, scale: float
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    require_storage("attention_split_bwd", q, k, v, g)
     b, n = _check_split((q, k, v, g), heads, head_dim)
     lib = _bwd_kernel()
     outs = tuple(torch.empty((b, n, heads * head_dim), dtype=q.dtype,
@@ -375,12 +385,6 @@ def _launch_split_bwd(q, k, v, g, heads: int, head_dim: int, scale: float
         raise RuntimeError(f"attention_split_bwd launch failed: {msg} ({rc})")
     fused_attention_split_bwd.launches += 1
     return outs
-
-
-def _device_type(t: torch.Tensor, op: str) -> str:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{op} runs on cuda or cpu, got {t.device}")
-    return t.device.type
 
 
 @torch.library.custom_op("hgr_tpu_torch::attention_qkv_bwd", mutates_args=())
@@ -434,7 +438,7 @@ def fused_attention_qkv_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     CUDA tensors launch the backward kernel (or raise: there is no
     fallback); CPU tensors run ``attention_qkv_bwd_reference``.
     """
-    _device_type(qkv, "fused_attention_qkv_bwd")
+    kernel_device(qkv, "fused_attention_qkv_bwd")
     return _attention_qkv_bwd_op(qkv, g, int(heads), int(head_dim),
                                  float(scale))
 
@@ -447,9 +451,28 @@ def fused_attention_qkv(qkv: torch.Tensor, heads: int, head_dim: int,
     A CUDA tensor launches the kernels (or raises: there is no fallback);
     a CPU tensor runs the plain versions.
     """
-    _device_type(qkv, "fused_attention_qkv")
+    kernel_device(qkv, "fused_attention_qkv")
     return _attention_qkv_fwd_op(qkv, int(heads), int(head_dim),
                                  float(scale))
+
+
+@torch.library.custom_op("hgr_tpu_torch::attention_split_bwd",
+                         mutates_args=())
+def _attention_split_bwd_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, g: torch.Tensor, heads: int,
+                            head_dim: int, scale: float
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    if q.device.type == "cpu":
+        return attention_split_bwd_reference(q, k, v, g, heads, head_dim,
+                                             scale)
+    return _launch_split_bwd(q, k, v, g, heads, head_dim, scale)
+
+
+@_attention_split_bwd_op.register_fake
+def _(q, k, v, g, heads, head_dim, scale):
+    return tuple(q.new_empty((q.shape[0], q.shape[1], heads * head_dim))
+                 for _ in range(3))
 
 
 def fused_attention_split_bwd(q: torch.Tensor, k: torch.Tensor,
@@ -458,15 +481,15 @@ def fused_attention_split_bwd(q: torch.Tensor, k: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(dq, dk, dv), each (B, N, H·D), of ``fused_attention_split`` at q,
-    k, v for the output cotangent ``g``.
+    k, v for the output cotangent ``g``, through the operator
+    ``hgr_tpu_torch::attention_split_bwd``.
 
     CUDA tensors launch the backward kernel (or raise: there is no
     fallback); CPU tensors run ``attention_split_bwd_reference``.
     """
-    if _device_type(q, "fused_attention_split_bwd") == "cpu":
-        return attention_split_bwd_reference(q, k, v, g, heads, head_dim,
-                                             scale)
-    return _launch_split_bwd(q, k, v, g, heads, head_dim, scale)
+    kernel_device(q, "fused_attention_split_bwd")
+    return _attention_split_bwd_op(q, k, v, g, int(heads), int(head_dim),
+                                   float(scale))
 
 
 class _FusedAttentionSplit(torch.autograd.Function):
@@ -500,7 +523,7 @@ def fused_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     A CUDA tensor launches the kernels (or raises: there is no fallback);
     a CPU tensor runs the plain versions.
     """
-    _device_type(q, "fused_attention_split")
+    kernel_device(q, "fused_attention_split")
     return _FusedAttentionSplit.apply(q, k, v, heads, head_dim, scale)
 
 

@@ -13,7 +13,11 @@ of hgr_tpu/ops/bn_act_pallas.py).
   with the per-channel vectors passed by pointer, and counts it in
   ``bn_act_reduce.launches`` / ``bn_act_elem.launches``; on a CPU tensor
   each runs its plain version (``bn_act_reduce_reference``,
-  ``bn_act_elem_reference``). ``bn_act_bwd`` chains the two.
+  ``bn_act_elem_reference``). Each is the custom op
+  ``hgr_tpu_torch::bn_act_reduce`` / ``...bn_act_elem``: under a batched
+  backward (``is_grads_batched``) the legacy vmap calls it once per
+  cotangent row with real tensors, and a launch is counted per row.
+  ``bn_act_bwd`` chains the two.
 * ``bn_act`` — the differentiable op, a ``torch.autograd.Function`` (the
   custom VJP of :214-243): it saves y, γ, β and the batch statistics,
   and its backward is the two passes. It returns (out, mean, var); mean
@@ -42,7 +46,8 @@ import torch
 import torch.distributed as dist
 
 from hgr_tpu_torch.parallel.collectives import all_sum
-from hgr_tpu_torch.utils.cuda_build import on_device
+from hgr_tpu_torch.utils.cuda_build import (kernel_device, on_device,
+                                            require_storage)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -193,17 +198,8 @@ def _workspace(dev: torch.device, stream: int, floats: int, tiles: int):
     return ws
 
 
-def bn_act_reduce(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
-                  r: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                  act: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(T1, T2) per channel of the (M, C) rows. A CUDA tensor launches the
-    reduce kernel (or raises: there is no fallback); a CPU tensor runs
-    ``bn_act_reduce_reference``."""
-    if y2.device.type == "cpu":
-        return bn_act_reduce_reference(y2, g2, mean, r, gamma, beta, act)
-    if y2.device.type != "cuda":
-        raise ValueError(f"bn_act_reduce runs on cuda or cpu, got "
-                         f"{y2.device}")
+def _launch_reduce(y2, g2, mean, r, gamma, beta, act):
+    require_storage("bn_act_reduce", y2, g2, mean, r, gamma, beta)
     m, c = _check_rows(y2, g2, (mean, r, gamma, beta))
     lib = _kernel()
     vec = _vectorized(c, y2, g2)
@@ -226,18 +222,8 @@ def bn_act_reduce(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
     return t1, t2
 
 
-def bn_act_elem(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
-                r: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                t1m: torch.Tensor, t2m: torch.Tensor,
-                act: bool = True) -> torch.Tensor:
-    """dy (M, C) in y's dtype from the rows and T1/M, T2/M. A CUDA tensor
-    launches the elementwise kernel (or raises: there is no fallback); a
-    CPU tensor runs ``bn_act_elem_reference``."""
-    if y2.device.type == "cpu":
-        return bn_act_elem_reference(y2, g2, mean, r, gamma, beta, t1m, t2m,
-                                     act)
-    if y2.device.type != "cuda":
-        raise ValueError(f"bn_act_elem runs on cuda or cpu, got {y2.device}")
+def _launch_elem(y2, g2, mean, r, gamma, beta, t1m, t2m, act):
+    require_storage("bn_act_elem", y2, g2, mean, r, gamma, beta, t1m, t2m)
     m, c = _check_rows(y2, g2, (mean, r, gamma, beta, t1m, t2m))
     lib = _kernel()
     dy = torch.empty_like(y2)
@@ -250,6 +236,63 @@ def bn_act_elem(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
     _raise_on(rc, lib, "bn_act_elem")
     bn_act_elem.launches += 1
     return dy
+
+
+@torch.library.custom_op("hgr_tpu_torch::bn_act_reduce", mutates_args=())
+def _bn_act_reduce_op(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
+                      r: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, act: bool
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if y2.device.type == "cpu":
+        return bn_act_reduce_reference(y2, g2, mean, r, gamma, beta, act)
+    return _launch_reduce(y2, g2, mean, r, gamma, beta, act)
+
+
+@_bn_act_reduce_op.register_fake
+def _(y2, g2, mean, r, gamma, beta, act):
+    c = y2.shape[-1]
+    return (y2.new_empty(c, dtype=torch.float32),
+            y2.new_empty(c, dtype=torch.float32))
+
+
+@torch.library.custom_op("hgr_tpu_torch::bn_act_elem", mutates_args=())
+def _bn_act_elem_op(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
+                    r: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    t1m: torch.Tensor, t2m: torch.Tensor,
+                    act: bool) -> torch.Tensor:
+    if y2.device.type == "cpu":
+        return bn_act_elem_reference(y2, g2, mean, r, gamma, beta, t1m, t2m,
+                                     act)
+    return _launch_elem(y2, g2, mean, r, gamma, beta, t1m, t2m, act)
+
+
+@_bn_act_elem_op.register_fake
+def _(y2, g2, mean, r, gamma, beta, t1m, t2m, act):
+    return torch.empty_like(y2)
+
+
+def bn_act_reduce(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
+                  r: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  act: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T1, T2) per channel of the (M, C) rows, through the operator
+    ``hgr_tpu_torch::bn_act_reduce``. A CUDA tensor launches the reduce
+    kernel (or raises: there is no fallback); a CPU tensor runs
+    ``bn_act_reduce_reference``."""
+    kernel_device(y2, "bn_act_reduce")
+    return _bn_act_reduce_op(y2, g2, mean, r, gamma, beta, bool(act))
+
+
+def bn_act_elem(y2: torch.Tensor, g2: torch.Tensor, mean: torch.Tensor,
+                r: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                t1m: torch.Tensor, t2m: torch.Tensor,
+                act: bool = True) -> torch.Tensor:
+    """dy (M, C) in y's dtype from the rows and T1/M, T2/M, through the
+    operator ``hgr_tpu_torch::bn_act_elem``. A CUDA tensor launches the
+    elementwise kernel (or raises: there is no fallback); a CPU tensor
+    runs ``bn_act_elem_reference``."""
+    kernel_device(y2, "bn_act_elem")
+    return _bn_act_elem_op(y2, g2, mean, r, gamma, beta, t1m, t2m,
+                           bool(act))
 
 
 bn_act_reduce.launches = 0  # reduce kernel launches, counted above

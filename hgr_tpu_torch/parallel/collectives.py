@@ -4,6 +4,8 @@ collectives XLA inserts for the JAX package's mesh, written out.
 - ``all_sum`` (no gradient) and ``all_sum_grad`` (``all_reduce`` forward
   and backward) sum over any group; the data-parallel BatchNorm
   statistics and the step's metrics use them over the data group.
+- ``gather_cat`` (no gradient) concatenates the ranks' tensors: the
+  tensor-parallel attention map's head groups.
 - Megatron's pair of ``autograd.Function``s, for the tensor-parallel ViT
   decoder (``parallel/tp.py``):
 
@@ -23,6 +25,15 @@ sum keeps the result one rounding of the partials' exact sum, closest to
 the single-rank layer, which rounds its full f32 product once.
 
 A group of None is a single rank: every function is then the identity.
+
+Every sum runs through the custom op ``hgr_tpu_torch::all_sum``, which
+takes its group by name (an operator's schema holds no process group).
+The autograd functions' backwards reach ``all_reduce`` only through it:
+under ``torch.autograd.grad(..., is_grads_batched=True)`` (the batched
+de-mixed step) a backward receives batched wrappers without storage, and
+the legacy vmap calls an operator without a batching rule once per
+cotangent row, with real tensors. Each row then takes an all-reduce of
+its own: the same sum.
 """
 
 from __future__ import annotations
@@ -31,6 +42,22 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.distributed_c10d import _resolve_process_group
+
+from hgr_tpu_torch.utils.cuda_build import require_storage
+
+
+@torch.library.custom_op("hgr_tpu_torch::all_sum", mutates_args=())
+def _all_sum_op(t: torch.Tensor, group_name: str) -> torch.Tensor:
+    require_storage("all_sum", t)
+    out = torch.clone(t, memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=_resolve_process_group(group_name))
+    return out
+
+
+@_all_sum_op.register_fake
+def _(t, group_name):
+    return torch.empty_like(t, memory_format=torch.contiguous_format)
 
 
 def all_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -38,9 +65,9 @@ def all_sum(t: torch.Tensor, group) -> torch.Tensor:
     ``group`` is None); carries no gradient."""
     if group is None:
         return t
-    out = t.detach().clone()
-    dist.all_reduce(out, group=group)
-    return out
+    # (no detach of a cotangent: the legacy vmap has no rule for views)
+    return _all_sum_op(t.detach() if t.requires_grad else t,
+                       group.group_name)
 
 
 class _AllSumGrad(torch.autograd.Function):
@@ -51,7 +78,7 @@ class _AllSumGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_sum(g.contiguous(), ctx.group), None
+        return all_sum(g, ctx.group), None
 
 
 def all_sum_grad(t: torch.Tensor, group) -> torch.Tensor:
@@ -70,7 +97,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_sum(g.contiguous(), ctx.group), None
+        return all_sum(g, ctx.group), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -81,6 +108,19 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+def gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group``, concatenated along ``dim`` in the
+    group's rank order (``t`` itself when ``group`` is None); carries no
+    gradient. The tensor-parallel attention map gathers its head groups
+    with it."""
+    if group is None:
+        return t
+    t = t.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:

@@ -111,8 +111,9 @@ def make_parallel_eval_step(mesh: Mesh, num_classes: int = 19,
                             with_attnmap: Optional[bool] = None,
                             warp_method: str = "auto") -> Callable:
     """``eval_step(state, batch)`` of this rank, with the global batch's
-    metrics; the outputs of ``return_outputs`` are the rank's rows. The
-    attention map under a model axis raises (ROADMAP A14)."""
+    metrics; the outputs of ``return_outputs`` are the rank's rows. Under
+    a model axis the attention map (``with_attnmap``) holds every head:
+    each rank's head group gathered over the model group."""
     return base_steps.make_eval_step(
         num_classes=num_classes, sigma=sigma, image_size=image_size,
         heatmap_size=heatmap_size, return_outputs=return_outputs,

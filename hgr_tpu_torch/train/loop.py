@@ -6,8 +6,9 @@ then the test split from the best checkpoint with a confusion matrix.
 ``fit(mesh=...)`` runs one rank of a mesh (parallel/): every rank runs
 the same steps on its rows; the coordinator owns metrics.jsonl,
 TensorBoard, stdout, the checkpoint files and run_meta.json (JAX
-loop.py:198-281). ``debug_images`` waits for the debug-image dumps
-(ROADMAP A14).
+loop.py:198-281). ``debug_images`` dumps the reference's debug images
+(utils/vis.py) without a mesh; under one it is disabled, as the JAX loop
+disables it for multi-process runs.
 """
 
 from __future__ import annotations
@@ -116,10 +117,14 @@ def train_epoch(
     prefix: str = "train",
     nan_guard_every: int = 50,
     lr_fn: Optional[Callable] = None,
+    debug_hook: Optional[Callable] = None,
+    debug_every: int = 100,
     profile_steps: int = 0,
     profile_dir: str = "",
 ) -> TrainState:
     """One epoch; ``generator`` (on the state's device) draws the augment.
+    ``debug_hook(state, batch, step)`` fires after every ``debug_every``-th
+    train batch, from the first (reference train.py:148-160).
 
     Time blocked on the loader accumulates in ``metrics.loader_wait_s``.
     The loss is checked for NaN/Inf every ``nan_guard_every`` steps (the
@@ -138,7 +143,8 @@ def train_epoch(
             break
         if profile_steps and i == 0:
             prof = profiling.start(state.device)
-        state, m = step_fn(state, to_device(batch, state.device), generator)
+        batch = to_device(batch, state.device)
+        state, m = step_fn(state, batch, generator)
         if prof is not None and i + 1 >= profile_steps:
             profiling.stop(prof, state.device, profile_dir)
             prof = None
@@ -149,6 +155,8 @@ def train_epoch(
                     f"non-finite loss {loss} at step {state.step}; restore "
                     "the 'last' checkpoint to resume")
         metrics.update(m)
+        if debug_hook is not None and i % debug_every == 0:
+            debug_hook(state, batch, state.step)
         if i % log_every == 0 and logger is not None:
             line = {f"{prefix}/{k}": v
                     for k, v in metrics.snapshot().items()}
@@ -202,14 +210,24 @@ def fit(
     With ``mesh`` (this rank's ``parallel.mesh.Mesh``) the state must
     already be this rank's (``parallel.steps.shard_state``) and the
     loaders must yield its rows.
+
+    ``debug_images`` dumps the reference's debug images into
+    ``<save_path>/debug`` (train.py:148-174): ``train_<step>_*.jpg`` of
+    the train batch after every ``train_cfg.debug_every``-th step, and
+    ``val_<epoch>_*.jpg`` (with the attention overlay) of the first val
+    batch after each epoch, each through an eval step with its outputs.
+    Under a mesh it is disabled: every rank is a process, and the JAX
+    loop disables the dumps for multi-process runs.
     """
-    if debug_images:
-        raise NotImplementedError(
-            "fit(debug_images=True) is not ported yet (ROADMAP A14)")
     if tensor_parallel and (mesh is None or not mesh.tensor_parallel):
         raise ValueError("tensor_parallel needs a mesh with a model axis")
     num_classes = data_cfg.num_classes
     main = distributed.is_coordinator()
+    if debug_images and mesh is not None:
+        if main:
+            print("debug_images disabled under multi-process execution",
+                  flush=True)
+        debug_images = False
     step_kw = dict(num_classes=num_classes, sigma=train_cfg.sigma,
                    image_size=model_cfg.image_size,
                    heatmap_size=model_cfg.heatmap_size)
@@ -225,6 +243,9 @@ def fit(
         train_step = make_train_step(data_cfg.augments, **train_kw)
         eval_step = make_eval_step(**step_kw)
 
+    debug_hook, dump_val_debug = (_debug_dumps(save_path, val_loader,
+                                               step_kw)
+                                  if debug_images else (None, None))
     logger = MetricLogger(log_dir, run_name) if main else None
     ckpt = CheckpointManager(os.path.join(save_path, "weight"), mesh=mesh)
     if main:  # what the checkpoints are (infer/weights.py reads it)
@@ -254,6 +275,8 @@ def fit(
             train_cfg.seed * 10007 + epoch)
         state = train_epoch(state, train_step, train_loader, gen,
                             train_metrics, logger, lr_fn=lr_fn,
+                            debug_hook=debug_hook,
+                            debug_every=train_cfg.debug_every,
                             profile_steps=(profile_steps if epoch == 0
                                            and main else 0),
                             profile_dir=os.path.join(save_path, "profile"))
@@ -272,6 +295,8 @@ def fit(
             })
         ckpt.save_last(state)
         ckpt.maybe_save_best(state, val["total_loss"])
+        if dump_val_debug is not None:
+            dump_val_debug(state, epoch)
         if main:
             print(f"epoch {epoch}: train_loss={tr['total_loss']:.4f} "
                   f"val_loss={val['total_loss']:.4f} "
@@ -294,6 +319,38 @@ def fit(
     if logger is not None:
         logger.close()
     return state
+
+
+def _debug_dumps(save_path: str, val_loader, step_kw: Dict):
+    """(train hook, val dump) of ``fit(debug_images=True)``: two eval steps
+    with their outputs, the train dumps' without the attention map (no
+    unfused last layer), the val dumps' with it (JAX loop.py:266-324)."""
+    from hgr_tpu_torch.utils.vis import save_debug_images
+
+    dbg_dir = os.path.join(save_path, "debug")
+    os.makedirs(dbg_dir, exist_ok=True)
+    steps = {False: make_eval_step(return_outputs=True, with_attnmap=False,
+                                   **step_kw),
+             True: make_eval_step(return_outputs=True, with_attnmap=True,
+                                  **step_kw)}
+
+    def dump(state, batch, name, with_attention):
+        _, outputs = steps[with_attention](state, batch)
+        save_debug_images(outputs, os.path.join(dbg_dir, name),
+                          with_attention=with_attention)
+
+    def debug_hook(state, batch, step):
+        # no attention overlay on train dumps (reference libs/vis.py:187)
+        dump(state, batch, f"train_{step}", with_attention=False)
+
+    val_batch = []
+
+    def dump_val_debug(state, epoch):
+        if not val_batch:
+            val_batch.append(to_device(next(iter(val_loader)), state.device))
+        dump(state, val_batch[0], f"val_{epoch}", with_attention=True)
+
+    return debug_hook, dump_val_debug
 
 
 def copy_state(state: TrainState, mesh=None) -> TrainState:

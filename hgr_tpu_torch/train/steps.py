@@ -145,6 +145,18 @@ def _grads(loss: torch.Tensor, params, retain: bool = False):
                                allow_unused=True, materialize_grads=True)
 
 
+def _batched_grads(losses: torch.Tensor, params):
+    """The pullbacks of the cotangents (1, 0) and (0, 1) of the two
+    ``losses`` as one batched backward: (rows of row 0, rows of row 1),
+    each a tuple over ``params`` (zeros where a parameter is unused)."""
+    basis = torch.eye(2, dtype=losses.dtype, device=losses.device)
+    g2 = torch.autograd.grad(losses, params, grad_outputs=basis,
+                             allow_unused=True, is_grads_batched=True)
+    g2 = [g if g is not None else p.new_zeros((2,) + p.shape)
+          for g, p in zip(g2, params)]
+    return tuple(g[0] for g in g2), tuple(g[1] for g in g2)
+
+
 def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
                     sigma: float = 2.0, image_size=(192, 192),
                     heatmap_size=(48, 48), class_loss_weight: float = 0.001,
@@ -162,6 +174,18 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
     merged backward in exact arithmetic; under bf16 each backward carries
     one task's cotangents at full relative precision.
 
+    ``grad_demix='batched'`` takes the same two pullbacks as ONE batched
+    backward (the ``jax.vmap`` of hgr_tpu/train/steps.py:221-230): one
+    ``torch.autograd.grad`` of the stacked (CE, joints) losses with the
+    cotangent basis ``eye(2)`` and ``is_grads_batched=True``, rows
+    combined in float32 as g[1] + class_loss_weight · g[0]. The rows never
+    add inside the backward. torch runs that backward under its legacy
+    vmap, which loops over the two rows at every operator that has no
+    batching rule (the convolution, SiLU, GELU and LayerNorm backwards
+    among others, and the port's kernel operators, each called with real
+    tensors and counted once per row). ``step.batched_backwards`` counts the batched
+    backwards taken (one a microbatch).
+
     ``grad_accum > 1`` runs the batch as that many sequential
     microbatches and applies one update from their gradients averaged by
     valid count; each microbatch's forward updates the BatchNorm
@@ -173,12 +197,7 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
     ranks in one flat f32 all-reduce after both pullbacks (and after the
     microbatches), before ``debug_return_grads`` and the update.
     """
-    if grad_demix == "batched":
-        raise NotImplementedError(
-            "grad_demix='batched' (one vmapped batch-2 backward, "
-            "hgr_tpu/train/steps.py:221-230) is not ported: the attention "
-            "backward is a ctypes kernel that torch.func cannot vmap "
-            "(ROADMAP A15); use grad_demix=True")
+    batched = grad_demix == "batched"
     grad_demix = bool(grad_demix)
 
     def one_micro(state: TrainState, mbatch: Batch, generator):
@@ -196,8 +215,12 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
             ce = classification_loss(cls_out, data["label"], mask, denom)
             jl = joints_mse_loss(hmap_nchw, data["target"],
                                  data["target_weight"], mask, denom)
-            g_ce = _grads(ce, params, retain=True)
-            g_jl = _grads(jl, params)
+            if batched:
+                g_ce, g_jl = _batched_grads(torch.stack([ce, jl]), params)
+                train_step.batched_backwards += 1
+            else:
+                g_ce = _grads(ce, params, retain=True)
+                g_jl = _grads(jl, params)
             grads = [b.float() + class_loss_weight * a.float()
                      for a, b in zip(g_ce, g_jl)]
             class_loss = ce * class_loss_weight
@@ -256,6 +279,7 @@ def make_train_step(aug_cfg: AugmentConfig, num_classes: int = 19,
                    "pose_cnt": pcnt, "valid_cnt": vsum, "conf_update": conf}
         return grads, metrics
 
+    train_step.batched_backwards = 0
     return train_step
 
 

@@ -116,6 +116,31 @@ def load_kernels(names: List[str]) -> Dict[str, BuiltKernel]:
         return {name: _loaded[name] for name in names}
 
 
+def kernel_device(t, op: str) -> str:
+    """``t``'s device type, 'cpu' (the plain version runs) or 'cuda' (the
+    kernel launches); any other device raises naming ``op``, since a
+    kernel wrapper never falls back."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op} runs on cuda or cpu, got {t.device}")
+    return t.device.type
+
+
+def require_storage(op: str, *tensors) -> None:
+    """Raise naming ``op`` unless every tensor has storage of its own. A
+    kernel reads memory by pointer; a batched wrapper (the legacy vmap of
+    ``torch.autograd.grad(..., is_grads_batched=True)``) has none, and a
+    kernel boundary must reach the kernel only through a custom op, which
+    that vmap calls once per row with real tensors."""
+    for t in tensors:
+        try:
+            t.untyped_storage()
+        except (NotImplementedError, RuntimeError) as err:
+            raise RuntimeError(
+                f"{op} was handed a tensor without storage "
+                f"({type(t).__name__} of shape {tuple(t.shape)}); a kernel "
+                "needs real tensors") from err
+
+
 def on_device(dev, launch):
     """``launch(stream)`` with card ``dev`` current (a kernel launches on
     the current device) and its current stream passed as an int; the

@@ -1258,3 +1258,128 @@ def test_stride2_lowerings_on_card_match_plain(impl):
     assert _rel_err(c1, c0.cpu()) <= 1e-3 and _rel_err(h1, h0.cpu()) <= 1e-3
     for a, b in zip(g1, g0):
         assert _rel_err(a, b.cpu()) <= 1e-3
+
+
+# -- the batched backward's boundaries (custom ops) --------------------------
+
+
+def _bn_inputs(dtype, shape=(2, 9, 9, 64), seed=21):
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    dt = getattr(torch, dtype)
+    y = torch.from_numpy((rng.randn(*shape) * 2 + 0.3).astype(
+        np.float32)).to("cuda", dt)
+    gamma = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).cuda()
+    beta = torch.from_numpy((rng.randn(c) * 0.1).astype(np.float32)).cuda()
+    return y, gamma, beta
+
+
+@pytest.fixture
+def one_rank_group():
+    """A gloo group of this process alone (the sum over it is the tensor
+    itself)."""
+    import torch.distributed as dist
+
+    from hgr_tpu_torch.parallel.distributed import free_port
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_new_operators_match_plain_versions(dtype, one_rank_group):
+    """The operators the batched backward reaches the kernels through,
+    called as operators on card tensors, against their plain versions."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.ops import bn_act as B
+
+    ops = torch.ops.hgr_tpu_torch
+    qkv = _qkv(8, 145, 22, dtype)
+    g = _qkv(8, 145, 23, dtype)[..., :H * D].contiguous()
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = A.fused_attention_split_bwd.launches
+    got = ops.attention_split_bwd(q, k, v, g, H, D, SCALE)
+    assert A.fused_attention_split_bwd.launches == before + 1
+    want = A.attention_split_bwd_reference(q, k, v, g, H, D, SCALE)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b.float().cpu().numpy(), **GRAD_TOL[dtype])
+    y, gamma, beta = _bn_inputs(dtype)
+    y2 = y.reshape(-1, y.shape[-1])
+    g2 = torch.randn(y2.shape, generator=torch.Generator().manual_seed(24)
+                     ).to("cuda", y.dtype)
+    _, mean, var = B.fwd_chain(y2, gamma, beta, 1e-5)
+    r = torch.rsqrt(var + 1e-5)
+    t1, t2 = ops.bn_act_reduce(y2, g2, mean, r, gamma, beta, True)
+    p1, p2 = B.bn_act_reduce_reference(y2, g2, mean, r, gamma, beta)
+    dz, xhat = B._dz_xhat(y2, g2, mean, r, gamma, beta, True)
+    for a, b, mag in ((t1, p1, dz.abs().sum(0)),
+                      (t2, p2, (dz * xhat).abs().sum(0))):
+        assert bool(((a - b).abs() <= 1e-6 * mag + 1e-30).all())
+    m = float(y2.shape[0])
+    dy = ops.bn_act_elem(y2, g2, mean, r, gamma, beta, p1 / m, p2 / m, True)
+    want = B.bn_act_elem_reference(y2, g2, mean, r, gamma, beta, p1 / m,
+                                   p2 / m)
+    np.testing.assert_allclose(dy.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BN_DY_TOL[dtype])
+    s = ops.all_sum(y, one_rank_group.group_name)
+    assert s.is_cuda and torch.equal(s, y) and s.data_ptr() != y.data_ptr()
+
+
+def _batched_vs_rows(out, inputs, cotangents):
+    """The gradients of ``out`` at ``inputs`` for a batch of cotangents by
+    one batched backward, and by one backward per row."""
+    batched = torch.autograd.grad(out, inputs, cotangents, retain_graph=True,
+                                  is_grads_batched=True)
+    rows = [torch.autograd.grad(out, inputs, c, retain_graph=True)
+            for c in cotangents]
+    return batched, rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_new_operators_under_a_batched_backward_equal_two_calls(
+        dtype, one_rank_group):
+    """Each operator reached from a batched backward of batch 2 runs its
+    kernel once per row on real tensors, and equals two single backwards
+    exactly: the same kernel on the same rows."""
+    _cuda_or_skip()
+    from hgr_tpu_torch.ops import bn_act as B
+    from hgr_tpu_torch.parallel.collectives import copy_to_model
+
+    qkv = _qkv(4, 145, 25, dtype).requires_grad_()
+    q, k, v = qkv.chunk(3, dim=-1)
+    out = A.fused_attention_split(q, k, v, H, D, SCALE)
+    ct = torch.stack([_qkv(4, 145, s, dtype)[..., :H * D] for s in (26, 27)])
+    before = A.fused_attention_split_bwd.launches
+    batched, rows = _batched_vs_rows(out, (qkv,), ct)
+    assert A.fused_attention_split_bwd.launches == before + 4
+    for i in range(2):
+        assert torch.equal(batched[0][i], rows[i][0]), i
+
+    y, gamma, beta = _bn_inputs(dtype)
+    ins = (y.requires_grad_(), gamma.requires_grad_(),
+           beta.requires_grad_())
+    out = B.bn_act(*ins)[0]
+    ct = torch.randn((2,) + out.shape, generator=torch.Generator()
+                     .manual_seed(28)).to("cuda", out.dtype)
+    before = (B.bn_act_reduce.launches, B.bn_act_elem.launches)
+    batched, rows = _batched_vs_rows(out, ins, ct)
+    assert (B.bn_act_reduce.launches, B.bn_act_elem.launches) == (
+        before[0] + 4, before[1] + 4)
+    for i in range(2):
+        for a, b in zip(batched, rows[i]):
+            assert torch.equal(a[i], b), i
+
+    x = torch.randn(3, 5, device="cuda", requires_grad=True)
+    out = copy_to_model(x, one_rank_group) * 2.0
+    ct = torch.randn(2, 3, 5, device="cuda")
+    batched, rows = _batched_vs_rows(out, (x,), ct)
+    for i in range(2):
+        assert torch.equal(batched[0][i], rows[i][0])
+        assert torch.equal(rows[i][0], 2.0 * ct[i])

@@ -9,6 +9,7 @@ import argparse
 import contextlib
 import functools
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -98,17 +99,33 @@ def test_cli_adds_only_device_defaulting_to_the_card():
     (["--debug_images"], "A14"),
 ])
 def test_unported_flags_raise_naming_their_roadmap_item(argv, item):
-    """A14's and A15's flags still raise, naming their item; A13's are
-    ported: they pass the refusal and build the model the JAX CLI builds
-    (``--dtype mixed``: bf16 with an f32 decoder)."""
+    """Every flag of A13, A14 and A15 is ported now: each parses, names
+    no ROADMAP item in its help, and builds what the JAX CLI builds. A13's
+    build the JAX CLI's model (``--dtype mixed``: bf16 with an f32
+    decoder); ``--grad_demix batched`` resolves to the batched step, which
+    builds and has taken no batched backward; ``--debug_images`` reaches
+    ``fit``'s debug dumps."""
     args = cli.parse_args(["--data_config", "x", "--device", "cpu"] + argv)
     data_cfg = DataConfig(names=dict(DEFAULT_NAMES))
-    if item != "A13":
-        with pytest.raises(NotImplementedError, match=item):
-            cli.run(args, data_cfg)
-        return
-    cli._refuse_unported(args)
+    helps = {a.dest: a.help or "" for a in cli.build_parser()._actions}
+    assert all("ROADMAP" not in h for h in helps.values()), helps
     cfg = cli.model_config(args, data_cfg)
+    if item == "A15":
+        from hgr_tpu_torch.train.steps import (
+            make_train_step,
+            resolve_grad_demix,
+        )
+
+        demix = resolve_grad_demix(TrainConfig(grad_demix=args.grad_demix),
+                                   cfg)
+        assert demix == "batched"
+        step = make_train_step(data_cfg.augments, grad_demix=demix)
+        assert step.batched_backwards == 0
+        return
+    if item == "A14":
+        assert args.debug_images is True
+        assert "debug_images" in inspect.signature(loop.fit).parameters
+        return
     want = {"--remat": ("bfloat16", None, None, True),
             "--early_dtype": ("bfloat16", None, "float32", False),
             "--decoder_dtype": ("bfloat16", "float32", None, False),
@@ -186,15 +203,17 @@ def _narrow_model(seed):
                             seed))
 
 
-def _fit(cfg, tmp_path, seed=0, profile_steps=0):
+def _fit(cfg, tmp_path, seed=0, profile_steps=0, debug_images=False,
+         train_cfg=TrainConfig(epochs=1, batch_size=4)):
     state = create_train_state(_narrow_model(seed), device="cpu")
     mcfg = ModelConfig(image_size=(IMAGE, IMAGE), compute_dtype="float32")
     save = str(tmp_path / "run")
-    state = loop.fit(mcfg, TrainConfig(epochs=1, batch_size=4), cfg, state,
+    state = loop.fit(mcfg, train_cfg, cfg, state,
                      _loader(cfg, "train", True), _loader(cfg, "val", False),
                      _loader(cfg, "test", False), save_path=save,
                      log_dir=str(tmp_path / "logs"), run_name="r",
-                     lr_fn=state.schedule, profile_steps=profile_steps)
+                     lr_fn=state.schedule, profile_steps=profile_steps,
+                     debug_images=debug_images)
     return state, save
 
 
@@ -316,15 +335,23 @@ def test_nonfinite_loss_raises():
                          loop.EpochMetrics(3))
 
 
-def test_fit_refuses_mesh_and_debug_images(data_cfg):
-    """fit runs meshes now (tests/test_torch_parallel.py); it refuses
-    tensor parallelism without a model axis, and the debug images."""
+def test_fit_refuses_mesh_and_debug_images(data_cfg, tmp_path):
+    """fit runs meshes (tests/test_torch_parallel.py) and refuses tensor
+    parallelism without a model axis; the debug images are ported: with
+    ``debug_every`` 1 an epoch of 2 steps dumps the train batch after
+    steps 1 and 2 (4 files each) and the first val batch (5 files, the
+    attention overlay among them)."""
     state = create_train_state(torch.nn.Linear(2, 2), device="cpu")
     args = (ModelConfig(), TrainConfig(), data_cfg, state, [], [])
     with pytest.raises(ValueError, match="model axis"):
         loop.fit(*args, tensor_parallel=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        loop.fit(*args, debug_images=True)
+    _, save = _fit(data_cfg, tmp_path, debug_images=True,
+                   train_cfg=TrainConfig(epochs=1, batch_size=4,
+                                         debug_every=1))
+    kinds = ("gt", "pred", "hm_gt", "hm_pred")
+    want = {f"train_{s}_{k}.jpg" for s in (1, 2) for k in kinds}
+    want |= {f"val_0_{k}.jpg" for k in kinds + ("attn",)}
+    assert set(os.listdir(os.path.join(save, "debug"))) == want
 
 
 def test_mesh_flags_parse_as_the_jax_cli_reads_them():

@@ -377,8 +377,8 @@ def test_train_config_field_matches_jax(field):
 
 def test_train_config_has_every_jax_field_but_the_mesh():
     """Every JAX field that something in the port reads, ``mesh_shape``
-    (multi-rank training) included: ``debug_every`` waits for the debug
-    images (ROADMAP A14), and the JAX package reads no
+    (multi-rank training) and ``debug_every`` (the debug images' cadence)
+    included, at the JAX defaults; the JAX package reads no
     ``steps_per_epoch`` either."""
     import dataclasses
 
@@ -386,8 +386,9 @@ def test_train_config_has_every_jax_field_but_the_mesh():
 
     want = {f.name for f in dataclasses.fields(jax_config.TrainConfig)}
     got = {f.name for f in dataclasses.fields(TrainConfig)}
-    assert got == want - {"debug_every", "steps_per_epoch"}
+    assert got == want - {"steps_per_epoch"}
     assert TrainConfig().mesh_shape == jax_config.TrainConfig().mesh_shape
+    assert TrainConfig().debug_every == jax_config.TrainConfig().debug_every
 
 
 def test_train_config_and_grad_demix_resolution_match_jax():
@@ -403,9 +404,19 @@ def test_train_config_and_grad_demix_resolution_match_jax():
             assert got == want, (mode, dt)
 
 
-def test_batched_demix_raises_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A15"):
-        port_steps.make_train_step(AugmentConfig(), grad_demix="batched")
+def test_batched_demix_raises_naming_its_roadmap_item(inject):
+    """'batched' is ported: the step builds, runs one batched backward and
+    returns finite metrics (tests/test_torch_demix_batched.py holds its
+    gradients)."""
+    step = port_steps.make_train_step(AugmentConfig(), grad_demix="batched",
+                                      **STEP_KW)
+    model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                         generator=torch.Generator().manual_seed(0))
+    state = port_state.create_train_state(model, device="cpu")
+    _, m = step(state, _staged_batch(), torch.Generator().manual_seed(0))
+    assert step.batched_backwards == 1
+    for k in ("total_loss", "class_loss", "joints_loss", "pose_acc"):
+        assert np.isfinite(float(m[k])), k
 
 
 # -- the train step ----------------------------------------------------------
