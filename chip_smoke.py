@@ -79,7 +79,17 @@ random weights:
   map against one rank's;
 - ``--debug_images`` through the training CLI (the JAX loop's dump files
   and cadence), and ``tools/display_data`` on the card (32 sheets from
-  one augmented batch).
+  one augmented batch);
+- a model axis that does not divide the 8 heads: three ranks on the
+  card over gloo on {data: 1, model: 3} (to_qkv sharded in thirds and
+  gathered, the packed attention kernels over every head on each rank),
+  the f32 step with two pullbacks and batched and the eval attention map
+  against one process, then bf16 CLI-default steps beside one process's
+  at the same batch;
+- ``--device_cache --grad_accum 2`` on {data: 2} through the CLI (each
+  rank's rows of every microbatch exchanged between the ranks' caches by
+  one all_to_all a batch), and the first exchanged batch against the
+  ranks' blocks, bit for bit.
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -184,6 +194,15 @@ LOOP_SPLITS = (("train", 2048), ("val", 512), ("test", 512))
 # the multi-rank phase: the global batch, and the f32 parity step's
 MESH_BATCH, PARITY_BATCH = 128, 8
 TP_MESH, DP_MESH = {"data": 2, "model": 2}, {"data": 2}
+# path 18: a model axis that does not divide the 8 heads, and its bf16
+# steps a rank (warm-up, timed); path 19's row check caches this many
+# train samples
+UNEVEN_MESH, UNEVEN_STEPS = {"data": 1, "model": 3}, (2, 6)
+CACHE_CHECK_N = 512
+# the rows a rank's kernels see in the mesh paths at MESH_BATCH: path 18's
+# (every row: one data rank), the {data: 2} meshes' and path 19's eval
+# shard, and path 19's microbatch (two data ranks, grad_accum 2)
+MESH_RANK_BATCHES = (MESH_BATCH, MESH_BATCH // 2, MESH_BATCH // 4)
 # the 2x2 eval step's attention map (f32, TF32 off) vs one rank's: softmax
 # probabilities of logits whose f32 sums differ in order (the row-parallel
 # reduces upstream)
@@ -344,7 +363,8 @@ def kernel_phase(torch):
     # (16, bf16) and (4, f32): the detect path's classifier batches;
     # (1024, bf16): the int8 path's timed batch; (16, f32): its card vs
     # CPU forward; (1, bf16 and f32): the exported programs at batch 1;
-    # (128, bf16): serve_bench's largest batch
+    # (128, bf16): serve_bench's largest batch and path 18's rank batch;
+    # (32, bf16): path 19's microbatch; (8, f32): the mesh parity steps
     for b, n, dtype in [(64, 145, "bfloat16"), (64, 145, "float32"),
                         (256, 145, "bfloat16"), (DET_BATCH, 145, "bfloat16"),
                         (4, 145, "float32"), (1, 37, "bfloat16"),
@@ -352,7 +372,9 @@ def kernel_phase(torch):
                         (1, 145, "bfloat16"), (1, 145, "float32"),
                         (QUANT_CHECK, 145, "float32"),
                         (TRAIN_BATCH, 145, "float32"),
-                        (SB_MAX_BATCH, 145, "bfloat16")]:
+                        (SB_MAX_BATCH, 145, "bfloat16"),
+                        (MESH_BATCH // 4, 145, "bfloat16"),
+                        (PARITY_BATCH, 145, "float32")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
                           generator=gen).to(getattr(torch, dtype))
@@ -492,9 +514,14 @@ def bwd_kernel_phase(torch):
     )
 
     checks, main = [], None
+    # (128 and 32, bf16): the rank batches of paths 18 and 19; (8, f32):
+    # the mesh parity steps
     for b, n, dtype in [(TRAIN_BATCH, 145, "bfloat16"), (64, 145, "bfloat16"),
                         (64, 145, "float32"), (1, 37, "bfloat16"),
-                        (1, 37, "float32"), (TRAIN_BATCH, 145, "float32")]:
+                        (1, 37, "float32"), (TRAIN_BATCH, 145, "float32"),
+                        (MESH_BATCH, 145, "bfloat16"),
+                        (MESH_BATCH // 4, 145, "bfloat16"),
+                        (PARITY_BATCH, 145, "float32")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n + 1)
         dt = getattr(torch, dtype)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
@@ -1059,8 +1086,9 @@ def warp_kernel_phase(torch):
     with jitter at 0° and 90° (the transpose route), f32 and bf16
     canvases, a shrinking affine (scale 0.25: smaller sub-tiles), and the
     train steps' own inputs (a staged batch and an augment draw) at every
-    canvas a path of this script warps: 256 -> 192 (B=256, and B=32 for
-    display_data), 512 -> 448 (B=64) and 384 -> 320 (B=16). Per case
+    canvas a path of this script warps: 256 -> 192 (B=256; B=128 and 64,
+    the mesh paths' rank batches; B=32, display_data's and path 19's
+    microbatch), 512 -> 448 (B=64) and 384 -> 320 (B=16). Per case
     ``same_bits`` against the plain version on the card and
     ``same_bits_cpu`` against the plain version on the CPU (which equals the JAX package's crop bit for bit,
     tests/test_torch_augment.py); wrapper and plain times with the spread
@@ -1087,6 +1115,7 @@ def warp_kernel_phase(torch):
                   _shrinking_affines(torch, TRAIN_BATCH), gains, do_j, IMAGE))
     inverses = {}
     for px, b in ((IMAGE, TRAIN_BATCH), (IMAGE, DISPLAY_BATCH),
+                  *((IMAGE, b) for b in MESH_RANK_BATCHES[:2]),
                   (LONG_BF16, LONG_BF16_BATCH), (LONG_F32, LONG_F32_BATCH)):
         canvas, m, gains, do_j, o2c = _step_warp_inputs(torch, b, px, seed=7)
         cases.append(({"rot": "step draw"}, canvas, m, gains, do_j, px))
@@ -1239,7 +1268,9 @@ def _path_bn_layers(torch):
 def bn_kernel_phase(torch, path_layers):
     """The two bn kernels vs their plain versions at every distinct layer
     shape of the path at B=256, bf16, with the SiLU and without, and at one
-    f32 shape; times of kernel, plain version and, without the SiLU (the
+    f32 shape, and (checks only, untimed) at the same layer shapes at each
+    of MESH_RANK_BATCHES, the rows a rank's fused BN sees on the mesh
+    paths; times of kernel, plain version and, without the SiLU (the
     only case one call computes), the library calls: for the reduce
     native_batch_norm_backward and batch_norm_backward_reduce (dgamma =
     T2, dbeta = T1), for the elementwise pass batch_norm_backward_elemt
@@ -1248,17 +1279,19 @@ def bn_kernel_phase(torch, path_layers):
     from hgr_tpu_torch.ops import bn_act as B
 
     shapes = sorted({(h, w, c) for h, w, c, _ in path_layers}, reverse=True)
-    cases = [(shape, "bfloat16", act) for shape in shapes
+    cases = [(TRAIN_BATCH, shape, "bfloat16", act) for shape in shapes
              for act in (True, False)]
     # f32: the early units' shapes (--early_dtype float32 with fused BN)
-    cases += [(shape, "float32", act) for shape in sorted(
+    cases += [(TRAIN_BATCH, shape, "float32", act) for shape in sorted(
         {(h, w, c) for h, w, c, _ in path_layers[:EARLY_BN_LAYERS]},
         reverse=True) for act in (True, False)]
-    rows, by_case = [], {}
-    for (h, w, c), dtype, act in cases:
+    cases += [(b, shape, "bfloat16", act) for b in MESH_RANK_BATCHES
+              for shape in shapes for act in (True, False)]
+    rows, by_case, mesh_rows = [], {}, []
+    for b, (h, w, c), dtype, act in cases:
         gen = torch.Generator(device="cuda").manual_seed(h * 1000 + c)
         dt = getattr(torch, dtype)
-        m_rows = TRAIN_BATCH * h * w
+        m_rows = b * h * w
         y = (torch.randn(m_rows, c, device="cuda", generator=gen) * 2
              + 0.3).to(dt)
         g = torch.randn(m_rows, c, device="cuda", generator=gen).to(dt)
@@ -1281,12 +1314,20 @@ def bn_kernel_phase(torch, path_layers):
         diff = (dy.float() - ref.float()).abs()
         atol, rtol = BN_DY_TOL[dtype]
         excess = float((diff - atol - rtol * ref.float().abs()).max())
-        base = {"shape": [TRAIN_BATCH, h, w, c], "dtype": dtype, "act": act}
+        base = {"shape": [b, h, w, c], "dtype": dtype, "act": act}
         check(sum_err <= BN_SUM_TOL,
               f"bn_act_reduce vs plain at {base}: {sum_err}")
         elem_err = float(diff.max())
         check(excess <= 0, f"bn_act_elem vs plain at {base}: {elem_err}")
         del diff, dy
+        if b != TRAIN_BATCH:  # a mesh rank's rows: checked, not timed
+            mesh_rows.append({**base, "reduce_max_err_over_sum_of_abs":
+                              sum_err, "reduce_tol": BN_SUM_TOL,
+                              "elem_max_abs_err": elem_err, "atol": atol,
+                              "rtol": rtol})
+            del y, g, ref
+            torch.cuda.empty_cache()
+            continue
         es = y.element_size()
         reduce_fns = {
             "plain": lambda: B.bn_act_reduce_reference(y, g, mean, r, gamma,
@@ -1365,6 +1406,7 @@ def bn_kernel_phase(torch, path_layers):
         del y, g
         torch.cuda.empty_cache()
     emit({"kernel_checks": rows})
+    emit({"bn_mesh_rank_batch_checks": mesh_rows})
 
     pullbacks = 2  # de-mixed step: the bn backward runs in both pullbacks
     step = {"layers": len(path_layers), "pullbacks": pullbacks,
@@ -1898,8 +1940,8 @@ def _mesh_rank(rank: int, world: int, port: int, in_path: str,
                         torch.Generator(device="cuda"))
             parity[str(demix)] = {
                 "grads": {k: v.cpu() for k, v in gather_state(
-                    {"step": 0, "model": m.pop("_grads")},
-                    mesh)["model"].items()},
+                    {"step": 0, "model": m.pop("_grads")}, mesh,
+                    state.model)["model"].items()},
                 "loss": float(m["total_loss"]),
                 "batched_backwards": step.batched_backwards}
         # the TP run's best checkpoint, cut to this rank's shard (f32)
@@ -1930,6 +1972,41 @@ def _mesh_rank(rank: int, world: int, port: int, in_path: str,
         distributed.shutdown()
 
 
+def _single_parity_step(torch, batch, params):
+    """The single-process f32 de-mixed step on the card that the mesh
+    parity steps are held against: (gradients, loss) of the seed-1
+    model on ``batch`` under the draw ``params``."""
+    from hgr_tpu_torch.config import AugmentConfig
+    from hgr_tpu_torch.models import MultiTaskNet
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_train_step
+
+    with _fixed_draw(params):
+        model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                             generator=torch.Generator().manual_seed(1))
+        state = create_train_state(model, device="cuda")
+        step = make_train_step(
+            AugmentConfig(), image_size=(IMAGE, IMAGE),
+            heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=True,
+            debug_return_grads=True, warp_method="kernel")
+        _, single = step(state, batch, torch.Generator(device="cuda"))
+    return single["_grads"], float(single["total_loss"])
+
+
+def _parity_row(got: dict, g_one: dict, loss: float) -> dict:
+    """A mesh parity step's gathered gradients and loss against the
+    single-process step's."""
+    errs = {k: float((got["grads"][k] - w.cpu()).norm()
+                     / w.cpu().norm().clamp_min(1e-12))
+            for k, w in g_one.items()}
+    worst = max(errs, key=errs.get)
+    return {"max_rel_grad_err": errs[worst], "worst_tensor": worst,
+            "median_rel_grad_err": float(np.median(list(errs.values()))),
+            "tol": STEP_GRAD_TOL, "loss": loss,
+            "loss_abs_err": abs(got["loss"] - loss),
+            "batched_backwards": got["batched_backwards"]}
+
+
 def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
     """On the 2x2 mesh (four ranks on the card, gloo), f32 with TF32 off:
     one de-mixed step at global B=PARITY_BATCH, with two pullbacks and
@@ -1945,12 +2022,11 @@ def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
     within TP_MAP_TOL."""
     import torch.multiprocessing as mp
 
-    from hgr_tpu_torch.config import AugmentConfig
     from hgr_tpu_torch.models import MultiTaskNet
     from hgr_tpu_torch.parallel.distributed import free_port
     from hgr_tpu_torch.train.checkpoint import CheckpointManager
     from hgr_tpu_torch.train.state import create_train_state
-    from hgr_tpu_torch.train.steps import make_eval_step, make_train_step
+    from hgr_tpu_torch.train.steps import make_eval_step
 
     batch, params = _grid_third_case(torch, PARITY_BATCH)
     out_dir = os.path.join(work, "mesh_checks")
@@ -1966,29 +2042,9 @@ def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
                        nprocs=4, join=True, start_method="spawn")
     seconds = time.perf_counter() - t0
     ranks = torch.load(os.path.join(out_dir, "parity.pt"), weights_only=False)
-    with _fixed_draw(params):
-        model = MultiTaskNet(image_size=(IMAGE, IMAGE),
-                             generator=torch.Generator().manual_seed(1))
-        state = create_train_state(model, device="cuda")
-        step = make_train_step(
-            AugmentConfig(), image_size=(IMAGE, IMAGE),
-            heatmap_size=(IMAGE // 4, IMAGE // 4), grad_demix=True,
-            debug_return_grads=True, warp_method="kernel")
-        _, single = step(state, batch, torch.Generator(device="cuda"))
-    g_one = single["_grads"]
-    loss = float(single["total_loss"])
-    steps_rows = {}
-    for demix, got in ranks["parity"].items():
-        errs = {k: float((got["grads"][k] - w.cpu()).norm()
-                         / w.cpu().norm().clamp_min(1e-12))
-                for k, w in g_one.items()}
-        worst = max(errs, key=errs.get)
-        steps_rows[demix] = {
-            "max_rel_grad_err": errs[worst], "worst_tensor": worst,
-            "median_rel_grad_err": float(np.median(list(errs.values()))),
-            "tol": STEP_GRAD_TOL, "loss": loss,
-            "loss_abs_err": abs(got["loss"] - loss),
-            "batched_backwards": got["batched_backwards"]}
+    g_one, loss = _single_parity_step(torch, batch, params)
+    steps_rows = {demix: _parity_row(got, g_one, loss)
+                  for demix, got in ranks["parity"].items()}
     # the TP run's best checkpoint on one rank
     one = MultiTaskNet(image_size=(IMAGE, IMAGE))
     one = CheckpointManager(os.path.join(tp_save, "weight")).restore(
@@ -2033,6 +2089,408 @@ def mesh_checks_phase(torch, tp_save: str, work: str) -> None:
     check(tuple(tp_map.shape) == (PARITY_BATCH, HEADS, n, n)
           and map_err <= TP_MAP_TOL,
           f"2x2 attention map {tuple(tp_map.shape)} vs one rank: {map_err}")
+
+
+def _uneven_rank(rank: int, world: int, port: int, in_path: str,
+                 out_dir: str) -> None:
+    """One rank of path 18 on UNEVEN_MESH ({data: 1, model: 3}: the model
+    axis does not divide the 8 heads; to_qkv alone is sharded, in
+    contiguous thirds, and every rank attends over every head of the
+    gathered qkv). f32 with TF32 off: the parity step at PARITY_BATCH
+    with two pullbacks and batched, and the eval step's attention map;
+    then the CLI defaults in bf16 (de-mixed, fused BN on) at global B =
+    MESH_BATCH, UNEVEN_STEPS = (warm-up, timed) steps, the launch counts
+    from 0 over them."""
+    import torch
+
+    from hgr_tpu_torch.config import AugmentConfig, TrainConfig
+    from hgr_tpu_torch.data import pipeline
+    from hgr_tpu_torch.models import MultiTaskNet, layers
+    from hgr_tpu_torch.parallel import distributed
+    from hgr_tpu_torch.parallel.mesh import (
+        attention_route,
+        make_mesh,
+        shard_batch,
+    )
+    from hgr_tpu_torch.parallel.steps import (
+        make_parallel_eval_step,
+        make_parallel_train_step,
+        shard_state,
+    )
+    from hgr_tpu_torch.parallel.tp import gather_state, layouts
+    from hgr_tpu_torch.train import steps
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.utils import launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, "gloo")
+    try:
+        inp = torch.load(in_path, weights_only=False)
+        mesh = make_mesh(UNEVEN_MESH)
+        fused = attention_route(UNEVEN_MESH, HEADS)
+        sizes = dict(image_size=(IMAGE, IMAGE),
+                     heatmap_size=(IMAGE // 4, IMAGE // 4))
+        full = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                            generator=torch.Generator().manual_seed(1)
+                            ).state_dict()
+
+        def fresh():
+            model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                                 fused_attention=fused)
+            model.load_state_dict(full)
+            return shard_state(create_train_state(model, device="cuda"),
+                               mesh, tensor_parallel=True)
+
+        draw = steps.draw_augment_params
+        params = inp["params"]
+        steps.draw_augment_params = lambda gen, b, sizes_hw, cfg: \
+            pipeline.AugmentParams(**{k: torch.from_numpy(v[:b]).cuda()
+                                      for k, v in params.items()})
+        parity = {}
+        try:
+            for demix in (True, "batched"):
+                state = fresh()
+                step = make_parallel_train_step(
+                    mesh, AugmentConfig(), grad_demix=demix,
+                    debug_return_grads=True, warp_method="kernel", **sizes)
+                _, m = step(state, shard_batch(inp["batch"], mesh),
+                            torch.Generator(device="cuda"))
+                parity[str(demix)] = {
+                    "grads": {k: v.cpu() for k, v in gather_state(
+                        {"step": 0, "model": m.pop("_grads")}, mesh,
+                        state.model)["model"].items()},
+                    "loss": float(m["total_loss"]),
+                    "batched_backwards": step.batched_backwards}
+            state = fresh()
+            attn = state.model.decoder.transformer.layers_0_attn
+            route = {"fused": attn.fused, "heads": attn.heads,
+                     "cuts": layouts(state.model)}
+            _, outputs = make_parallel_eval_step(
+                mesh, return_outputs=True, with_attnmap=True,
+                warp_method="kernel", **sizes)(
+                    state, shard_batch(inp["batch"], mesh))
+        finally:
+            steps.draw_augment_params = draw
+        # the CLI defaults in bf16 at the global batch (every rank holds
+        # every row: the data axis has one rank)
+        tcfg = TrainConfig()
+        layers._FUSED_BN = True
+        model = MultiTaskNet(image_size=(IMAGE, IMAGE), dtype=torch.bfloat16,
+                             fused_attention=fused,
+                             generator=torch.Generator().manual_seed(0))
+        state = shard_state(create_train_state(model, lr=tcfg.lr,
+                                               device="cuda"),
+                            mesh, tensor_parallel=True)
+        step = make_parallel_train_step(
+            mesh, AugmentConfig(), sigma=tcfg.sigma,
+            class_loss_weight=tcfg.class_loss_weight, grad_demix=True,
+            **sizes)
+        batch = shard_batch({k: torch.from_numpy(v).cuda()
+                             for k, v in inp["bf16_batch"].items()}, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        warm, timed = UNEVEN_STEPS
+        launches.zero()
+        for _ in range(warm):
+            state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / timed
+        out = {"launches": launches.counts(), "ms_per_step": ms,
+               "loss": float(m["total_loss"]), "step": state.step}
+        if rank == 0:
+            out.update(parity=parity, route=route,
+                       attnmap=outputs["attnmap"].cpu())
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def uneven_tp_phase(torch, n_bn: int, work: str) -> dict:
+    """Path 18: a model axis that does not divide the heads. Three ranks
+    share the card over gloo on UNEVEN_MESH. The f32 parity step (two
+    pullbacks and batched: the qkv gather's backward a slice, the
+    packed attention backward kernel once per cotangent row) against the
+    single-process step on the card (STEP_GRAD_TOL, the loss to 1e-5
+    relative); the eval step's attention map, every head on each rank,
+    against one process's (TP_MAP_TOL); then UNEVEN_STEPS bf16 steps of
+    the CLI defaults at global B = MESH_BATCH on every rank, its launches
+    held to the code's count (the packed kernels on all 8 heads, no split
+    kernel), its ms/step beside one process's at the same batch. Returns
+    the ranks' summed launches."""
+    import torch.multiprocessing as mp
+
+    from hgr_tpu_torch.config import AugmentConfig, TrainConfig
+    from hgr_tpu_torch.models import MultiTaskNet, layers
+    from hgr_tpu_torch.parallel.distributed import free_port
+    from hgr_tpu_torch.train.state import create_train_state
+    from hgr_tpu_torch.train.steps import make_eval_step, make_train_step
+
+    batch, params = _grid_third_case(torch, PARITY_BATCH)
+    bf16_batch = _staged_batch(MESH_BATCH, seed=7)
+    out_dir = os.path.join(work, "uneven_tp")
+    os.makedirs(out_dir, exist_ok=True)
+    in_path = os.path.join(out_dir, "inputs.pt")
+    torch.save({"batch": batch, "bf16_batch": bf16_batch,
+                "params": {k: v.numpy() for k, v in params.items()}},
+               in_path)
+    world = UNEVEN_MESH["data"] * UNEVEN_MESH["model"]
+    t0 = time.perf_counter()
+    mp.start_processes(_uneven_rank, args=(world, free_port(), in_path,
+                                           out_dir),
+                       nprocs=world, join=True, start_method="spawn")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    g_one, loss = _single_parity_step(torch, batch, params)
+    parity = {demix: _parity_row(got, g_one, loss)
+              for demix, got in ranks[0]["parity"].items()}
+    with _fixed_draw(params):
+        one = create_train_state(MultiTaskNet(
+            image_size=(IMAGE, IMAGE),
+            generator=torch.Generator().manual_seed(1)), device="cuda")
+        _, one_out = make_eval_step(
+            image_size=(IMAGE, IMAGE), heatmap_size=(IMAGE // 4, IMAGE // 4),
+            return_outputs=True, with_attnmap=True, warp_method="kernel")(
+                one, batch)
+    tp_map = ranks[0]["attnmap"]
+    map_err = float((tp_map - one_out["attnmap"].cpu()).abs().max())
+    # one process at the same batch and settings, for the ms/step beside
+    # the ranks'
+    tcfg = TrainConfig()
+    layers._FUSED_BN = True
+    try:
+        model = MultiTaskNet(image_size=(IMAGE, IMAGE), dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, lr=tcfg.lr, device="cuda")
+        step = make_train_step(
+            AugmentConfig(), image_size=(IMAGE, IMAGE),
+            heatmap_size=(IMAGE // 4, IMAGE // 4), sigma=tcfg.sigma,
+            class_loss_weight=tcfg.class_loss_weight, grad_demix=True)
+        b16 = {k: torch.from_numpy(v).cuda() for k, v in bf16_batch.items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        warm, timed = UNEVEN_STEPS
+        for _ in range(warm):
+            state, m = step(state, b16, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(timed):
+            state, m = step(state, b16, gen)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) * 1e3 / timed
+        one_loss = float(m["total_loss"])
+    finally:
+        layers._FUSED_BN = None
+    steps_ = sum(UNEVEN_STEPS)
+    want = {"attention_qkv_fwd": 4 * steps_, "attention_qkv_bwd": 8 * steps_,
+            "attention_split_fwd": 0, "attention_split_bwd": 0,
+            "warp_twopass": steps_, "bn_act_reduce": 2 * n_bn * steps_,
+            "bn_act_elem": 2 * n_bn * steps_}
+    total = {name: sum(r["launches"][name] for r in ranks)
+             for name in KERNELS}
+    n = (IMAGE // 16) ** 2 + 1
+    route = ranks[0]["route"]
+    emit({"uneven_tp": {
+        "mesh": UNEVEN_MESH, "ranks": world,
+        "backend": "gloo, one card shared", "seconds": seconds,
+        "route": {"fused": route["fused"], "heads": route["heads"],
+                  "sharded": sorted(route["cuts"])},
+        "f32_step_b8": parity["True"], "f32_batched_step_b8":
+        parity["batched"], "attnmap_shape": list(tp_map.shape),
+        "attnmap_max_abs_err": map_err, "attnmap_tol": TP_MAP_TOL,
+        "bf16_batch": MESH_BATCH, "steps": UNEVEN_STEPS,
+        "ms_per_step_per_rank": [r["ms_per_step"] for r in ranks],
+        "one_process_ms_per_step": one_ms,
+        "loss_per_rank": [r["loss"] for r in ranks],
+        "one_process_loss": one_loss,
+        "launches_per_rank": [r["launches"] for r in ranks]}})
+    for demix, row in parity.items():
+        check(row["max_rel_grad_err"] <= STEP_GRAD_TOL,
+              f"model=3 mesh ({demix}) vs single-process f32 step grads: "
+              f"{row}")
+        check(row["loss_abs_err"] <= 1e-5 * abs(loss),
+              f"model=3 mesh ({demix}) step loss: {row}")
+        check(row["batched_backwards"] == (demix == "batched"),
+              f"model=3 mesh ({demix}) batched backwards: {row}")
+    check(route["fused"] is True and route["heads"] == HEADS
+          and set(route["cuts"].values()) == {"rows"}
+          and sorted(route["cuts"]) == [
+              f"decoder.transformer.layers_{i}_attn.to_qkv.weight"
+              for i in range(4)],
+          f"model=3 route and shards: {route}")
+    check(tuple(tp_map.shape) == (PARITY_BATCH, HEADS, n, n)
+          and map_err <= TP_MAP_TOL,
+          f"model=3 attention map {tuple(tp_map.shape)} vs one process: "
+          f"{map_err}")
+    for r, rec in enumerate(ranks):
+        check(rec["launches"] == want and rec["step"] == steps_
+              and np.isfinite(rec["loss"]),
+              f"model=3 rank {r}: launches {rec['launches']}, want {want}; "
+              f"step {rec['step']}, loss {rec['loss']}")
+    return total
+
+
+def _cache_rank(rank: int, world: int, port: int, in_path: str,
+                out_dir: str) -> None:
+    """One rank of path 19's row check on DP_MESH: the sharded device
+    cache of CACHE_CHECK_N train samples, once yielding its block of each
+    global batch and once (microbatches=2) its rows of each microbatch by
+    the all_to_all exchange; the first batch of each, and both loaders'
+    seconds an epoch (two epochs each, alternately)."""
+    import torch
+
+    from hgr_tpu_torch.data.dataset import AnnotationIndex, read_annotations
+    from hgr_tpu_torch.data.device_cache import ShardedDeviceCacheLoader
+    from hgr_tpu_torch.parallel import distributed
+    from hgr_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, "gloo")
+    try:
+        inp = torch.load(in_path, weights_only=False)
+        mesh = make_mesh(DP_MESH)
+        idx = read_annotations(inp["train_dir"], inp["names"])
+        sub = AnnotationIndex(idx.samples[:CACHE_CHECK_N], idx.names)
+        loaders = {a: ShardedDeviceCacheLoader(
+            sub, shard_index=mesh.data_index, shard_count=mesh.data_size,
+            device="cuda", group=mesh.data_group, microbatches=a,
+            **inp["kw"]) for a in (1, 2)}
+        first, seconds = {}, {1: [], 2: []}
+        for epoch in range(3):  # epoch 0 builds the caches
+            for a, loader in loaders.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i, b in enumerate(loader):
+                    if epoch == 0 and i == 0:
+                        first[a] = {k: (v.cpu().numpy()
+                                        if isinstance(v, torch.Tensor)
+                                        else np.asarray(v))
+                                    for k, v in b.items()}
+                torch.cuda.synchronize()
+                if epoch:
+                    seconds[a].append(time.perf_counter() - t0)
+        torch.save({"first": first, "seconds": seconds,
+                    "batches": len(loaders[1])},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+
+
+def cache_accum_phase(torch, n_bn: int, work: str, cfg) -> dict:
+    """Path 19: ``--device_cache --grad_accum 2`` under the {data: 2} mesh
+    through the CLI's ``run``, bf16, CLI defaults, fused BN on, global
+    batch MESH_BATCH, two epochs of the loop dataset (the first builds
+    the cache; ms/step from the second): every rank's launches held to
+    the code's count (4·a forwards, 8·a backwards and a warps a step, a =
+    2, and 4 forwards and a warp an eval batch).
+    Then the exchange itself on the card: each rank's first exchanged
+    batch of a CACHE_CHECK_N-sample cache against its shard_rows of the
+    ranks' blocks concatenated in rank order, bit for bit, valid
+    included, and the loaders' epoch times with and without the
+    exchange. Returns the ranks' summed launches."""
+    import torch.multiprocessing as mp
+
+    from hgr_tpu_torch.cli import train as cli
+    from hgr_tpu_torch.data.pipeline import staging_window_fraction
+    from hgr_tpu_torch.parallel.distributed import free_port
+    from hgr_tpu_torch.parallel.mesh import shard_rows
+
+    accum = 2
+    n_train, n_val, n_test = (n for _, n in LOOP_SPLITS)
+    argv = ["--data_config", "(a DataConfig built by chip_smoke.py)",
+            "--batch_size", str(MESH_BATCH), "--canvas_size", str(CANVAS),
+            "--image_size", str(IMAGE), str(IMAGE), "--dtype", "bfloat16",
+            "--seed", "0", "--num_workers", "2", "--device", "cuda",
+            "--save_dir", os.path.join(work, "accum_out"),
+            "--log_dir", os.path.join(work, "accum_logs"),
+            "--suffix", "dp_accum", "--epochs", "2", "--mesh", "data=2",
+            "--host_device_count", "2", "--device_cache",
+            "--grad_accum", str(accum)]
+    per_epoch = -(-n_train // MESH_BATCH)
+    steps = 2 * per_epoch
+    shard_b = MESH_BATCH // DP_MESH["data"]
+    eval_steps = 2 * -(-(n_val // 2) // shard_b) + -(-n_test // MESH_BATCH)
+    os.environ["HGR_TPU_FUSED_BN"] = "on"
+    try:
+        t0 = time.perf_counter()
+        state, save = cli.run(cli.parse_args(argv), cfg)
+        seconds = time.perf_counter() - t0
+    finally:
+        os.environ.pop("HGR_TPU_FUSED_BN")
+    check(state is None, "accum mesh: the ranks ran in processes")
+    ranks = _rank_counts(save, 2)
+    # one warp and 4 attention forwards a microbatch and an eval batch
+    want = {"attention_qkv_fwd": 4 * (accum * steps + eval_steps),
+            "attention_qkv_bwd": 8 * accum * steps,
+            "attention_split_fwd": 0, "attention_split_bwd": 0,
+            "warp_twopass": accum * steps + eval_steps,
+            "bn_act_reduce": 2 * n_bn * accum * steps,
+            "bn_act_elem": 2 * n_bn * accum * steps}
+    total = {name: 0 for name in KERNELS}
+    for r, rec in enumerate(ranks):
+        got = rec["launches"]
+        check(rec["step"] == steps and rec["backend"] == "gloo",
+              f"accum mesh rank {r}: step {rec['step']} backend "
+              f"{rec['backend']}")
+        check(all(got[k] == v for k, v in want.items()),
+              f"accum mesh rank {r}: launches {got}, want {want}")
+        for k in total:
+            total[k] += got[k]
+    with open(os.path.join(work, "accum_logs", os.path.basename(save),
+                           "metrics.jsonl")) as f:
+        epochs = [x for x in map(json.loads, f) if "epoch" in x]
+    check(len(epochs) == 2 and all(
+        np.isfinite(x[k]) for x in epochs
+        for k in ("train/total_loss", "val/total_loss")),
+        f"accum mesh: epoch lines {epochs}")
+    # the exchange on the card, against the blocks
+    out_dir = os.path.join(work, "cache_accum")
+    os.makedirs(out_dir, exist_ok=True)
+    in_path = os.path.join(out_dir, "inputs.pt")
+    kw = dict(batch_size=MESH_BATCH, canvas_size=CANVAS, num_joints=21,
+              shuffle=True, seed=0, drop_last=False, num_workers=2,
+              window_frac=staging_window_fraction(cfg.augments))
+    torch.save({"train_dir": os.path.join(cfg.path, cfg.train),
+                "names": cfg.names, "kw": kw}, in_path)
+    t1 = time.perf_counter()
+    mp.start_processes(_cache_rank, args=(2, free_port(), in_path, out_dir),
+                       nprocs=2, join=True, start_method="spawn")
+    check_s = time.perf_counter() - t1
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                      weights_only=False) for r in range(2)]
+    blocks = {k: np.concatenate([g["first"][1][k] for g in got])
+              for k in got[0]["first"][1]}
+    same = []
+    for r, g in enumerate(got):
+        rows = shard_rows(MESH_BATCH, 2, r, accum)
+        mine = g["first"][2]
+        same.append(mine.keys() == blocks.keys() and all(
+            mine[k].dtype == v.dtype and np.array_equal(mine[k], v[rows])
+            for k, v in blocks.items()))
+    per_batch = {a: float(np.median([s for g in got for s in g["seconds"][a]])
+                          / got[0]["batches"] * 1e3) for a in (1, 2)}
+    step_ms = epochs[1]["train_time_s"] * 1e3 / per_epoch
+    emit({"cache_accum": {
+        "mesh": DP_MESH, "ranks": 2, "grad_accum": accum,
+        "batch": MESH_BATCH, "seconds": seconds, "steps": steps,
+        "eval_steps": eval_steps,
+        "train_time_s": [x["train_time_s"] for x in epochs],
+        "epoch2_ms_per_step": step_ms,
+        "train_loss": [x["train/total_loss"] for x in epochs],
+        "val_loss": [x["val/total_loss"] for x in epochs],
+        "launches_per_rank": [rec["launches"] for rec in ranks],
+        "row_check_samples": CACHE_CHECK_N, "row_check_seconds": check_s,
+        "first_batch_same_bits": same,
+        "loader_ms_per_batch_blocks": per_batch[1],
+        "loader_ms_per_batch_exchanged": per_batch[2],
+        "exchange_share_of_step": (per_batch[2] - per_batch[1]) / step_ms}})
+    check(all(same), f"accum mesh: exchanged rows vs shard_rows of the "
+          f"blocks: {same}")
+    return total
 
 
 def model_phase(torch, state):
@@ -3891,6 +4349,22 @@ def main() -> int:
     _zero_counts()
     displayed = display_data_phase(torch, cfg)
 
+    # main path 18, a model axis that does not divide the heads (three
+    # ranks on the card): the packed attention kernels over every head of
+    # the gathered qkv; the counts live in the ranks' processes
+    _zero_counts()
+    uneven = uneven_tp_phase(torch, n_bn, work)
+    for name in single_path:
+        check(uneven[name] > 0, f"the model=3 mesh launched {name}")
+
+    # main path 19, --device_cache with --grad_accum under {data: 2}
+    # through the CLI (the rows exchanged between the ranks' caches)
+    _zero_counts()
+    accumed = cache_accum_phase(torch, n_bn, work, cfg)
+    for name in single_path:
+        check(accumed[name] > 0,
+              f"the cached accumulating mesh launched {name}")
+
     by_path = {"serve": served, "train": trained, "loop": looped,
                "mesh": meshed, "long": longer, "detect": detected,
                "quant": quanted, "export": exported,
@@ -3898,7 +4372,8 @@ def main() -> int:
                "serve_bench": benched, "video_bench": videoed,
                "attribution": attributed, "bn_convergence_ab": ab,
                "batched_demix": batched, "debug_images": debugged,
-               "display_data": displayed}
+               "display_data": displayed, "uneven_tp": uneven,
+               "cache_accum": accumed}
     emit({"launches_by_path": {name: {p: c[name] for p, c in by_path.items()}
                                for name in KERNELS}})
     emit({"kernels": [{

@@ -159,22 +159,13 @@ def snapshot_dir(root: str, split_dir: str) -> str:
 
 def _check_mesh(args: argparse.Namespace, mesh_shape, nproc: int) -> None:
     """The JAX CLI's refusals for a mesh (cli/train.py:201-253)."""
-    from hgr_tpu_torch.config import ModelConfig
-    from hgr_tpu_torch.parallel.mesh import check_heads
-
     data, tp = mesh_shape.get("data", 1), mesh_shape.get("model", 1) > 1
-    check_heads(mesh_shape, ModelConfig.heads)
     if args.grad_accum > 1 and args.batch_size % (args.grad_accum * data):
         raise SystemExit(f"--batch_size {args.batch_size} must divide by "
                          f"grad_accum x data-axis ({args.grad_accum * data})")
     if args.batch_size % data:
         raise SystemExit(f"--batch_size {args.batch_size} must divide by "
                          f"the data axis {data}")
-    if args.device_cache and mesh_shape and args.grad_accum > 1:
-        raise NotImplementedError(
-            "--device_cache with --grad_accum under a mesh (each microbatch "
-            "a global row range, which the sharded cache would have to "
-            "reshard between the ranks) is not ported (ROADMAP A17)")
     if args.device_cache and tp:
         raise SystemExit("--device_cache supports single-device and pure-DP "
                          "meshes; tensor-parallel meshes would replicate the "
@@ -282,7 +273,7 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
     from hgr_tpu_torch.data.pipeline import staging_window_fraction
     from hgr_tpu_torch.models import MultiTaskNet
     from hgr_tpu_torch.parallel import distributed
-    from hgr_tpu_torch.parallel.mesh import make_mesh, resolve_fused_attention
+    from hgr_tpu_torch.parallel.mesh import attention_route, make_mesh
     from hgr_tpu_torch.parallel.steps import shard_state
     from hgr_tpu_torch.train.checkpoint import CheckpointManager
     from hgr_tpu_torch.train.loop import fit
@@ -307,7 +298,7 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
     model_name = os.path.basename(save_path)
     os.makedirs(save_path, exist_ok=True)
     mesh_shape = train_cfg.mesh_shape or {}
-    model_cfg = model_config(args, data_cfg, resolve_fused_attention(
+    model_cfg = model_config(args, data_cfg, attention_route(
         mesh_shape, ModelConfig.heads))
     mesh = make_mesh(mesh_shape) if mesh_shape else None
     tensor_parallel = mesh is not None and mesh.tensor_parallel
@@ -324,6 +315,7 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
     def make_loader(split, shuffle, cache=False):
         split_dir = os.path.join(data_cfg.path, split)
         idx = read_annotations(split_dir, data_cfg.names)
+        micro = train_cfg.grad_accum if shuffle else 1
         kw = dict(batch_size=train_cfg.batch_size,
                   canvas_size=train_cfg.canvas_size,
                   num_joints=data_cfg.num_joints, shuffle=shuffle,
@@ -336,11 +328,11 @@ def _train(args: argparse.Namespace, data_cfg, mesh_shape, device):
                 return idx, ShardedDeviceCacheLoader(
                     idx, shard_index=mesh.data_index,
                     shard_count=mesh.data_size, snapshot_dir=snap,
-                    device=device, **kw)
+                    device=device, group=mesh.data_group,
+                    microbatches=micro, **kw)
             return idx, DeviceCacheLoader(idx, snapshot_dir=snap,
                                           device=device, **kw)
-        return idx, BatchLoader(idx, microbatches=train_cfg.grad_accum
-                                if shuffle else 1, **ranks, **kw)
+        return idx, BatchLoader(idx, microbatches=micro, **ranks, **kw)
 
     # No split drops its tail (the reference's loaders keep it,
     # libs/load.py:280-305): the tail batch is padded and masked. The test

@@ -28,7 +28,12 @@ them within the shard each epoch, and yields its block of every global
 batch. Its rows come from the same snapshot format: with a snapshot
 directory the coordinator builds (or validates) the whole split's
 snapshot, and after a barrier every rank reads its rows from it; without
-one each rank stages its own samples.
+one each rank stages its own samples. With ``microbatches`` (the step's
+``grad_accum``) a rank yields its share of every microbatch of the global
+batch (``parallel/mesh.py:shard_rows``), as the streaming loader does:
+each rank gathers its block from its own cache, then one
+``all_to_all_single`` over the data group moves every row to the rank
+that holds it, on the calling thread, once a batch, in lockstep.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hgr_tpu_torch.data.dataset import AnnotationIndex
 from hgr_tpu_torch.data.loader import BatchLoader
 from hgr_tpu_torch.parallel import distributed
+from hgr_tpu_torch.parallel.mesh import shard_rows
 from hgr_tpu_torch.train.state import resolve_device
 
 _CACHED_KEYS = ("canvas", "orig_to_canvas", "sizes_hw", "joints",
@@ -286,17 +293,25 @@ class ShardedDeviceCacheLoader(DeviceCacheLoader):
     its block of each global batch: the blocks of the ranks, in rank
     order, are the JAX loader's global batch on a {'data': shard_count}
     mesh. Rows past N (a shard with fewer real samples) hold an identity
-    affine and canvas-sized dims, so the masked augment stays finite."""
+    affine and canvas-sized dims, so the masked augment stays finite.
+
+    With ``microbatches`` a > 1 it yields instead this rank's rows
+    ``shard_rows(batch_size, shard_count, shard_index, a)`` of that global
+    batch, exchanged with the other ranks of ``group`` (the mesh's data
+    group: a collective, so every rank iterates alike); ``valid`` of
+    every rank's block follows from the shard sizes, with no exchange."""
 
     def __init__(self, index, batch_size: int, shard_index: int,
                  shard_count: int, snapshot_dir: str = "", device="cuda",
-                 **kwargs):
+                 group=None, microbatches: int = 1, **kwargs):
         super().__init__(index, batch_size, snapshot_dir=snapshot_dir,
                          device=device, **kwargs)
-        if batch_size % shard_count:
+        if batch_size % (shard_count * microbatches):
             raise ValueError(f"batch_size {batch_size} not divisible by the "
-                             f"'data' axis size {shard_count}")
+                             f"'data' axis size x microbatches "
+                             f"({shard_count} x {microbatches})")
         self.shard, self.shards = shard_index, shard_count
+        self.group, self.microbatches = group, microbatches
         n = len(self.index)
         self.n_local = -(-n // shard_count)
         self.lo = shard_index * self.n_local
@@ -373,13 +388,64 @@ class ShardedDeviceCacheLoader(DeviceCacheLoader):
         for b in range(nb):
             yield padded[b * bl:(b + 1) * bl], valid[b * bl:(b + 1) * bl]
 
+    def _exchange_plan(self):
+        """(local rows of this rank's block in the order it sends them, on
+        the device; rows sent to each rank; rows received from each rank;
+        the global batch rows this rank ends up with) of every batch."""
+        bs, d = self.batch_size, self.shards
+        bl = bs // d
+        wants = [shard_rows(bs, d, t, self.microbatches) for t in range(d)]
+        own = np.arange(self.shard * bl, (self.shard + 1) * bl)
+        send = [w[(w >= own[0]) & (w <= own[-1])] - own[0] for w in wants]
+        mine = wants[self.shard]
+        recv = [int(((mine >= s * bl) & (mine < (s + 1) * bl)).sum())
+                for s in range(d)]
+        order = torch.from_numpy(np.concatenate(send)).to(self.device)
+        return order, [len(x) for x in send], recv, mine
+
+    def _exchange(self, flat: Dict[str, torch.Tensor], plan
+                  ) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the global batch from every rank's block of
+        flat rows: one all_to_all of the rows' bytes, in the order of the
+        global batch (each source's rows ascend, sources in rank order)."""
+        order, send, recv, _ = plan
+        keys = list(flat)
+        parts = [flat[k].view(torch.uint8) for k in keys]
+        rows = torch.cat(parts, 1)[order]
+        out = rows.new_empty((sum(recv), rows.shape[1]))
+        dist.all_to_all_single(out, rows, recv, send, group=self.group)
+        got, at = {}, 0
+        for k, p in zip(keys, parts):
+            got[k] = out[:, at:at + p.shape[1]].contiguous().view(
+                flat[k].dtype)
+            at += p.shape[1]
+        return got
+
     def __iter__(self) -> Iterator[Dict]:
         if self._cache is None:
             self._build_cache()
-        for ids, valid in self._epoch_plan():
+        plan = (self._exchange_plan()
+                if self.microbatches > 1 and self.shards > 1 else None)
+        for b, (ids, valid) in enumerate(self._epoch_plan()):
             idx = torch.from_numpy(np.ascontiguousarray(ids, np.int64)).to(
                 self.device)
-            batch = {k: torch.index_select(v, 0, idx).reshape(
-                (len(ids),) + self._spec[k][1]) for k, v in self._cache.items()}
+            flat = {k: torch.index_select(v, 0, idx)
+                    for k, v in self._cache.items()}
+            if plan is not None:
+                flat = self._exchange(flat, plan)
+                valid = self._global_valid(b)[plan[3]]
+            batch = {k: v.reshape((len(v),) + self._spec[k][1])
+                     for k, v in flat.items()}
             batch["valid"] = valid
             yield batch
+
+    def _global_valid(self, b: int) -> np.ndarray:
+        """``valid`` of global batch ``b``: every shard's block, in rank
+        order (shard s holds min(n_local, N - s·n_local) real samples,
+        first in its padded sequence)."""
+        bl = self.batch_size // self.shards
+        pos = np.arange(b * bl, (b + 1) * bl)
+        n = len(self.index)
+        return np.concatenate([
+            (pos < max(0, min(self.n_local, n - s * self.n_local)))
+            .astype(np.float32) for s in range(self.shards)])

@@ -16,9 +16,10 @@ with the map, the last layer runs the unfused chain that materializes it.
 
 Tensor parallelism (``parallel/tp.py`` cuts the shards): an ``Attention``
 or ``FeedForward`` whose ``tp_group`` is set holds this rank's shard of
-to_qkv/fc1 (column-parallel) and to_out/fc2 (row-parallel) and runs
-Megatron's pair of collectives (``parallel/collectives.py``) around them;
-fc2's bias is added once, after the reduce.
+each leaf named in ``tp_cuts`` (to_qkv/fc1 column-parallel, to_out/fc2
+row-parallel) and the whole of every other leaf, and runs Megatron's
+collectives (``parallel/collectives.py``) where a sharded tensor meets a
+replicated one; fc2's bias is added once, after the reduce.
 """
 
 from __future__ import annotations
@@ -42,7 +43,9 @@ from hgr_tpu_torch.ops.resize import upsample_bilinear_align_corners
 from hgr_tpu_torch.parallel.collectives import (
     copy_to_model,
     gather_cat,
+    gather_from_model,
     reduce_from_model,
+    scatter_to_model,
 )
 
 
@@ -56,10 +59,12 @@ class FeedForward(nn.Module):
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype)
         self.tp_group = None  # set by parallel.tp.make_tensor_parallel
+        self.tp_cuts = {}  # {leaf name: layout} of the leaves it shards
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm(x.float())
-        if self.tp_group is None:
+        # fc1 and fc2 share the hidden width: both are cut or neither is
+        if "fc2.weight" not in self.tp_cuts:
             return self.fc2(F.gelu(self.fc1(h)))
         h = F.gelu(self.fc1(copy_to_model(h, self.tp_group)))
         fc2 = self.fc2
@@ -74,10 +79,14 @@ class Attention(nn.Module):
     ``fused``: True routes the no-map case through ``fused_attention_qkv``,
     'split' through ``fused_attention_split`` (the tensor-parallel form,
     vit.py:118-126); False always takes the unfused chain. Under tensor
-    parallelism ``heads`` is this rank's head count; the map is then its
-    head group's, by the unfused chain, gathered over the model group in
-    head order into the full (B, heads, N, N) map (no gradient: it is an
-    output to look at).
+    parallelism with to_qkv cut by heads (layout 'qkv') ``heads`` is this
+    rank's head count; the map is then its head group's, by the unfused
+    chain, gathered over the model group in head order into the full
+    (B, heads, N, N) map (no gradient: it is an output to look at). With
+    to_qkv cut contiguously (layout 'rows': the heads do not divide by the
+    model axis) every rank gathers the whole qkv and attends over every
+    head; to_out then takes this rank's columns of the output where it is
+    row-parallel.
     """
 
     def __init__(self, dim: int, heads: int, head_dim: int,
@@ -91,13 +100,17 @@ class Attention(nn.Module):
         self.scale = head_dim**-0.5
         self.fused = fused
         self.tp_group = None  # set by parallel.tp.make_tensor_parallel
+        self.tp_cuts = {}  # {leaf name: layout} of the leaves it shards
 
     def forward(self, x: torch.Tensor, need_map: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         h = self.norm(x.float())
-        if self.tp_group is not None:
-            h = copy_to_model(h, self.tp_group)
+        group, qkv_cut = self.tp_group, self.tp_cuts.get("to_qkv.weight")
+        if qkv_cut is not None:
+            h = copy_to_model(h, group)
         qkv = self.to_qkv(h)
+        if qkv_cut == "rows":  # every head, on every model rank
+            qkv = gather_from_model(qkv, group)
         attn = None
         if need_map or not self.fused:
             q, k, v = split_heads(qkv, self.heads, self.head_dim)
@@ -112,13 +125,15 @@ class Attention(nn.Module):
         else:
             out = fused_attention_qkv(qkv.contiguous(), self.heads,
                                       self.head_dim, self.scale)
-        if self.tp_group is None:
+        if qkv_cut == "qkv" and attn is not None:  # the ranks' head groups
+            attn = gather_cat(attn, group, dim=1)
+        if "to_out.weight" not in self.tp_cuts:
             return self.to_out(out), attn
-        if attn is not None:  # the head groups of the ranks, in order
-            attn = gather_cat(attn, self.tp_group, dim=1)
+        if qkv_cut != "qkv":  # this rank's columns of every head's output
+            out = scatter_to_model(out, group)
         w = self.to_out.weight.to(self.to_out.dtype)
         part = F.linear(out.to(self.to_out.dtype), w)
-        return reduce_from_model(part, self.tp_group), attn
+        return reduce_from_model(part, group), attn
 
 
 class Transformer(nn.Module):

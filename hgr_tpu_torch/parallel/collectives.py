@@ -6,8 +6,8 @@ collectives XLA inserts for the JAX package's mesh, written out.
   statistics and the step's metrics use them over the data group.
 - ``gather_cat`` (no gradient) concatenates the ranks' tensors: the
   tensor-parallel attention map's head groups.
-- Megatron's pair of ``autograd.Function``s, for the tensor-parallel ViT
-  decoder (``parallel/tp.py``):
+- Megatron's ``autograd.Function``s, for the tensor-parallel ViT decoder
+  (``parallel/tp.py``):
 
   - ``copy_to_model``: identity forward, ``all_reduce`` of the cotangent
     over the model group backward, before a column-parallel layer
@@ -15,7 +15,15 @@ collectives XLA inserts for the JAX package's mesh, written out.
     gradient;
   - ``reduce_from_model``: ``all_reduce`` of the partial products
     forward, identity backward, after a row-parallel layer (to_out, fc2).
-    fc2's bias is added once, after the reduce.
+    fc2's bias is added once, after the reduce;
+  - ``gather_from_model``: the ranks' feature slices concatenated
+    forward, this rank's slice of the cotangent backward, after a
+    column-parallel layer whose consumer needs every feature (the qkv of
+    heads that do not divide by the model axis): downstream every rank
+    holds the same full cotangent, so the slice needs no sum;
+  - ``scatter_to_model``: this rank's feature slice forward, the ranks'
+    cotangent slices concatenated backward, before a row-parallel layer
+    fed by a replicated tensor.
 
 Rounding of the row-parallel partial sums in bf16: each rank's matmul
 rounds its partial product to bf16, the partials are widened to f32,
@@ -26,14 +34,15 @@ the single-rank layer, which rounds its full f32 product once.
 
 A group of None is a single rank: every function is then the identity.
 
-Every sum runs through the custom op ``hgr_tpu_torch::all_sum``, which
-takes its group by name (an operator's schema holds no process group).
-The autograd functions' backwards reach ``all_reduce`` only through it:
+Every sum runs through the custom op ``hgr_tpu_torch::all_sum``, and
+every concatenation through ``hgr_tpu_torch::all_gather_cat``; both take
+their group by name (an operator's schema holds no process group). The
+autograd functions' backwards reach a collective only through them:
 under ``torch.autograd.grad(..., is_grads_batched=True)`` (the batched
 de-mixed step) a backward receives batched wrappers without storage, and
 the legacy vmap calls an operator without a batching rule once per
-cotangent row, with real tensors. Each row then takes an all-reduce of
-its own: the same sum.
+cotangent row, with real tensors. Each row then takes a collective of
+its own: the same sum or concatenation.
 """
 
 from __future__ import annotations
@@ -58,6 +67,24 @@ def _all_sum_op(t: torch.Tensor, group_name: str) -> torch.Tensor:
 @_all_sum_op.register_fake
 def _(t, group_name):
     return torch.empty_like(t, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("hgr_tpu_torch::all_gather_cat", mutates_args=())
+def _all_gather_cat_op(t: torch.Tensor, group_name: str,
+                       dim: int) -> torch.Tensor:
+    require_storage("all_gather_cat", t)
+    group = _resolve_process_group(group_name)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+@_all_gather_cat_op.register_fake
+def _(t, group_name, dim):
+    shape = list(t.shape)
+    shape[dim] *= dist.get_world_size(_resolve_process_group(group_name))
+    return t.new_empty(shape)
 
 
 def all_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -117,15 +144,53 @@ def gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     with it."""
     if group is None:
         return t
-    t = t.detach().contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    return _all_gather_cat_op(t.detach() if t.requires_grad else t,
+                              group.group_name, dim)
+
+
+def _own_slice(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slice of ``t``'s last axis, one of the group's equal
+    slices in rank order."""
+    return t.chunk(dist.get_world_size(group), -1)[dist.get_rank(group)]
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return gather_cat(x, group, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_slice(g, ctx.group), None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _own_slice(x, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_cat(g, ctx.group, -1), None
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """Identity; the backward sums the cotangent over the model group."""
     return _CopyToModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The model group's slices of the last axis, concatenated in rank
+    order; the backward keeps this rank's slice of the cotangent."""
+    return _GatherFromModel.apply(x, group)
+
+
+def scatter_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slice of the last axis of a replicated ``x``; the
+    backward concatenates the ranks' cotangent slices."""
+    return _ScatterToModel.apply(x, group)
 
 
 def reduce_from_model(part: torch.Tensor, group,

@@ -4,7 +4,7 @@ hgr_tpu/parallel/mesh.py).
 A mesh ``{'data': D, 'model': M}`` places the D·M ranks row-major, as
 ``make_mesh`` orders the JAX devices: rank = d·M + m, with d the data
 index and m the model index. The ranks of one model group (same d) hold
-the same batch rows and one head group each of the ViT decoder; the
+the same batch rows and one shard each of the ViT decoder; the
 ranks of one data group (same m) hold the same shard and different rows.
 
 BatchNorm statistics are taken over the global batch (the JAX package's
@@ -14,12 +14,16 @@ single-device step at the global batch.
 
 Tensor parallelism (``TP_RULES``) shards the same parameters as the JAX
 rules (mesh.py:77-83): to_qkv and fc1 (weight and bias) column-parallel,
-to_out and fc2 row-parallel. One layout differs and the function does
-not: GSPMD cuts to_qkv's 3·H·D output features contiguously, while the
-port gives rank m the q, k and v rows of heads [m·H/M, (m+1)·H/M), one
-slice of each third, so that the rank's projection output is its own
-[q | k | v] and ``fused_attention_split`` runs on the local head group
-(``parallel/tp.py``).
+to_out and fc2 row-parallel, each leaf only where its sharded dimension
+divides by the model axis and replicated elsewhere (``param_shardings``,
+mesh.py:98-117). One layout differs and the function does not: where the
+model axis divides the heads, GSPMD cuts to_qkv's 3·H·D output features
+contiguously, while the port gives rank m the q, k and v rows of heads
+[m·H/M, (m+1)·H/M), one slice of each third, so that the rank's
+projection output is its own [q | k | v] and ``fused_attention_split``
+runs on the local head group (``parallel/tp.py``). Where the heads do
+not divide, to_qkv is cut contiguously, as GSPMD cuts it, and every
+model rank gathers the whole qkv and attends over all the heads.
 """
 
 from __future__ import annotations
@@ -52,21 +56,20 @@ def parse_mesh(spec: str) -> Dict[str, int]:
 def resolve_fused_attention(mesh_shape: Dict[str, int], heads: int = 8) -> Any:
     """The attention route for a mesh (mesh.py:29-45): the packed kernel
     without a real model axis, 'split' when the model axis divides the
-    head count, else False (the JAX package's GSPMD-sharded chain, which
-    the port refuses in ``make_mesh``/``make_tensor_parallel``)."""
+    head count, else False (the JAX package's GSPMD-sharded chain)."""
     tp = mesh_shape.get("model", 1) if mesh_shape else 1
     if tp <= 1:
         return True
     return "split" if heads % tp == 0 else False
 
 
-def check_heads(mesh_shape: Dict[str, int], heads: int) -> None:
-    """Raise where the JAX package would fall back to its chain."""
-    if resolve_fused_attention(mesh_shape, heads) is False:
-        raise NotImplementedError(
-            f"a model axis of {mesh_shape.get('model')} that does not divide "
-            f"the {heads} heads (the JAX package's GSPMD-sharded attention "
-            "chain) is not ported (ROADMAP A16)")
+def attention_route(mesh_shape: Dict[str, int], heads: int = 8) -> Any:
+    """The route the port builds its Attention with for a mesh:
+    ``resolve_fused_attention``'s, except that where the model axis does
+    not divide the heads (JAX's False) it is the packed kernel (True),
+    which every model rank runs over all the heads of the gathered qkv
+    in the place of JAX's GSPMD-sharded chain."""
+    return resolve_fused_attention(mesh_shape, heads) or True
 
 
 @dataclasses.dataclass
@@ -128,24 +131,35 @@ def make_mesh(shape: Dict[str, int]) -> Mesh:
     return mesh
 
 
-# Port parameter names -> how a tensor-parallel rank holds them: 'qkv'
-# (rows of its heads in each third), 'rows' (column-parallel: a slice of
-# the output features) or 'cols' (row-parallel: a slice of the input
-# features). Everything else is replicated.
-TP_RULES: Tuple[Tuple[str, str], ...] = (
-    (r".*transformer\.layers_\d+_attn\.to_qkv\.weight$", "qkv"),
-    (r".*transformer\.layers_\d+_attn\.to_out\.weight$", "cols"),
-    (r".*transformer\.layers_\d+_ff\.fc1\.weight$", "rows"),
-    (r".*transformer\.layers_\d+_ff\.fc1\.bias$", "rows"),
-    (r".*transformer\.layers_\d+_ff\.fc2\.weight$", "cols"),
+# Port parameter names -> the axis of the port's weight whose slices the
+# ranks of a model axis hold (the JAX kernels are the transposes): 0 for
+# the column-parallel layers (a slice of the output features), 1 for the
+# row-parallel ones (a slice of the input features).
+TP_RULES: Tuple[Tuple[str, int], ...] = (
+    (r".*transformer\.layers_\d+_attn\.to_qkv\.weight$", 0),
+    (r".*transformer\.layers_\d+_attn\.to_out\.weight$", 1),
+    (r".*transformer\.layers_\d+_ff\.fc1\.weight$", 0),
+    (r".*transformer\.layers_\d+_ff\.fc1\.bias$", 0),
+    (r".*transformer\.layers_\d+_ff\.fc2\.weight$", 1),
 )
 
 
-def tp_rule(name: str) -> Optional[str]:
-    """The sharding of parameter ``name`` under TP_RULES, or None."""
-    for pattern, kind in TP_RULES:
+def tp_layout(name: str, shape, model_size: int,
+              heads: Optional[int] = None) -> Optional[str]:
+    """How a rank of a model axis of ``model_size`` holds parameter
+    ``name`` of ``shape``: None (replicated) where no rule names it or
+    its sharded dimension does not divide (JAX's ``param_shardings``);
+    else 'rows' or 'cols', a contiguous slice along axis 0 or 1, or, for
+    to_qkv when ``model_size`` divides its ``heads``, 'qkv' (the rows of
+    the rank's heads in each third)."""
+    for pattern, axis in TP_RULES:
         if re.match(pattern, name):
-            return kind
+            if shape[axis] % model_size:
+                return None
+            if name.endswith("to_qkv.weight") and heads \
+                    and heads % model_size == 0:
+                return "qkv"
+            return "cols" if axis else "rows"
     return None
 
 

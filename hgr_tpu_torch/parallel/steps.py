@@ -81,7 +81,7 @@ def shard_state(state: TrainState, mesh: Mesh,
     opt = state.optimizer.defaults
     state.optimizer = adamw(state.model.parameters(), opt["lr"],
                             opt["weight_decay"])
-    return load_payload(state, tp.shard_state(full, mesh))
+    return load_payload(state, tp.shard_state(full, mesh, state.model))
 
 
 def make_parallel_train_step(mesh: Mesh, aug_cfg: AugmentConfig,

@@ -155,7 +155,7 @@ class CheckpointManager:
               metric: Optional[float] = None) -> None:
         payload = state_payload(state)
         if self.mesh is not None:
-            payload = gather_state(payload, self.mesh)
+            payload = gather_state(payload, self.mesh, state.model)
             if not distributed.is_coordinator():
                 return
         payload = _to_host(payload)
@@ -218,7 +218,8 @@ class CheckpointManager:
         if self.mesh is None:
             return load_payload(state, self._read(name))
         distributed.barrier()
-        return load_payload(state, shard_state(self._read(name), self.mesh))
+        return load_payload(state, shard_state(self._read(name), self.mesh,
+                                               state.model))
 
     def _read(self, name: str) -> dict:
         return torch.load(self.path(name), map_location="cpu",

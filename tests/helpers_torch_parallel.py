@@ -3,7 +3,9 @@ only (a spawned child imports this module, not the test module).
 
 ``spawn_mesh(mesh_shape, inputs, variants, out_dir)`` starts one process
 per rank of the mesh over gloo on the CPU; every rank runs every variant
-on its rows of the global batch and rank 0 writes what the tests compare
+on its rows of the global batch (a variant may name another full state
+of ``inputs`` under 'state' and the model's widths under 'model_kw') and
+rank 0 writes what the tests compare
 (the gathered full gradients, parameters, AdamW moments and BatchNorm
 statistics, and the global metrics) to ``<out_dir>/<variant>.pt``.
 """
@@ -69,12 +71,13 @@ def inject(params):
     steps.draw_augment_params = draw
 
 
-def build_state(full_state, dtype=torch.float32, fused_attention=True):
+def build_state(full_state, dtype=torch.float32, fused_attention=True,
+                **model_kw):
     from hgr_tpu_torch.models import MultiTaskNet
     from hgr_tpu_torch.train.state import create_train_state
 
     model = MultiTaskNet(image_size=(IMAGE, IMAGE), dtype=dtype,
-                         fused_attention=fused_attention)
+                         fused_attention=fused_attention, **model_kw)
     model.load_state_dict(full_state, strict=True)
     return create_train_state(model, lr=LR, milestones_steps=(1000,),
                               device="cpu")
@@ -91,23 +94,28 @@ def moments(payload):
             if pid in opt["state"]}
 
 
-def run_variant(v, full_state, batch, mesh=None):
+def run_variant(v, full_state, batch, mesh=None, model_kw=None):
     """One variant on this process (``mesh``: its rows, with the data
-    ranks' hooks): (metrics, grads, state payload), full trees; the
-    payload holds the step, the model state dict, the AdamW moments and
-    the attention route of the first layer."""
+    ranks' hooks) of the model of ``model_kw`` (MultiTaskNet's widths):
+    (metrics, grads, state payload), full trees; the payload holds the
+    step, the model state dict, the AdamW moments and the attention route
+    of the first layer. With ``v['save']`` a directory, the state after
+    the step is saved there as checkpoint 'last'."""
     from hgr_tpu_torch.config import AugmentConfig
     from hgr_tpu_torch.models import layers
     from hgr_tpu_torch.parallel import steps as psteps
-    from hgr_tpu_torch.parallel.mesh import shard_batch
-    from hgr_tpu_torch.parallel.tp import gather_state
+    from hgr_tpu_torch.parallel.mesh import attention_route, shard_batch
+    from hgr_tpu_torch.parallel.tp import gather_state, layouts
     from hgr_tpu_torch.train import steps
-    from hgr_tpu_torch.train.checkpoint import state_payload
+    from hgr_tpu_torch.train.checkpoint import CheckpointManager, state_payload
 
+    model_kw = model_kw or {}
     layers._FUSED_BN = bool(v.get("fused_bn"))
     try:
-        fused = "split" if mesh is not None and mesh.tensor_parallel else True
-        state = build_state(full_state, fused_attention=v.get("attn", fused))
+        fused = attention_route(mesh.shape if mesh else {},
+                                model_kw.get("heads", 8))
+        state = build_state(full_state, fused_attention=v.get("attn", fused),
+                            **model_kw)
         kw = dict(STEP_KW)
         micro = v.get("grad_accum", 1)
         if mesh is not None:
@@ -128,8 +136,13 @@ def run_variant(v, full_state, batch, mesh=None):
             grads = metrics.pop("_grads")
         payload = state_payload(state)
         if mesh is not None:
-            grads = gather_state({"step": 0, "model": grads}, mesh)["model"]
-            payload = gather_state(payload, mesh)
+            grads = gather_state({"step": 0, "model": grads}, mesh,
+                                 state.model)["model"]
+            payload = gather_state(payload, mesh, state.model)
+        if v.get("save"):
+            ckpt = CheckpointManager(v["save"], mesh=mesh)
+            ckpt.save_last(state)
+            ckpt.wait()
     finally:
         layers._FUSED_BN = None
     metrics = {k: v.detach().clone() for k, v in metrics.items()}
@@ -137,22 +150,27 @@ def run_variant(v, full_state, batch, mesh=None):
     return metrics, grads, {"step": payload["step"],
                             "model": dict(payload["model"]),
                             "moments": moments(payload),
-                            "attention": (attn.fused, attn.heads)}
+                            "attention": (attn.fused, attn.heads),
+                            "cuts": layouts(state.model)}
 
 
-def roundtrip(full_state, mesh):
+def roundtrip(full_state, mesh, model_kw=None):
     """A full state with AdamW moments (one update from seeded gradients),
     cut to this rank's share and gathered back."""
+    from hgr_tpu_torch.parallel import steps as psteps
     from hgr_tpu_torch.parallel.tp import gather_state, shard_state
     from hgr_tpu_torch.train.checkpoint import state_payload
 
-    state = build_state(full_state)
+    model_kw = model_kw or {}
+    state = build_state(full_state, **model_kw)
     gen = torch.Generator().manual_seed(0)
     state.apply_gradients({k: torch.randn(p.shape, generator=gen)
                            for k, p in state.model.named_parameters()})
     full = state_payload(state)
-    return {"full": full, "back": gather_state(shard_state(full, mesh),
-                                               mesh)}
+    rank = psteps.shard_state(build_state(full_state, **model_kw), mesh,
+                              True).model  # the layouts of this rank's cut
+    return {"full": full, "back": gather_state(shard_state(full, mesh, rank),
+                                               mesh, rank)}
 
 
 def _rank(rank, world, port, mesh_shape, in_path, variants, out_dir):
@@ -166,9 +184,9 @@ def _rank(rank, world, port, mesh_shape, in_path, variants, out_dir):
         inject(inputs["params"])
         mesh = make_mesh(mesh_shape)
         for v in variants:
-            out = (roundtrip(inputs["state"], mesh) if v["kind"] == "roundtrip"
-                   else run_variant(v, inputs["state"], inputs["batch"],
-                                    mesh))
+            full, kw = inputs[v.get("state", "state")], v.get("model_kw")
+            out = (roundtrip(full, mesh, kw) if v["kind"] == "roundtrip"
+                   else run_variant(v, full, inputs["batch"], mesh, kw))
             if rank == 0:
                 torch.save(out, os.path.join(out_dir, v["name"] + ".pt"))
     finally:

@@ -324,14 +324,9 @@ def test_resolve_fused_attention_matches_jax(shape, heads):
             == jax_mesh.resolve_fused_attention(shape, heads))
 
 
-def test_model_axis_not_dividing_heads_raises_naming_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A16"):
-        mesh.check_heads({"data": 2, "model": 3}, 8)
-
-
-def test_tp_rules_shard_the_jax_rules_parameters(variables):
-    """The port shards exactly the leaves TP_RULES shards in JAX."""
-    jmesh = jax_mesh.make_mesh({"data": 4, "model": 2})
+def _sharded_leaves(variables, shape):
+    """(the leaves the port shards on ``shape``, those JAX shards)."""
+    jmesh = jax_mesh.make_mesh(shape)
     sh = jax_mesh.param_shardings(variables["params"], jmesh,
                                   jax_mesh.TP_RULES)
     marked = jax.tree_util.tree_map(
@@ -340,8 +335,25 @@ def test_tp_rules_shard_the_jax_rules_parameters(variables):
                              np.float32), sh, variables["params"])
     want = {k for k, v in from_flax({"params": marked}).items()
             if float(v.sum())}
-    got = {k for k in from_flax(variables) if mesh.tp_rule(k)}
+    got = {k for k, v in from_flax(variables).items()
+           if mesh.tp_layout(k, v.shape, shape["model"], 8)}
+    return got, want
+
+
+def test_tp_rules_shard_the_jax_rules_parameters(variables):
+    """The port shards exactly the leaves TP_RULES shards in JAX."""
+    got, want = _sharded_leaves(variables, {"data": 4, "model": 2})
     assert got == want and len(got) == 5 * 4
+
+
+@pytest.mark.parametrize("shape", [{"data": 2, "model": 3},
+                                   {"data": 1, "model": 6}])
+def test_tp_rules_shard_only_the_leaves_that_divide(variables, shape):
+    """3 or 6 ranks divide to_qkv's 768 columns and none of the 256-wide
+    leaves: JAX and the port shard to_qkv alone."""
+    got, want = _sharded_leaves(variables, shape)
+    assert got == want and len(got) == 4
+    assert all(k.endswith("to_qkv.weight") for k in got)
 
 
 def test_shard_rows_layout():
@@ -482,15 +494,25 @@ def test_cli_2x2_mesh_trains_and_its_checkpoint_restores_on_one_rank(
     (["--distributed", "h:1,2,0"], SystemExit),
     (["--distributed", "h:1,2,0", "--mesh", "data=4"], SystemExit),
     (["--mesh", "data=2", "--grad_accum", "4"], SystemExit),
-    (["--mesh", "data=1,model=3"], NotImplementedError),
-    (["--mesh", "data=2", "--device_cache", "--grad_accum", "2"],
-     NotImplementedError),
     (["--mesh", "data=4", "--host_device_count", "2"], ValueError),
 ])
 def test_cli_mirrors_the_jax_mesh_refusals(tmp_path, extra, error):
     with pytest.raises(error):
         cli.run(cli.parse_args(_argv(tmp_path, *extra)),
                 DataConfig(names=dict(DEFAULT_NAMES)))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--mesh", "data=1,model=3"],
+    ["--mesh", "data=2,model=3"],
+    ["--mesh", "data=2", "--device_cache", "--grad_accum", "2"]])
+def test_cli_accepts_the_meshes_the_jax_cli_accepts(tmp_path, extra):
+    """A model axis that does not divide the heads, and the sharded device
+    cache with accumulation, pass the CLI's checks as in JAX (both run
+    through ``cli.run`` in tests/test_torch_tp_uneven.py and
+    tests/test_torch_cache_accum.py)."""
+    args = cli.parse_args(_argv(tmp_path, *extra))
+    assert cli._check_mesh(args, mesh.parse_mesh(args.mesh), 1) is None
 
 
 def test_cuda_ranks_without_a_card_each_raise(monkeypatch, tmp_path):
