@@ -29,7 +29,10 @@ random weights:
 - longer sequences and wider heads: a bf16 train step at 448 px (N =
   785, the attention backward key-chunked), an f32 step at 320 px (N =
   401) and a bf16 step of the model with 2 heads x 256, each with fused
-  BN off and on, and the bf16 serving forward at 448 px;
+  BN off and on, and the bf16 serving forward at 448 px (before the
+  paths, the kernels' two routes are timed against each other over a
+  sweep of lengths, with the same bits, and the f32 bodies' SASS is
+  checked for the tensor cores' TF32 mma);
 - two-stage detection: YOLOv7-tiny at 416 px with the repository's
   detector weights (tests/fixtures/yolo_smoke_weights.npz) -> crop ->
   MultiTaskNet small at 192 px, on synthetic 360x640 scenes with one
@@ -145,6 +148,17 @@ TURN_WARMUP, TURN_STEPS = 2, 6
 # bf16 tensor cores, 67 TFLOP/s float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# The f32 attention bodies run on the tensor cores by a three-way TF32
+# split (three products for each of f32): their second bound counts 3x the
+# operations at the 495 TFLOP/s TF32 peak.
+TF32_PEAK_FLOPS, TF32_TERMS = 495e12, 3
+# the route sweep: both routes of each attention kernel, timed in turns,
+# their bits compared: bf16 at (64, n, 768) for each n here, and f32 at
+# the --dtype mixed step's (256, 145, 768)
+ROUTE_SWEEP = [(kernel, 64, n, "bfloat16") for kernel, lengths in (
+    ("fwd", (145, 257, 401, 481, 577, 689, 785, 961)),
+    ("bwd", (145, 257, 401, 481, 577, 688))) for n in lengths] + [
+    (kernel, TRAIN_BATCH, 145, "float32") for kernel in ("fwd", "bwd")]
 # Kernel vs its plain version on the card: the JAX kernel tests' own
 # tolerances (tests/test_attention_pallas.py); bf16 output is one rounding
 # of an f32 sum whose order differs, so one bf16 ulp at |out| < 2.
@@ -332,6 +346,7 @@ def build_phase():
         for dtype, code in (("float32", 0), ("bfloat16", 1))
         for n in (145, 785) for d in (HEAD_DIM, 256, 512)}
         for name in ("attention_qkv_fwd", "attention_qkv_bwd")}
+    tf32 = _tf32_entries(built)
     for name in SOURCES:
         b = built[name]
         emit({"build": {
@@ -347,7 +362,35 @@ def build_phase():
                           r".*?(Used \d+ registers[^\n]*)",
                           b.ptxas_log, flags=re.S)],
             "dynamic_smem_per_block": smem.get(name, {}),
+            "tf32_mma_per_f32_entry": tf32.get(name, {}),
         }})
+
+
+def _tf32_entries(built) -> dict:
+    """Per attention source, each f32 entry function (``*_tf32_*``) with
+    the count of HMMA.1688.F32.TF32 instructions in its SASS (cuobjdump):
+    the f32 bodies run on the tensor cores. Fails if one has none."""
+    from hgr_tpu_torch.utils.cuda_build import _nvcc
+
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    found = {}
+    for name in ("attention_qkv_fwd", "attention_qkv_bwd"):
+        sass = subprocess.run([cuobjdump, "-sass", str(built[name].path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        entry, counts = None, {}
+        for line in sass.splitlines():
+            head = re.search(r"Function : (\w+)", line)
+            if head:
+                entry = head.group(1) if "tf32" in head.group(1) else None
+                if entry:
+                    counts[entry] = 0
+            elif entry and "HMMA.1688.F32.TF32" in line:
+                counts[entry] += 1
+        check(counts and all(counts.values()),
+              f"{name}: f32 entries without HMMA.1688.F32.TF32: {counts}")
+        found[name] = counts
+    return found
 
 
 def kernel_phase(torch):
@@ -412,10 +455,19 @@ def kernel_phase(torch):
 
 
 def _bound(nbytes: float, flops: float, dtype: str):
+    """The least time of the function on the card: bytes over the memory
+    rate against operations over the dtype's peak (f32: the CUDA cores').
+    f32 rows also carry the bound of a tensor-core design that keeps f32
+    accuracy (``tc_bound_ms``: three TF32 products per f32 one)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    row = {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if dtype == "float32":
+        t_tc = TF32_TERMS * flops / TF32_PEAK_FLOPS * 1e3
+        row.update(tc_bound_ms=max(t_bytes, t_tc),
+                   tc_bound_by="bytes" if t_bytes >= t_tc else "operations")
+    return row
 
 
 def _alternate(torch, fns, iters: int = 50) -> dict:
@@ -859,6 +911,52 @@ def c2_wider_phase(torch) -> list:
         del qkv, g, out, ref, dx, dref, diff, s_out, s_d, ops
         torch.cuda.empty_cache()
     emit({"kernel_checks_c2_wider": rows})
+    return rows
+
+
+def route_phase(torch) -> list:
+    """The route sweep: for each (kernel, batch, n, dtype) of ROUTE_SWEEP,
+    the kernel on the whole-sequence route (where one block holds the
+    head) and on the key-chunked route (``launch_on_route``), timed in
+    turns, with the route the rule takes (``kernel_route``). The two
+    routes must give the same bits, and the entry point those of its
+    route."""
+    from hgr_tpu_torch.ops import attention as A
+
+    rows = []
+    for kernel, b, n, dtype in ROUTE_SWEEP:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(n * 3 + 1)
+        qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
+                          generator=gen).to(dt)
+        g = torch.randn(b, n, HEADS * HEAD_DIM, device="cuda",
+                        generator=gen).to(dt)
+        cot = g if kernel == "bwd" else None
+        outs, fns = {}, {}
+        for r in (0, 1):
+            try:
+                outs[r] = A.launch_on_route(kernel, r, qkv, HEADS, HEAD_DIM,
+                                            SCALE, cot)
+            except ValueError:  # no whole-sequence route at this n
+                continue
+            fns[f"route{r}"] = (lambda r=r: A.launch_on_route(
+                kernel, r, qkv, HEADS, HEAD_DIM, SCALE, cot))
+        rule = A.kernel_route(kernel, n, HEAD_DIM, dt)
+        entry = (A.fused_attention_qkv(qkv, HEADS, HEAD_DIM, SCALE)
+                 if kernel == "fwd" else
+                 A.fused_attention_qkv_bwd(qkv, g, HEADS, HEAD_DIM, SCALE))
+        row = {"kernel": f"attention_qkv_{kernel}", "dtype": dtype,
+               "shape": [b, n, 3 * HEADS * HEAD_DIM], "rule_route": rule,
+               "entry_is_its_route": bool(torch.equal(entry, outs[rule])),
+               "same_bits": (bool(torch.equal(outs[0], outs[1]))
+                             if 0 in outs else None)}
+        timed = _alternate(torch, fns, iters=10)
+        row.update({k: v for k, v in timed.items() if k != "runs_ms"})
+        check(row["entry_is_its_route"] and row["same_bits"] is not False,
+              f"routes at {row['shape']} {dtype}: {row}")
+        rows.append(row)
+        del qkv, g, outs, entry
+    emit({"routes": rows})
     return rows
 
 
@@ -4209,6 +4307,7 @@ def main() -> int:
     rows.update(split_kernel_phase(torch))
     c2_kernel_phase(torch)
     c2_wider_phase(torch)
+    route_phase(torch)
     single_path = [k for k in KERNELS if "split" not in k]
 
     # main path 1, serving: counts at 0 just before, read just after

@@ -46,6 +46,18 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) & ~15; }
 
+// Shared memory one H100 block may use; one SM's (228 KB), of which each
+// resident block reserves 1 KB.
+constexpr size_t kSmemLimit = 232448;
+constexpr size_t kSmemPerSm = 233472;
+constexpr size_t kSmemReservedPerBlock = 1024;
+
+// Blocks with ``smem`` bytes of dynamic shared memory that one SM holds
+// (the attention kernels' route rules count them).
+inline int blocks_per_sm(size_t smem) {
+  return static_cast<int>(kSmemPerSm / (smem + kSmemReservedPerBlock));
+}
+
 // The padded head width of the bodies for a head width d (1..256).
 __host__ __device__ inline int padded_width(int d) {
   return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;

@@ -47,20 +47,29 @@
 // bf16): the function must move 33.26 MB (qkv 14.25 MB and g 4.75 MB read
 // once, the gradient 14.25 MB written once), 9.9 us at 3.35 TB/s, against
 // 10 N^2 D H B = 3.44 GFLOP for the five products, 3.5 us at 989 TFLOP/s.
-// The kernel is memory-bound.
+// The kernel is memory-bound. In f32 at the --dtype mixed training shape
+// (B=256, N=145): 266 MB, 79 us, against 13.8 GFLOP, 206 us on the CUDA
+// cores and 83.5 us as the three TF32 products of this body (3 x 13.8
+// GFLOP at 495 TFLOP/s): on the tensor cores it is bound by its
+// operations.
 //
 // Two bodies, chosen by the compute type, no atomics anywhere, so the
 // result is deterministic, and both in two phases: query rows give dq and
-// the rows' softmax statistics (max, sum, rd), then key rows give dk and
-// dv from those statistics. While the head's Q, K, V and G fit in one
-// block's shared memory (n <= 688 at D = 32 in bf16, n <= 384 in f32),
-// both phases run in one block per (head, image) with the statistics in
-// shared memory. Past that, the key-chunked route runs the phases as two
-// kernels: one over query tiles (dq and the statistics, K and V streamed
-// through shared memory in chunks), then one over key tiles (dk and dv, Q,
-// G and the statistics streamed likewise); the statistics pass through a
-// (B, H, 3, pad16(N)) f32 scratch that the wrapper allocates. Each
-// gradient element is still summed by one thread in a fixed order.
+// the rows' softmax statistics (max, 1 / sum, rd), then key rows give dk
+// and dv from those statistics. While an SM holds two blocks that stage
+// the head's whole Q, K, V and G (n <= 336 at D = 32 in bf16, n <= 192 in
+// f32), both phases run in one block per (head, image) with the
+// statistics in shared memory. Past that, the key-chunked route runs the
+// phases as two kernels: one over query tiles (dq and the statistics, K
+// and V streamed through shared memory in chunks), then one over key
+// tiles (dk and dv, Q, G and the statistics streamed likewise); the
+// statistics pass through a (B, H, 3, pad16(N)) f32 scratch that the
+// wrapper allocates. Each gradient element is still summed by one thread
+// in a fixed order, and both routes take the same steps in the same
+// order: they give the same bits. The rule is the measured crossover:
+// timed at (64, n, 768) bf16 on an H100 (chip_smoke's route sweep), the
+// whole body took 0.319 ms against the chunked 0.334 at n = 257 (two
+// blocks an SM) and 1.122 against 0.683 at n = 401 (one block an SM).
 //
 // bf16 (every train path): Hopper's tensor cores through
 // mma.sync.aligned.m16n8k16 bf16 -> f32 (attention_mma.cuh). The block
@@ -94,23 +103,23 @@
 // key-chunked kernels take the same 16-row steps in the same order, so
 // they compute the same bits as the whole-sequence body would.
 //
-// f32 (the check paths' type, kept at 1e-4) keeps the CUDA-core body: it
-// stages Q, K, V and G (widened to f32, rows padded to Dp + 1 floats so
-// that lane j reading row j hits 32 distinct banks) by 16-byte loads;
-//   1. query rows, one warp per row: lane j computes s, dA for keys
-//      j, j + 32, ...; the warp reduces the softmax max and sum and the
-//      row sum of dA P with shuffles; lane f then sums dq_i[f] (features
-//      f, f + 32, ...) over the keys. The row's max, sum and dA.P sum go
-//      to shared memory.
-//   2. key rows, one warp per key j: lane i recomputes s, P and dA for
-//      queries i, i + 32, ... from the saved statistics, and lane f sums
-//      dk_j[f] and dv_j[f] over the queries. Both phases round the scaled
-//      score with __fmul_rn, which nvcc never contracts into the next
-//      subtraction, and then take the same instructions in the same
-//      order, so P and dS have the same bits in both phases.
-// Its key-chunked kernels stage 32 rows of one side and 64 of the other
-// at a time; in the query kernel each lane keeps a running max, sum and
-// dA-weighted sum over its keys (merged across the warp after the sweep).
+// f32 (--dtype mixed's decoder, the check paths; gradients held at 1e-4):
+// the bf16 body's phases, routes and order on the tensor cores by a
+// three-way TF32 split of every operand of the five products
+// (attention_tf32.cuh): x . y as big_x small_y + small_x big_y +
+// big_x big_y on m16n8k8 TF32 mma (one TF32 term misses the gradients by
+// ~1e-3). Q, K, V and G are staged as f32 rows of Dp + 4 floats (4 (Dp +
+// 4) * 4 + 12 bytes per padded row, 94,080 at N = 145) and split in
+// registers as their fragments load; the A tiles (Q and G, then K and V)
+// are read from shared memory a step of 8 features at a time for 4 tiles
+// (32 rows) of the other side. dS and P stay f32 (dv = P^T G with P
+// unrounded, as the forward multiplies V by it); as A operands they are
+// the S and dA accumulators, the 8 queries or keys of each step taken in
+// the permuted order of attention_tf32.cuh. Phase 2's S^T = K Q^T and
+// dA^T = V G^T take the cross terms in the order of phase 1's S = Q K^T
+// and dA = G V^T, so the tensor cores give both phases the same score bits
+// (tools/probe_score_bits.py --dtype float32: none differ) and the same P
+// and dS. PERF.md section 6 has this body's times beside SDPA's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,83 +129,13 @@
 #include <type_traits>
 
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 #include "attention_wide.cuh"
 
 namespace {
 
 namespace tc = attn_mma;
-
-constexpr int kWarps = 8;               // warps per block (f32 bodies)
-constexpr int kRowsPerWarp = 4;         // rows each warp walks (chunked)
-constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-constexpr int kLongKeys = 64;           // rows per chunk, f32 chunked route
-constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kSmemLimit = 232448;   // bytes one H100 block may use
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// a . b over Dp features (registers or shared memory); the one order
-// every phase uses. At Dp = 256 (shared memory only) in unrolled steps of
-// 32 features: a full unroll spills.
-template <int Dp>
-__device__ __forceinline__ float dot(const float* a, const float* b) {
-  float s = 0.f;
-  if constexpr (Dp > 128) {
-#pragma unroll 1
-    for (int f0 = 0; f0 < Dp; f0 += 32) {
-#pragma unroll
-      for (int f = f0; f < f0 + 32; ++f) s = fmaf(a[f], b[f], s);
-    }
-  } else {
-#pragma unroll
-    for (int f = 0; f < Dp; ++f) s = fmaf(a[f], b[f], s);
-  }
-  return s;
-}
-
-// Stage n rows of one head (d features, row stride ``row`` elements) into
-// shared memory as f32 rows of Dp + 1 floats, features d..Dp-1 zero:
-// 16-byte loads when the rows allow them (every layout the callers pass
-// in practice), else one element per thread. The staged values are the
-// same either way.
-template <int Dp>
-__device__ __forceinline__ void stage_f32(const float* __restrict__ src,
-                                          int64_t row, float* dst, int n,
-                                          int d) {
-  constexpr int kS = Dp + 1;
-  constexpr int kChunks = Dp / 4;
-  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % 4 == 0 &&
-      d % 4 == 0) {
-    const int dc = d >> 2;
-    for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
-      const int j = idx / kChunks;
-      const int c = idx - j * kChunks;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c < dc) v = *reinterpret_cast<const float4*>(src + j * row + c * 4);
-      float* o = dst + j * kS + c * 4;
-      o[0] = v.x;
-      o[1] = v.y;
-      o[2] = v.z;
-      o[3] = v.w;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < n * Dp; idx += blockDim.x) {
-      const int j = idx / Dp;
-      const int f = idx - j * Dp;
-      dst[j * kS + f] = f < d ? src[j * row + f] : 0.f;
-    }
-  }
-}
+namespace tf = attn_tf32;
 
 // One (B, N, H*D) operand: element strides between images and rows.
 template <typename P>
@@ -216,348 +155,25 @@ struct Operands {
   Operand<T> dq, dk, dv;
 };
 
-// The lane's first feature: lanes 16..31 repeat lanes 0..15's at Dp = 16
-// (and store nothing).
-template <int Dp>
-__device__ __forceinline__ int first_feature(int lane) {
-  return Dp < 32 ? (lane & (Dp - 1)) : lane;
-}
-
-// Store a lane's features f0, f0 + 32, ... of one row.
-template <int Dp>
-__device__ __forceinline__ void store_lane(float* dst, const float* acc,
-                                           int f0, int d, int lane) {
-#pragma unroll
-  for (int t = 0; t < (Dp + 31) / 32; ++t) {
-    const int f = f0 + 32 * t;
-    if (f < d && (Dp >= 32 || lane < Dp)) dst[f] = acc[t];
-  }
-}
-
 // The statistics scratch of the key-chunked routes: (B, H, 3, npad) f32,
-// the rows' max, sum (f32 body) or 1 / sum (bf16 body), and rd.
+// the rows' max, 1 / sum and rd.
 __device__ __forceinline__ float* stats_of(float* stats, int b, int h,
                                            int heads, int npad) {
   return stats + (static_cast<int64_t>(b) * heads + h) * 3 * npad;
-}
-
-template <int Dp>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_kernel(const Operands<float> ops, int n, int d, float scale) {
-  constexpr int kS = Dp + 1;              // padded row (bank conflicts)
-  constexpr int kSlots = (Dp + 31) / 32;  // features per lane
-  extern __shared__ float smem[];
-  float* qs = smem;                     // n * kS each
-  float* ks = qs + n * kS;
-  float* vs = ks + n * kS;
-  float* gs = vs + n * kS;
-  float* row_max = gs + n * kS;         // n each: phase 1 statistics
-  float* row_sum = row_max + n;
-  float* row_dot = row_sum + n;
-  float* scratch = row_dot + n;         // 2 * n per warp
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int f0 = first_feature<Dp>(lane);
-
-  stage_f32<Dp>(ops.q.head(b, h, d), ops.q.row, qs, n, d);
-  stage_f32<Dp>(ops.k.head(b, h, d), ops.k.row, ks, n, d);
-  stage_f32<Dp>(ops.v.head(b, h, d), ops.v.row, vs, n, d);
-  stage_f32<Dp>(ops.g.head(b, h, d), ops.g.row, gs, n, d);
-  float* __restrict__ dqh = ops.dq.head(b, h, d);
-  float* __restrict__ dkh = ops.dk.head(b, h, d);
-  float* __restrict__ dvh = ops.dv.head(b, h, d);
-  __syncthreads();
-
-  float* pa = scratch + warp * 2 * n;  // this warp's two rows
-  float* pb = pa + n;
-  float a[Dp], c[Dp];
-
-  // ---- phase 1: query rows -> dq, row statistics
-  for (int i = warp; i < n; i += kWarps) {
-#pragma unroll
-    for (int f = 0; f < Dp; ++f) {
-      a[f] = qs[i * kS + f];
-      c[f] = gs[i * kS + f];
-    }
-    float m = -INFINITY;
-    for (int j = lane; j < n; j += 32) {
-      const float s = __fmul_rn(dot<Dp>(a, ks + j * kS), scale);
-      pa[j] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < n; j += 32) l += expf(pa[j] - m);
-    l = warp_sum(l);
-    float rd = 0.f;
-    for (int j = lane; j < n; j += 32) {
-      const float p = expf(pa[j] - m) / l;
-      const float da = dot<Dp>(c, vs + j * kS);
-      pa[j] = p;
-      pb[j] = da;
-      rd += da * p;
-    }
-    rd = warp_sum(rd);
-    for (int j = lane; j < n; j += 32) pb[j] = pa[j] * (pb[j] - rd) * scale;
-    __syncwarp();
-    float dq[kSlots] = {};
-    for (int j = 0; j < n; ++j) {
-#pragma unroll
-      for (int t = 0; t < kSlots; ++t) {
-        dq[t] = fmaf(pb[j], ks[j * kS + f0 + 32 * t], dq[t]);
-      }
-    }
-    store_lane<Dp>(dqh + i * ops.dq.row, dq, f0, d, lane);
-    if (lane == 0) {
-      row_max[i] = m;
-      row_sum[i] = l;
-      row_dot[i] = rd;
-    }
-    __syncwarp();  // pa, pb are rewritten by the warp's next row
-  }
-  __syncthreads();
-
-  // ---- phase 2: key rows -> dk, dv
-  for (int j = warp; j < n; j += kWarps) {
-    const float* kj = ks + j * kS;
-    const float* vj = vs + j * kS;
-    for (int i = lane; i < n; i += 32) {
-#pragma unroll
-      for (int f = 0; f < Dp; ++f) {
-        a[f] = qs[i * kS + f];
-        c[f] = gs[i * kS + f];
-      }
-      const float s = __fmul_rn(dot<Dp>(a, kj), scale);
-      const float p = expf(s - row_max[i]) / row_sum[i];
-      const float da = dot<Dp>(c, vj);
-      pa[i] = p * (da - row_dot[i]) * scale;
-      pb[i] = p;
-    }
-    __syncwarp();
-    float dk[kSlots] = {}, dv[kSlots] = {};
-    for (int i = 0; i < n; ++i) {
-#pragma unroll
-      for (int t = 0; t < kSlots; ++t) {
-        dk[t] = fmaf(pa[i], qs[i * kS + f0 + 32 * t], dk[t]);
-        dv[t] = fmaf(pb[i], gs[i * kS + f0 + 32 * t], dv[t]);
-      }
-    }
-    store_lane<Dp>(dkh + j * ops.dk.row, dk, f0, d, lane);
-    store_lane<Dp>(dvh + j * ops.dv.row, dv, f0, d, lane);
-    __syncwarp();
-  }
-}
-
-// f32 key-chunked route, phase 1: one block per 32 query rows (4 per
-// warp), K and V kLongKeys rows at a time -> dq and the rows' max, sum
-// and rd in ``stats``. At Dp = 256 one block an SM is asked for: ptxas
-// otherwise caps the kernel at 64 registers and spills (0: the narrower
-// bodies as they were).
-template <int Dp>
-__global__ void __launch_bounds__(kWarps * 32, Dp > 128 ? 1 : 0)
-attention_bwd_q_kernel(const Operands<float> ops, float* __restrict__ stats,
-                       int n, int heads, int d, float scale) {
-  constexpr int kS = Dp + 1;
-  constexpr int kSlots = (Dp + 31) / 32;
-  extern __shared__ float smem[];
-  float* qs = smem;                            // kRowsPerBlock * kS each
-  float* gs = qs + kRowsPerBlock * kS;
-  float* ks = gs + kRowsPerBlock * kS;         // kLongKeys * kS each
-  float* vs = ks + kLongKeys * kS;
-  float* ps = vs + kLongKeys * kS;             // kWarps * kLongKeys
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int f0 = first_feature<Dp>(lane);
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, n - row0);
-  const float* kh = ops.k.head(b, h, d);
-  const float* vh = ops.v.head(b, h, d);
-  float* p = ps + warp * kLongKeys;
-
-  stage_f32<Dp>(ops.q.head(b, h, d) + row0 * ops.q.row, ops.q.row, qs, rows,
-                d);
-  stage_f32<Dp>(ops.g.head(b, h, d) + row0 * ops.g.row, ops.g.row, gs, rows,
-                d);
-
-  // sweep 1: per lane, over its keys, the running max m, the sum l of
-  // exp(s - m) and rd = sum dA exp(s - m), both rescaled as m rises
-  float m[kRowsPerWarp], l[kRowsPerWarp], rd[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l[r] = rd[r] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += kLongKeys) {
-    const int cnt = min(kLongKeys, n - k0);
-    __syncthreads();  // the previous chunk is consumed
-    stage_f32<Dp>(kh + k0 * ops.k.row, ops.k.row, ks, cnt, d);
-    stage_f32<Dp>(vh + k0 * ops.v.row, ops.v.row, vs, cnt, d);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int il = r * kWarps + warp;
-      if (il >= rows) break;
-      for (int j = lane; j < cnt; j += 32) {
-        const float s = __fmul_rn(dot<Dp>(qs + il * kS, ks + j * kS), scale);
-        const float da = dot<Dp>(gs + il * kS, vs + j * kS);
-        if (s > m[r]) {
-          const float f = expf(m[r] - s);
-          l[r] = l[r] * f + 1.f;
-          rd[r] = rd[r] * f + da;
-          m[r] = s;
-        } else {
-          const float e = expf(s - m[r]);
-          l[r] += e;
-          rd[r] = fmaf(da, e, rd[r]);
-        }
-      }
-    }
-  }
-  float* st = stats_of(stats, b, h, heads, tc::pad16(n));
-  const int npad = tc::pad16(n);
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const float mr = warp_max(m[r]);
-    const float fac = m[r] == -INFINITY ? 0.f : expf(m[r] - mr);
-    l[r] = warp_sum(l[r] * fac);
-    rd[r] = warp_sum(rd[r] * fac) / l[r];
-    m[r] = mr;
-    const int il = r * kWarps + warp;
-    if (lane == 0 && il < rows) {
-      st[row0 + il] = m[r];
-      st[npad + row0 + il] = l[r];
-      st[2 * npad + row0 + il] = rd[r];
-    }
-  }
-
-  // sweep 2: dS -> dq
-  float dq[kRowsPerWarp][kSlots] = {};
-  for (int k0 = 0; k0 < n; k0 += kLongKeys) {
-    const int cnt = min(kLongKeys, n - k0);
-    __syncthreads();
-    stage_f32<Dp>(kh + k0 * ops.k.row, ops.k.row, ks, cnt, d);
-    stage_f32<Dp>(vh + k0 * ops.v.row, ops.v.row, vs, cnt, d);
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int il = r * kWarps + warp;
-      if (il >= rows) break;
-      for (int j = lane; j < cnt; j += 32) {
-        const float s = __fmul_rn(dot<Dp>(qs + il * kS, ks + j * kS), scale);
-        const float pj = expf(s - m[r]) / l[r];
-        const float da = dot<Dp>(gs + il * kS, vs + j * kS);
-        p[j] = pj * (da - rd[r]) * scale;
-      }
-      __syncwarp();
-      for (int j = 0; j < cnt; ++j) {
-#pragma unroll
-        for (int t = 0; t < kSlots; ++t) {
-          dq[r][t] = fmaf(p[j], ks[j * kS + f0 + 32 * t], dq[r][t]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  float* dqh = ops.dq.head(b, h, d);
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int il = r * kWarps + warp;
-    if (il >= rows) break;
-    store_lane<Dp>(dqh + (row0 + il) * ops.dq.row, dq[r], f0, d, lane);
-  }
-}
-
-// f32 key-chunked route, phase 2: one block per 32 key rows (4 per warp),
-// Q, G and the rows' statistics kLongKeys rows at a time -> dk, dv.
-template <int Dp>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_bwd_k_kernel(const Operands<float> ops,
-                       const float* __restrict__ stats, int n, int heads,
-                       int d, float scale) {
-  constexpr int kS = Dp + 1;
-  constexpr int kSlots = (Dp + 31) / 32;
-  extern __shared__ float smem[];
-  float* ks = smem;                            // kRowsPerBlock * kS each
-  float* vs = ks + kRowsPerBlock * kS;
-  float* qs = vs + kRowsPerBlock * kS;         // kLongKeys * kS each
-  float* gs = qs + kLongKeys * kS;
-  float* st = gs + kLongKeys * kS;             // 3 * kLongKeys
-  float* ps = st + 3 * kLongKeys;              // 2 * kLongKeys per warp
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int f0 = first_feature<Dp>(lane);
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, n - row0);
-  const int npad = tc::pad16(n);
-  const float* qh = ops.q.head(b, h, d);
-  const float* gh = ops.g.head(b, h, d);
-  const float* sh = stats_of(const_cast<float*>(stats), b, h, heads, npad);
-  float* pa = ps + warp * 2 * kLongKeys;
-  float* pb = pa + kLongKeys;
-
-  stage_f32<Dp>(ops.k.head(b, h, d) + row0 * ops.k.row, ops.k.row, ks, rows,
-                d);
-  stage_f32<Dp>(ops.v.head(b, h, d) + row0 * ops.v.row, ops.v.row, vs, rows,
-                d);
-
-  float dk[kRowsPerWarp][kSlots] = {}, dv[kRowsPerWarp][kSlots] = {};
-  for (int q0 = 0; q0 < n; q0 += kLongKeys) {
-    const int cnt = min(kLongKeys, n - q0);
-    __syncthreads();
-    stage_f32<Dp>(qh + q0 * ops.q.row, ops.q.row, qs, cnt, d);
-    stage_f32<Dp>(gh + q0 * ops.g.row, ops.g.row, gs, cnt, d);
-    for (int idx = threadIdx.x; idx < 3 * cnt; idx += blockDim.x) {
-      const int w = idx / cnt;
-      st[w * kLongKeys + idx - w * cnt] = sh[w * npad + q0 + idx - w * cnt];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int jl = r * kWarps + warp;
-      if (jl >= rows) break;
-      for (int i = lane; i < cnt; i += 32) {
-        const float s = __fmul_rn(dot<Dp>(qs + i * kS, ks + jl * kS), scale);
-        const float p = expf(s - st[i]) / st[kLongKeys + i];
-        const float da = dot<Dp>(gs + i * kS, vs + jl * kS);
-        pa[i] = p * (da - st[2 * kLongKeys + i]) * scale;
-        pb[i] = p;
-      }
-      __syncwarp();
-      for (int i = 0; i < cnt; ++i) {
-#pragma unroll
-        for (int t = 0; t < kSlots; ++t) {
-          dk[r][t] = fmaf(pa[i], qs[i * kS + f0 + 32 * t], dk[r][t]);
-          dv[r][t] = fmaf(pb[i], gs[i * kS + f0 + 32 * t], dv[r][t]);
-        }
-      }
-      __syncwarp();
-    }
-  }
-  float* dkh = ops.dk.head(b, h, d);
-  float* dvh = ops.dv.head(b, h, d);
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int jl = r * kWarps + warp;
-    if (jl >= rows) break;
-    store_lane<Dp>(dkh + (row0 + jl) * ops.dk.row, dk[r], f0, d, lane);
-    store_lane<Dp>(dvh + (row0 + jl) * ops.dv.row, dv[r], f0, d, lane);
-  }
 }
 
 // 8-row C tiles of S and dA a warp holds at a time (16 rows, ~100
 // registers a thread at Dp = 32)
 constexpr int kBwdTiles = 2;
 constexpr int kStep = 8 * kBwdTiles;  // rows of the other side per step
+// ... and in the f32 bodies, whose products take 4 tiles at a time
+// (attention_tf32.cuh, group_of)
+constexpr int kF32Tiles = 4;
+constexpr int kF32Step = 8 * kF32Tiles;
+// Most warps per block of the f32 whole-sequence body: 10 tiles at N =
+// 145 go 2 to each of 5 warps (tools/tune_attention.py --dtype float32
+// times 4)
+constexpr int kF32Warps = 8;
 // Most warps per block: 4 blocks of 4 fill an SM's shared memory (53 KB
 // each at N = 145) with 16 warps. tools/tune_attention.py times other
 // sizes.
@@ -573,6 +189,18 @@ constexpr int kLongRows = 64;
 __host__ __device__ constexpr int key_roles(int dp) {
   return tc::a_in_smem(dp) ? 2 : 1;
 }
+// The f32 key-chunked kernels: tiles (warps) per block and rows of the
+// other side per staged chunk; at Dp = 256 half of each, so that two
+// f32 tiles and two double-buffered chunks fit one block's shared memory.
+__host__ __device__ constexpr int f32_long_warps(int dp) {
+  return tc::a_in_smem(dp) ? kLongWarps / 2 : kLongWarps;
+}
+__host__ __device__ constexpr int f32_long_rows(int dp) {
+  return tc::a_in_smem(dp) ? kLongRows / 2 : kLongRows;
+}
+// Least whole-sequence blocks an SM must hold for that route to run
+// (route()).
+constexpr int kWholeBlocks = 2;
 
 // dS from P, dA and the row's sum rd, in the same instructions in both
 // phases
@@ -606,20 +234,21 @@ __device__ __forceinline__ void accumulate_split(float (&acc)[Dp / 8][4],
 // Phase 1, one step of keys: fold the step's scores s and dA into the
 // running max m, sum l of exp(s - m) and rd = sum dA exp(s - m) of rows
 // g and g + 8 (both sums rescaled when the step raises m).
-__device__ __forceinline__ void fold_step(const float (&s)[kBwdTiles][4],
-                                          const float (&da)[kBwdTiles][4],
+template <int NT>
+__device__ __forceinline__ void fold_step(const float (&s)[NT][4],
+                                          const float (&da)[NT][4],
                                           float (&m)[2], float (&l)[2],
                                           float (&rd)[2]) {
   float mc[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < kBwdTiles; ++j) {
+  for (int j = 0; j < NT; ++j) {
     mc[0] = fmaxf(mc[0], fmaxf(s[j][0], s[j][1]));
     mc[1] = fmaxf(mc[1], fmaxf(s[j][2], s[j][3]));
   }
   mc[0] = tc::quad_max(mc[0]);
   mc[1] = tc::quad_max(mc[1]);
 #pragma unroll
-  for (int j = 0; j < kBwdTiles; ++j) {
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x = expf(s[j][e] - mc[e >> 1]);
@@ -641,14 +270,15 @@ __device__ __forceinline__ void fold_step(const float (&s)[kBwdTiles][4],
 // Phase 1, second sweep: s becomes dS = P (dA - rd) scale, P = exp(s - m)
 // times the rounded reciprocal of l. Keys >= n: P = 0 and dA = 0 (zero V
 // rows), so dS = 0.
-__device__ __forceinline__ void query_dscores(float (&s)[kBwdTiles][4],
-                                              const float (&da)[kBwdTiles][4],
+template <int NT>
+__device__ __forceinline__ void query_dscores(float (&s)[NT][4],
+                                              const float (&da)[NT][4],
                                               const float (&m)[2],
                                               const float (&inv)[2],
                                               const float (&rd)[2],
                                               float scale) {
 #pragma unroll
-  for (int j = 0; j < kBwdTiles; ++j) {
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = expf(s[j][e] - m[e >> 1]) * inv[e >> 1];
@@ -660,15 +290,16 @@ __device__ __forceinline__ void query_dscores(float (&s)[kBwdTiles][4],
 // Phase 2, one step of queries from q0 on: s (raw K Q^T) becomes P^T and
 // da (V G^T) dS^T, from the rows' saved max, 1 / sum and rd (indexed from
 // q0 as the step is); queries at or beyond ``limit`` give 0.
-__device__ __forceinline__ void key_pds(float (&s)[kBwdTiles][4],
-                                        float (&da)[kBwdTiles][4], int q0,
+template <int NT>
+__device__ __forceinline__ void key_pds(float (&s)[NT][4],
+                                        float (&da)[NT][4], int q0,
                                         int limit, const float* row_max,
                                         const float* row_inv,
                                         const float* row_dot, float scale,
                                         int lane) {
   const int t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < kBwdTiles; ++j) {
+  for (int j = 0; j < NT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = q0 + 8 * j + 2 * t + (e & 1);  // the query
@@ -1119,44 +750,349 @@ attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
   }
 }
 
-size_t smem_f32_whole(int n, int dp) {
-  return sizeof(float) * static_cast<size_t>(n) *
-         (4 * (dp + 1) + 3 + 2 * kWarps);
+// The f32 body, whole-sequence route: the bf16 body's two phases and
+// steps with every product on the tensor cores by the three-way TF32 split
+// (attention_tf32.cuh), the A tiles read from shared memory, dS and P in
+// f32 (dv = P^T G with P unrounded: the forward multiplies V by the f32
+// P). S^T = K Q^T and dA^T = V G^T take the cross terms in the order of
+// S = Q K^T and dA = G V^T (kAisX false), so that both phases see the same
+// P and dS.
+template <int Dp>
+__global__ void __launch_bounds__(tc::kMaxWarps * 32)
+attention_bwd_tf32_kernel(const Operands<float> ops, int n, int d,
+                          float scale) {
+  constexpr int kPad = tf::row_pad(Dp);
+  extern __shared__ uint4 smem_tc[];
+  const int npad = tf::pad16(n);
+  float* qs = reinterpret_cast<float*>(smem_tc);
+  float* ks = qs + npad * kPad;
+  float* vs = ks + npad * kPad;
+  float* gs = vs + npad * kPad;
+  float* row_max = gs + npad * kPad;
+  float* row_inv = row_max + npad;  // 1 / the row's sum
+  float* row_dot = row_inv + npad;
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  tf::stage_rows<Dp>(ops.q.head(b, h, d), ops.q.row, qs, n, npad, d);
+  tf::stage_rows<Dp>(ops.k.head(b, h, d), ops.k.row, ks, n, npad, d);
+  tf::stage_rows<Dp>(ops.v.head(b, h, d), ops.v.row, vs, n, npad, d);
+  tf::stage_rows<Dp>(ops.g.head(b, h, d), ops.g.row, gs, n, npad, d);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  float s[kF32Tiles][4], da[kF32Tiles][4];
+
+  // ---- phase 1: query tiles -> dq, row statistics
+  for (int r0 = 16 * warp; r0 < npad; r0 += 16 * warps) {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
+          rd[2] = {0.f, 0.f};
+    for (int key0 = 0; key0 < npad; key0 += kF32Step) {
+      tf::masked_scores<Dp>(s, qs, r0, ks, key0, n, npad, scale, lane);
+      tf::products<Dp, kF32Tiles, true>(da, gs, r0, vs, key0, npad, lane);
+      fold_step(s, da, m, l, rd);
+    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    rd[0] *= inv[0];
+    rd[1] *= inv[1];
+
+    float dq[Dp / 8][4] = {};
+    for (int key0 = 0; key0 < npad; key0 += kF32Step) {
+      tf::masked_scores<Dp>(s, qs, r0, ks, key0, n, npad, scale, lane);
+      tf::products<Dp, kF32Tiles, true>(da, gs, r0, vs, key0, npad, lane);
+      query_dscores(s, da, m, inv, rd, scale);
+      tf::accumulate_tiles<Dp>(dq, s, ks, key0, npad, lane);
+    }
+    tf::store_rows<Dp>(dq, ops.dq.head(b, h, d), ops.dq.row, r0, n, d, lane);
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        row_max[r0 + g + 8 * r] = m[r];
+        row_inv[r0 + g + 8 * r] = inv[r];
+        row_dot[r0 + g + 8 * r] = rd[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 2: key tiles -> dk, dv
+  for (int c0 = 16 * warp; c0 < npad; c0 += 16 * warps) {
+    float dk[Dp / 8][4] = {}, dv[Dp / 8][4] = {};
+    for (int q0 = 0; q0 < npad; q0 += kF32Step) {
+      tf::products<Dp, kF32Tiles, false>(s, ks, c0, qs, q0, npad, lane);
+      tf::products<Dp, kF32Tiles, false>(da, vs, c0, gs, q0, npad, lane);
+      key_pds(s, da, q0, n, row_max, row_inv, row_dot, scale, lane);
+      tf::accumulate_tiles<Dp>(dk, da, qs, q0, npad, lane);
+      tf::accumulate_tiles<Dp>(dv, s, gs, q0, npad, lane);
+    }
+    tf::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d, lane);
+    tf::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d, lane);
+  }
 }
 
-size_t smem_f32_long(int dp) {
-  // q kernel: 2 x 32 + 2 x 64 rows and a 64-float row per warp; the k
-  // kernel: the same rows, 3 x 64 statistics, two rows per warp
-  return sizeof(float) * ((2 * kRowsPerBlock + 2 * kLongKeys) * (dp + 1) +
-                          3 * kLongKeys + 2 * kWarps * kLongKeys);
+// f32 key-chunked route, phase 1: one block per 16 * f32_long_warps(Dp)
+// query rows, K and V f32_long_rows(Dp) rows at a time (double-buffered
+// cp.async groups) -> dq and the rows' max, 1 / sum and rd in ``stats``;
+// the whole-sequence f32 body's 16-key steps in its order (the same bits).
+template <int Dp>
+__global__ void __launch_bounds__(f32_long_warps(Dp) * 32)
+attention_bwd_tf32_q_kernel(const Operands<float> ops,
+                            float* __restrict__ stats, int n, int heads,
+                            int d, float scale) {
+  constexpr int kPad = tf::row_pad(Dp);
+  constexpr int kRows = 16 * f32_long_warps(Dp);
+  constexpr int kChunk = f32_long_rows(Dp);
+  extern __shared__ uint4 smem_tc[];
+  float* qs = reinterpret_cast<float*>(smem_tc);  // kRows rows each
+  float* gs = qs + kRows * kPad;
+  float* kv = gs + kRows * kPad;  // 2 buffers of K then V, kChunk rows
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int npad = tf::pad16(n);
+  const int q0 = blockIdx.x * kRows;
+  const int r0 = q0 + 16 * warp;  // this warp's query tile
+  const bool active = r0 < npad;
+  const float* kh = ops.k.head(b, h, d);
+  const float* vh = ops.v.head(b, h, d);
+  const int rows = min(kRows, n - q0);
+
+  tf::stage_rows<Dp>(ops.q.head(b, h, d) + q0 * ops.q.row, ops.q.row, qs,
+                     rows, kRows, d);
+  tf::stage_rows<Dp>(ops.g.head(b, h, d) + q0 * ops.g.row, ops.g.row, gs,
+                     rows, kRows, d);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  const int chunks = (n + kChunk - 1) / kChunk;
+  auto stage = [&](int c) {
+    float* kb = kv + (c & 1) * 2 * kChunk * kPad;
+    const int k0 = c * kChunk;
+    const int cnt = min(kChunk, n - k0);
+    tf::stage_rows<Dp>(kh + k0 * ops.k.row, ops.k.row, kb, cnt, kChunk, d);
+    tf::stage_rows<Dp>(vh + k0 * ops.v.row, ops.v.row, kb + kChunk * kPad,
+                       cnt, kChunk, d);
+    tc::cp_async_commit();
+  };
+
+  float s[kF32Tiles][4], da[kF32Tiles][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+  float inv[2] = {0.f, 0.f};
+  float dq[Dp / 8][4] = {};
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    stage(0);
+    for (int c = 0; c < chunks; ++c) {
+      if (c + 1 < chunks) {
+        stage(c + 1);
+        tc::cp_async_wait<1>();
+      } else {
+        tc::cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (active) {
+        const float* kb = kv + (c & 1) * 2 * kChunk * kPad;
+        const float* vb = kb + kChunk * kPad;
+        const int left = n - c * kChunk;  // keys from the chunk's first
+        for (int key0 = 0; key0 < kChunk && key0 < left; key0 += kF32Step) {
+          tf::masked_scores<Dp>(s, qs, 16 * warp, kb, key0, left, kChunk,
+                                scale, lane);
+          tf::products<Dp, kF32Tiles, true>(da, gs, 16 * warp, vb, key0,
+                                            kChunk, lane);
+          if (sweep == 0) {
+            fold_step(s, da, m, l, rd);
+          } else {
+            query_dscores(s, da, m, inv, rd, scale);
+            tf::accumulate_tiles<Dp>(dq, s, kb, key0, kChunk, lane);
+          }
+        }
+      }
+      __syncthreads();  // buffer c % 2 is free for chunk c + 2
+    }
+    if (sweep == 0) {
+      inv[0] = 1.f / l[0];
+      inv[1] = 1.f / l[1];
+      rd[0] *= inv[0];
+      rd[1] *= inv[1];
+    }
+  }
+  if (active) {
+    tf::store_rows<Dp>(dq, ops.dq.head(b, h, d), ops.dq.row, r0, n, d, lane);
+    if (t == 0) {
+      float* st = stats_of(stats, b, h, heads, npad);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        st[r0 + g + 8 * r] = m[r];
+        st[npad + r0 + g + 8 * r] = inv[r];
+        st[2 * npad + r0 + g + 8 * r] = rd[r];
+      }
+    }
+  }
 }
 
-size_t smem_mma_whole(int n, int dp) {
+// f32 key-chunked route, phase 2: one block per 16 * f32_long_warps(Dp)
+// key rows (two warps a key tile at Dp = 256, dk and dv), Q, G and the
+// rows' statistics f32_long_rows(Dp) rows at a time -> dk, dv.
+template <int Dp>
+__global__ void __launch_bounds__(f32_long_warps(Dp) * 32 * key_roles(Dp))
+attention_bwd_tf32_k_kernel(const Operands<float> ops,
+                            const float* __restrict__ stats, int n,
+                            int heads, int d, float scale) {
+  constexpr int kPad = tf::row_pad(Dp);
+  constexpr int kWarpsK = f32_long_warps(Dp);
+  constexpr int kRows = 16 * kWarpsK;
+  constexpr int kChunk = f32_long_rows(Dp);
+  constexpr int kBuf = 2 * kChunk * kPad;  // Q then G of one chunk
+  constexpr int kRoles = key_roles(Dp);
+  extern __shared__ uint4 smem_tc[];
+  float* ks = reinterpret_cast<float*>(smem_tc);  // kRows rows each
+  float* vs = ks + kRows * kPad;
+  float* qg = vs + kRows * kPad;                  // 2 buffers of kBuf
+  float* sts = qg + 2 * kBuf;                     // 2 x 3 kChunk
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  // the warp's key tile, and with two roles whether it sums dk (0) or dv
+  const int warp = kRoles == 1 ? threadIdx.x >> 5
+                               : (threadIdx.x >> 5) % kWarpsK;
+  const int role = kRoles == 1 ? 0 : (threadIdx.x >> 5) / kWarpsK;
+  const int npad = tf::pad16(n);
+  const int k0 = blockIdx.x * kRows;
+  const int c0 = k0 + 16 * warp;  // this warp's key tile
+  const bool active = c0 < npad;
+  const float* qh = ops.q.head(b, h, d);
+  const float* gh = ops.g.head(b, h, d);
+  const float* sh = stats + (static_cast<int64_t>(b) * heads + h) * 3 * npad;
+  const int rows = min(kRows, n - k0);
+
+  tf::stage_rows<Dp>(ops.k.head(b, h, d) + k0 * ops.k.row, ops.k.row, ks,
+                     rows, kRows, d);
+  tf::stage_rows<Dp>(ops.v.head(b, h, d) + k0 * ops.v.row, ops.v.row, vs,
+                     rows, kRows, d);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  const int chunks = (n + kChunk - 1) / kChunk;
+  auto stage = [&](int c) {
+    float* qb = qg + (c & 1) * kBuf;
+    float* st = sts + (c & 1) * 3 * kChunk;
+    const int q0 = c * kChunk;
+    const int cnt = min(kChunk, n - q0);
+    tf::stage_rows<Dp>(qh + q0 * ops.q.row, ops.q.row, qb, cnt, kChunk, d);
+    tf::stage_rows<Dp>(gh + q0 * ops.g.row, ops.g.row, qb + kChunk * kPad,
+                       cnt, kChunk, d);
+    tc::cp_async_commit();
+    for (int idx = threadIdx.x; idx < 3 * kChunk; idx += blockDim.x) {
+      const int w = idx / kChunk, i = idx - w * kChunk;
+      st[idx] = q0 + i < npad ? sh[w * npad + q0 + i] : 0.f;
+    }
+  };
+
+  float s[kF32Tiles][4], da[kF32Tiles][4];
+  // with two roles dk holds the warp's one gradient, dk or dv
+  float dk[Dp / 8][4] = {}, dv[kRoles == 1 ? Dp / 8 : 1][4] = {};
+  stage(0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      const float* qb = qg + (c & 1) * kBuf;
+      const float* gb = qb + kChunk * kPad;
+      const float* st = sts + (c & 1) * 3 * kChunk;
+      const int left = n - c * kChunk;  // queries from the chunk's first
+      for (int q0 = 0; q0 < kChunk && q0 < left; q0 += kF32Step) {
+        tf::products<Dp, kF32Tiles, false>(s, ks, 16 * warp, qb, q0, kChunk,
+                                           lane);  // S^T
+        if (role == 0) {
+          tf::products<Dp, kF32Tiles, false>(da, vs, 16 * warp, gb, q0,
+                                             kChunk, lane);  // dA^T
+        } else {
+#pragma unroll
+          for (int j = 0; j < kF32Tiles; ++j) {
+            da[j][0] = da[j][1] = da[j][2] = da[j][3] = 0.f;
+          }
+        }
+        key_pds(s, da, q0, left, st, st + kChunk, st + 2 * kChunk, scale,
+                lane);
+        if constexpr (kRoles == 1) {
+          tf::accumulate_tiles<Dp>(dk, da, qb, q0, kChunk, lane);
+          tf::accumulate_tiles<Dp>(dv, s, gb, q0, kChunk, lane);
+        } else if (role == 0) {
+          tf::accumulate_tiles<Dp>(dk, da, qb, q0, kChunk, lane);
+        } else {
+          tf::accumulate_tiles<Dp>(dk, s, gb, q0, kChunk, lane);
+        }
+      }
+    }
+    __syncthreads();  // buffer c % 2 is free for chunk c + 2
+  }
+  if (active) {
+    if constexpr (kRoles == 1) {
+      tf::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d,
+                         lane);
+      tf::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d,
+                         lane);
+    } else {
+      const Operand<float>& o = role == 0 ? ops.dk : ops.dv;
+      tf::store_rows<Dp>(dk, o.head(b, h, d), o.row, c0, n, d, lane);
+    }
+  }
+}
+
+// dtype: 0 = float32, 1 = bfloat16
+size_t smem_whole(int n, int dtype, int dp) {
   const size_t npad = tc::pad16(n);
-  return npad * (4 * tc::row_pad(dp) * sizeof(tc::bf16) + 3 * sizeof(float));
+  const size_t row = dtype == 1 ? tc::row_pad(dp) * sizeof(tc::bf16)
+                                : tf::row_pad(dp) * sizeof(float);
+  return npad * (4 * row + 3 * sizeof(float));
 }
 
-size_t smem_mma_long(int dp) {
-  // 2 tiles of 16 kLongWarps rows and 2 buffers of 2 kLongRows rows, plus
-  // the k kernel's 2 x 3 kLongRows statistics
-  return (2 * 16 * kLongWarps + 4 * kLongRows) * tc::row_pad(dp) *
-             sizeof(tc::bf16) +
-         6 * kLongRows * sizeof(float);
+size_t smem_long(int dtype, int dp) {
+  // 2 tiles of 16 W rows and 2 buffers of 2 R rows, plus the k kernel's
+  // 2 x 3 R statistics (W warps a block, R rows a chunk)
+  if (dtype == 1) {
+    return (2 * 16 * kLongWarps + 4 * kLongRows) * tc::row_pad(dp) *
+               sizeof(tc::bf16) +
+           6 * kLongRows * sizeof(float);
+  }
+  return ((2 * 16 * f32_long_warps(dp) + 4 * f32_long_rows(dp)) *
+              tf::row_pad(dp) +
+          6 * f32_long_rows(dp)) *
+         sizeof(float);
 }
 
-// 0: the whole-sequence route, 1: the key-chunked route
+// whether the whole-sequence body exists at dp and fits one block at n
+bool whole_fits(int n, int dtype, int dp) {
+  return !tc::a_in_smem(dp) && smem_whole(n, dtype, dp) <= tc::kSmemLimit;
+}
+
+// 0: the whole-sequence route, 1: the key-chunked route. The whole body
+// runs while an SM holds at least kWholeBlocks of its blocks (see the
+// note at the top for the measured crossover).
 int route(int n, int dtype, int dp) {
-  if (tc::a_in_smem(dp)) return 1;  // no whole-sequence body there
-  const size_t whole = dtype == 1 ? smem_mma_whole(n, dp)
-                                  : smem_f32_whole(n, dp);
-  return whole <= kSmemLimit ? 0 : 1;
+  if (!whole_fits(n, dtype, dp)) return 1;
+  return tc::blocks_per_sm(smem_whole(n, dtype, dp)) >= kWholeBlocks ? 0 : 1;
+}
+
+size_t smem_of(int r, int n, int dtype, int dp) {
+  return r == 0 ? smem_whole(n, dtype, dp) : smem_long(dtype, dp);
 }
 
 size_t smem_bytes(int n, int dtype, int dp) {
-  if (route(n, dtype, dp) == 0) {
-    return dtype == 1 ? smem_mma_whole(n, dp) : smem_f32_whole(n, dp);
-  }
-  return dtype == 1 ? smem_mma_long(dp) : smem_f32_long(dp);
+  return smem_of(route(n, dtype, dp), n, dtype, dp);
 }
 
 cudaError_t allow_smem(const void* body, size_t smem) {
@@ -1179,25 +1115,27 @@ Operands<T> operands(const void* const* ptrs, const int64_t* strides) {
   return {in(0), in(1), in(2), in(3), out(4), out(5), out(6)};
 }
 
-// Launch the whole-sequence body, or the key-chunked pair (Q then K) with
-// the statistics in ``stats``.
+// Launch the whole-sequence body (r = 0; the caller checked that it
+// fits), or the key-chunked pair (Q then K) with the statistics in
+// ``stats``.
 template <typename T, int Dp>
 cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
-                   int heads, int d, float scale, cudaStream_t stream) {
+                   int heads, int d, float scale, int r,
+                   cudaStream_t stream) {
   constexpr bool kMma = std::is_same<T, tc::bf16>::value;
   constexpr int dtype = kMma ? 1 : 0;
-  const size_t smem = smem_bytes(n, dtype, Dp);
+  const size_t smem = smem_of(r, n, dtype, Dp);
   const void *qk, *kk;
   if constexpr (kMma) {
     qk = reinterpret_cast<const void*>(attention_bwd_mma_q_kernel<Dp>);
     kk = reinterpret_cast<const void*>(attention_bwd_mma_k_kernel<Dp>);
   } else {
-    qk = reinterpret_cast<const void*>(attention_bwd_q_kernel<Dp>);
-    kk = reinterpret_cast<const void*>(attention_bwd_k_kernel<Dp>);
+    qk = reinterpret_cast<const void*>(attention_bwd_tf32_q_kernel<Dp>);
+    kk = reinterpret_cast<const void*>(attention_bwd_tf32_k_kernel<Dp>);
   }
   cudaError_t err;
   if constexpr (!tc::a_in_smem(Dp)) {
-    if (route(n, dtype, Dp) == 0) {
+    if (r == 0) {
       const void* whole;
       if constexpr (kMma) {
         whole = d == Dp ? reinterpret_cast<const void*>(
@@ -1205,13 +1143,13 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
                         : reinterpret_cast<const void*>(
                               attention_bwd_mma_kernel<Dp, 0>);
       } else {
-        whole = reinterpret_cast<const void*>(attention_bwd_kernel<Dp>);
+        whole = reinterpret_cast<const void*>(attention_bwd_tf32_kernel<Dp>);
       }
       if ((err = allow_smem(whole, smem)) != cudaSuccess) return err;
       const dim3 grid(heads, batch);
+      const int threads = 32 * tc::warps_for(tc::pad16(n) / 16,
+                                             kMma ? kBwdWarps : kF32Warps);
       if constexpr (kMma) {
-        const int threads =
-            32 * tc::warps_for(tc::pad16(n) / 16, kBwdWarps);
         if (d == Dp) {
           attention_bwd_mma_kernel<Dp, Dp><<<grid, threads, smem, stream>>>(
               ops, n, d, scale);
@@ -1220,7 +1158,7 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
               ops, n, d, scale);
         }
       } else {
-        attention_bwd_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
+        attention_bwd_tf32_kernel<Dp><<<grid, threads, smem, stream>>>(
             ops, n, d, scale);
       }
       return cudaGetLastError();
@@ -1238,12 +1176,14 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
         <<<grid, 32 * kLongWarps * key_roles(Dp), smem, stream>>>(
             ops, stats, n, heads, d, scale);
   } else {
-    const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, batch);
-    attention_bwd_q_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
+    constexpr int kW = f32_long_warps(Dp);
+    const dim3 grid((tc::pad16(n) + 16 * kW - 1) / (16 * kW), heads, batch);
+    attention_bwd_tf32_q_kernel<Dp><<<grid, 32 * kW, smem, stream>>>(
         ops, stats, n, heads, d, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    attention_bwd_k_kernel<Dp><<<grid, kWarps * 32, smem, stream>>>(
-        ops, stats, n, heads, d, scale);
+    attention_bwd_tf32_k_kernel<Dp>
+        <<<grid, 32 * kW * key_roles(Dp), smem, stream>>>(ops, stats, n,
+                                                          heads, d, scale);
   }
   return cudaGetLastError();
 }
@@ -1251,19 +1191,21 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
 template <typename T>
 cudaError_t launch_width(const void* const* ptrs, const int64_t* strides,
                          float* stats, int batch, int n, int heads, int d,
-                         float scale, cudaStream_t stream) {
+                         float scale, int r, cudaStream_t stream) {
   const Operands<T> ops = operands<T>(ptrs, strides);
   switch (tc::padded_width(d)) {
     case 16:
-      return launch<T, 16>(ops, stats, batch, n, heads, d, scale, stream);
+      return launch<T, 16>(ops, stats, batch, n, heads, d, scale, r, stream);
     case 32:
-      return launch<T, 32>(ops, stats, batch, n, heads, d, scale, stream);
+      return launch<T, 32>(ops, stats, batch, n, heads, d, scale, r, stream);
     case 64:
-      return launch<T, 64>(ops, stats, batch, n, heads, d, scale, stream);
+      return launch<T, 64>(ops, stats, batch, n, heads, d, scale, r, stream);
     case 128:
-      return launch<T, 128>(ops, stats, batch, n, heads, d, scale, stream);
+      return launch<T, 128>(ops, stats, batch, n, heads, d, scale, r,
+                            stream);
     default:
-      return launch<T, 256>(ops, stats, batch, n, heads, d, scale, stream);
+      return launch<T, 256>(ops, stats, batch, n, heads, d, scale, r,
+                            stream);
   }
 }
 
@@ -1272,34 +1214,36 @@ bool bad_shape(int batch, int n, int heads, int head_dim) {
          n < 1 || heads < 1 || heads > 65535;
 }
 
+// forced: -1 takes the route of route() (the entry points), 0 or 1 that
+// route (the internal launch of attention_qkv_bwd_on_route)
 int dispatch(const void* const* ptrs, const int64_t* strides, void* scratch,
              int batch, int n, int heads, int d, float scale, int dtype,
-             void* stream) {
+             int forced, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* stats = static_cast<float*>(scratch);
-  const bool wide = d >= attn_wide::kNarrowest;
-  if ((wide || route(n, dtype, tc::padded_width(d)) == 1) &&
-      stats == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return invalid;
+  if (d >= attn_wide::kNarrowest) {
+    if (forced >= 0 || stats == nullptr) return invalid;
+    return static_cast<int>(
+        dtype == 0 ? attn_wide::launch_bwd<float>(ptrs, strides, stats,
+                                                  batch, n, heads, d, scale,
+                                                  s)
+                   : attn_wide::launch_bwd<tc::bf16>(ptrs, strides, stats,
+                                                     batch, n, heads, d,
+                                                     scale, s));
   }
-  if (wide && dtype == 0) {
-    return static_cast<int>(attn_wide::launch_bwd<float>(
-        ptrs, strides, stats, batch, n, heads, d, scale, s));
+  const int dp = tc::padded_width(d);
+  const int r = forced < 0 ? route(n, dtype, dp) : forced;
+  if (r > 1 || (r == 0 && !whole_fits(n, dtype, dp)) ||
+      (r == 1 && stats == nullptr)) {
+    return invalid;
   }
-  if (wide && dtype == 1) {
-    return static_cast<int>(attn_wide::launch_bwd<tc::bf16>(
-        ptrs, strides, stats, batch, n, heads, d, scale, s));
-  }
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_width<float>(
-          ptrs, strides, stats, batch, n, heads, d, scale, s));
-    case 1:
-      return static_cast<int>(launch_width<tc::bf16>(
-          ptrs, strides, stats, batch, n, heads, d, scale, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(
+      dtype == 0 ? launch_width<float>(ptrs, strides, stats, batch, n, heads,
+                                       d, scale, r, s)
+                 : launch_width<tc::bf16>(ptrs, strides, stats, batch, n,
+                                          heads, d, scale, r, s));
 }
 
 }  // namespace
@@ -1355,7 +1299,33 @@ int attention_qkv_bwd(const void* qkv, const void* g, void* dqkv,
   const int64_t strides[14] = {img, row, img, row, img, row, n * hd, hd,
                                img, row, img, row, img, row};
   return dispatch(ptrs, strides, scratch, batch, n, heads, head_dim, scale,
-                  dtype, stream);
+                  dtype, -1, stream);
+}
+
+// attention_qkv_bwd on the given route (0 whole sequence, 1 key-chunked,
+// whose scratch is B * H * 3 * pad16(n) floats) whatever route() would
+// take: the two routes compared at one length (tools and tests; no entry
+// point a user calls). Head widths above 256 and a whole-sequence route
+// that does not exist or fit there return cudaErrorInvalidValue.
+int attention_qkv_bwd_on_route(const void* qkv, const void* g, void* dqkv,
+                               void* scratch, int batch, int n, int heads,
+                               int head_dim, float scale, int dtype,
+                               int route, void* stream) {
+  if (bad_shape(batch, n, heads, head_dim) || (dtype != 0 && dtype != 1) ||
+      route < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t hd = static_cast<int64_t>(heads) * head_dim;
+  const int64_t es = dtype == 0 ? sizeof(float) : sizeof(__nv_bfloat16);
+  const char* x = static_cast<const char*>(qkv);
+  const char* dx = static_cast<const char*>(dqkv);
+  const void* ptrs[7] = {x, x + hd * es, x + 2 * hd * es, g,
+                         dx, dx + hd * es, dx + 2 * hd * es};
+  const int64_t row = 3 * hd, img = n * row;
+  const int64_t strides[14] = {img, row, img, row, img, row, n * hd, hd,
+                               img, row, img, row, img, row};
+  return dispatch(ptrs, strides, scratch, batch, n, heads, head_dim, scale,
+                  dtype, route, stream);
 }
 
 // q, k, v, g in and dq, dk, dv out: seven (B, N, H*D) operands with unit
@@ -1369,7 +1339,7 @@ int attention_split_bwd(const void* const* ptrs, const int64_t* strides,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return dispatch(ptrs, strides, scratch, batch, n, heads, head_dim, scale,
-                  dtype, stream);
+                  dtype, -1, stream);
 }
 
 const char* attention_qkv_bwd_error_string(int code) {

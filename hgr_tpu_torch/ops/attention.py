@@ -35,14 +35,18 @@ hgr_tpu/ops/attention_pallas.py).
   the batched de-mixed step) the legacy vmap calls an operator without a
   batching rule once per cotangent row, with real tensors, and each row
   launches (and counts) the kernel once.
-* On CUDA tensors each kernel runs one body per compute type: bf16 on
-  Hopper's tensor cores (``mma.sync``), float32 on the CUDA cores, each
+* On CUDA tensors each kernel runs one body per compute type, both on
+  Hopper's tensor cores (``mma.sync``): bf16 directly, float32 by a
+  three-way TF32 split of every operand (``csrc/attention_tf32.cuh``:
+  big·small + small·big + big·big, which keeps the f32 tolerances), each
   templated over the padded head width (16, 32, 64, 128 or 256). Every
-  sequence length runs: while a head's whole sequence fits in one
-  block's shared memory the kernels take it whole, past that (and at
-  every length at padded width 256) they stream the keys (and, in the
-  backward, the queries) through shared memory in chunks
-  (``kernel_route``). Head widths above 256 take a simpler body that
+  sequence length runs: the kernels take a head's whole sequence in one
+  block while that pays (the forward while one register chunk of scores
+  holds it, the backward while an SM holds two such blocks), past that
+  (and at every length at padded width 256) they stream the keys (and,
+  in the backward, the queries) through shared memory in chunks, with
+  the same bits (``kernel_route``; ``launch_on_route`` takes either route
+  for the comparison). Head widths above 256 take a simpler body that
   cuts the head into column slices (``csrc/attention_wide.cuh``, both
   types on the CUDA cores). The chunked and sliced backwards keep the
   rows' softmax statistics in a scratch the wrapper allocates.
@@ -59,7 +63,11 @@ from typing import Tuple
 
 import torch
 
-from hgr_tpu_torch.utils.cuda_build import kernel_device, require_storage
+from hgr_tpu_torch.utils.cuda_build import (
+    kernel_device,
+    on_device,
+    require_storage,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -195,6 +203,9 @@ def _kernel() -> ctypes.CDLL:
     lib.attention_split_fwd.argtypes = [p, p, p, p, p, i, i, i, i,
                                         ctypes.c_float, i, p]
     lib.attention_split_fwd.restype = i
+    lib.attention_qkv_fwd_on_route.argtypes = [p, p, i, i, i, i,
+                                               ctypes.c_float, i, i, p]
+    lib.attention_qkv_fwd_on_route.restype = i
     return lib
 
 
@@ -211,6 +222,9 @@ def _bwd_kernel() -> ctypes.CDLL:
     lib.attention_split_bwd.restype = i
     lib.attention_qkv_bwd_scratch_floats.argtypes = [i] * 5
     lib.attention_qkv_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.attention_qkv_bwd_on_route.argtypes = [p, p, p, p, i, i, i, i,
+                                               ctypes.c_float, i, i, p]
+    lib.attention_qkv_bwd_on_route.restype = i
     return lib
 
 
@@ -309,6 +323,52 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
         msg = lib.attention_qkv_bwd_error_string(rc).decode()
         raise RuntimeError(f"attention_qkv_bwd launch failed: {msg} ({rc})")
     fused_attention_qkv_bwd.launches += 1
+    return out
+
+
+def launch_on_route(kernel: str, route: int, qkv: torch.Tensor, heads: int,
+                    head_dim: int, scale: float,
+                    g: torch.Tensor = None) -> torch.Tensor:
+    """The packed kernel ``kernel`` ('fwd', or 'bwd' with the cotangent
+    ``g``) on CUDA tensors, launched on ``route`` (0 whole sequence, 1
+    key-chunked) whatever ``kernel_route`` would take: the two routes
+    compared at one length (chip_smoke's route sweep, the card tests; no
+    path of the model calls it). Counted as the entry points' launches.
+    The route must exist at that length and width (ValueError
+    otherwise)."""
+    _check(qkv, heads, head_dim)
+    b, n, f = qkv.shape
+    code = _DTYPE_CODES[qkv.dtype]
+    if kernel == "fwd":
+        lib = _kernel()
+        out = torch.empty((b, n, f // 3), dtype=qkv.dtype, device=qkv.device)
+
+        def launch(stream):
+            return lib.attention_qkv_fwd_on_route(
+                qkv.data_ptr(), out.data_ptr(), b, n, heads, head_dim,
+                float(scale), code, route, stream)
+    else:
+        if g is None or tuple(g.shape) != (b, n, f // 3) \
+                or g.dtype != qkv.dtype or not g.is_contiguous():
+            raise ValueError("the backward needs a contiguous cotangent g "
+                             "of qkv's dtype and (B, N, H·D)")
+        lib = _bwd_kernel()
+        out = torch.empty_like(qkv)
+        scratch = torch.empty(b * heads * 3 * (-(-n // 16) * 16),
+                              dtype=torch.float32, device=qkv.device)
+
+        def launch(stream):
+            return lib.attention_qkv_bwd_on_route(
+                qkv.data_ptr(), g.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), b, n, heads, head_dim, float(scale),
+                code, route, stream)
+    rc = on_device(qkv.device, launch)
+    if rc != 0:
+        raise ValueError(f"attention_qkv_{kernel} on route {route} at n = "
+                         f"{n}, head_dim {head_dim}, {qkv.dtype}: error {rc}")
+    counter = fused_attention_qkv if kernel == "fwd" \
+        else fused_attention_qkv_bwd
+    counter.launches += 1
     return out
 
 

@@ -1,10 +1,12 @@
-"""Serving forward and train step of two checkouts, in turns, on one card.
+"""Serving forward and train steps of two checkouts, in turns, on one card.
 
 Each checkout runs its own ``chip_smoke.py`` phases in a process of its
 own, with its own kernels built from its own sources: the bf16 forward
-at the serving batch (B = 64) and the train step at B = 256 with fused BN
-off and on. The checkouts run in the order given, then in reverse, so a
-parent and a change compare within one call:
+at the serving batch (B = 64), the train step at B = 256 with fused BN
+off and on, and the ``--dtype mixed`` step at B = 256 (bf16 compute, the
+f32 decoder: the f32 attention kernels, fused BN on). The checkouts run
+in the order given, then in reverse, so a parent and a change compare
+within one call:
 
     python -m hgr_tpu_torch.tools.ab_paths build/parent . [--bits-only |
         --compile-only]
@@ -12,9 +14,12 @@ parent and a change compare within one call:
 First each checkout's attention kernels, bn kernels and warp run on the
 same seeded inputs and the outputs are compared bit for bit
 (``same_bits``; values, so a uint8 crop equals an f32 crop of the same
-levels), each with its time; then each attention entry function's ptxas
-line on either side and whether its SASS is the same (``compile``). Needs the card. Prints each run's model and train lines, then one JSON
-summary line.
+levels), each with its time; the f32 attention cases, whose bits a
+change of arithmetic moves by design, also report the largest difference
+between the two sides and each side's distance from float64 (``f32``);
+then each attention entry function's ptxas line on either side and
+whether its SASS is the same (``compile``). Needs the card. Prints each
+run's model, train and mixed lines, then one JSON summary line.
 """
 
 from __future__ import annotations
@@ -44,13 +49,42 @@ cs._zero_counts()
 cs.model_phase(torch, state)
 cs._zero_counts()
 cs.train_phase(torch, len(layers))
+# the --dtype mixed step (bf16 compute, f32 decoder) at B = 256, fused BN
+# on, as chip_smoke's precision_paths row: 2 warm-up steps, 6 timed
+import json
+from hgr_tpu_torch.config import AugmentConfig
+from hgr_tpu_torch.models import layers as L
+from hgr_tpu_torch.train.state import create_train_state
+from hgr_tpu_torch.train.steps import make_train_step
+state = create_train_state(cs._knob_model(torch, dict(
+    decoder_dtype="float32")), device="cuda")
+step = make_train_step(AugmentConfig(), image_size=(cs.IMAGE, cs.IMAGE),
+                       heatmap_size=(cs.IMAGE // 4, cs.IMAGE // 4),
+                       grad_demix=True)
+batch = {k: torch.from_numpy(v).cuda()
+         for k, v in cs._staged_batch(cs.TRAIN_BATCH, seed=2).items()}
+gen = torch.Generator(device="cuda").manual_seed(0)
+L._FUSED_BN = True
+for _ in range(2):
+    state, m = step(state, batch, gen)
+torch.cuda.synchronize()
+start = torch.cuda.Event(enable_timing=True)
+end = torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(6):
+    state, m = step(state, batch, gen)
+end.record()
+end.synchronize()
+print(json.dumps({"mixed": {"batch": cs.TRAIN_BATCH,
+                            "ms_per_step": start.elapsed_time(end) / 6,
+                            "loss": float(m["total_loss"])}}))
 """
 
 
 # one side's attention kernel outputs at fixed seeded inputs (argv[2] =
-# output file): the bf16 bodies at the main path's shapes and the serving
-# forward's at 448 px (N = 785), which must keep their bits, and the f32
-# bodies at the serving shape
+# output file): the bf16 bodies at the main path's shapes and at 448 px's
+# N = 785, which must keep their bits, and the f32 bodies at the serving
+# and training shapes (with each output's distance from float64)
 _BITS = """
 import os, sys
 tree = os.path.abspath(sys.argv[1])
@@ -67,18 +101,25 @@ for b, n in ((64, 145), (256, 145), (64, 785)):
         torch.bfloat16)
     calls[f"fwd_{b}_{n}"] = (lambda qkv=qkv: A.fused_attention_qkv(
         qkv, 8, 32, 32 ** -0.5))
-    if n == 145:
-        calls[f"bwd_{b}_{n}"] = (lambda qkv=qkv, g=g:
-                                 A.fused_attention_qkv_bwd(qkv, g, 8, 32,
+    calls[f"bwd_{b}_{n}"] = (lambda qkv=qkv, g=g:
+                             A.fused_attention_qkv_bwd(qkv, g, 8, 32,
+                                                       32 ** -0.5))
+# the f32 bodies at the serving and training shapes, and their distance
+# from the float64 plain version of the same inputs
+f64 = {}
+for b, seed in ((64, 32), (256, 33)):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x32 = torch.randn(b, 145, 768, device="cuda", generator=gen)
+    g32 = torch.randn(b, 145, 256, device="cuda", generator=gen)
+    calls[f"fwd_{b}_145_f32"] = (lambda x32=x32: A.fused_attention_qkv(
+        x32, 8, 32, 32 ** -0.5))
+    calls[f"bwd_{b}_145_f32"] = (lambda x32=x32, g32=g32:
+                                 A.fused_attention_qkv_bwd(x32, g32, 8, 32,
                                                            32 ** -0.5))
-# the f32 bodies at the serving shape
-gen = torch.Generator(device="cuda").manual_seed(32)
-x32 = torch.randn(64, 145, 768, device="cuda", generator=gen)
-g32 = torch.randn(64, 145, 256, device="cuda", generator=gen)
-calls["fwd_64_145_f32"] = lambda: A.fused_attention_qkv(x32, 8, 32,
-                                                        32 ** -0.5)
-calls["bwd_64_145_f32"] = lambda: A.fused_attention_qkv_bwd(x32, g32, 8,
-                                                            32, 32 ** -0.5)
+    f64[f"fwd_{b}_145_f32"] = A.attention_qkv_reference(
+        x32.double(), 8, 32, 32 ** -0.5)
+    f64[f"bwd_{b}_145_f32"] = A.attention_qkv_bwd_reference(
+        x32.double(), g32.double(), 8, 32, 32 ** -0.5)
 # the fused jitter + warp at the training shape (B = 256 uint8 canvases,
 # 256 -> 192, half the images jittered), through the wrapper, at 0 and 90
 # degrees (the transpose route)
@@ -101,6 +142,9 @@ for rot in (0.0, 90.0):
             round_output=True))
 for name, fn in calls.items():
     out[name] = fn()
+dist_f64 = {k: (out[k].double() - v).abs().max().item()
+            for k, v in f64.items()}
+del f64
 # the bn pair at every ConvBnAct shape of the 192 px path, B = 256 bf16
 from hgr_tpu_torch.ops import bn_act as B
 bn = {}
@@ -142,8 +186,8 @@ for name, fn in calls.items():
     end.record()
     end.synchronize()
     times[name] = start.elapsed_time(end) / 50
-torch.save({"out": {k: v.cpu() for k, v in out.items()}, "ms": times},
-           sys.argv[2])
+torch.save({"out": {k: v.cpu() for k, v in out.items()}, "ms": times,
+            "dist_f64": dist_f64}, sys.argv[2])
 """
 
 
@@ -183,10 +227,15 @@ def bits(trees, out_dir: str) -> dict:
             count * (mean[f"bn_reduce_{key}"] + mean[f"bn_elem_{key}"])
             for key, count in _PATH_BN.items())
     # values compared (a uint8 crop against an earlier f32 one of the
-    # same levels counts as the same bits)
+    # same levels counts as the same bits); the f32 attention cases also
+    # by their largest difference and each side's distance from float64
+    f32 = {k: {"max_abs_diff": (first[k] - second[k]).abs().max().item(),
+               "dist_f64": [runs[0]["dist_f64"][k],
+                            runs[1]["dist_f64"][k]]}
+           for k in runs[0]["dist_f64"]}
     return {"same_bits": {k: bool(torch.equal(first[k].float(),
                                               second[k].float()))
-                          for k in first}, "kernel_ms": ms,
+                          for k in first}, "f32": f32, "kernel_ms": ms,
             "bn_pair_ms_per_step": per_step}
 
 
@@ -270,7 +319,7 @@ def _side(tree: str) -> dict:
                           capture_output=True, text=True, check=True)
     out = {"tree": tree}
     for line in proc.stdout.splitlines():
-        if line.startswith('{"model"') or line.startswith('{"train"'):
+        if line.startswith(('{"model"', '{"train"', '{"mixed"')):
             print(line, flush=True)
             out.update(json.loads(line))
     return out
@@ -298,8 +347,10 @@ def main(argv=None) -> int:
     summary = {}
     for run in runs:
         side = summary.setdefault(run["tree"], {"forward_b64_ms": [],
-                                                "step_ms": {}})
+                                                "step_ms": {},
+                                                "mixed_step_ms": []})
         side["forward_b64_ms"].append(run["model"]["bf16_ms_per_forward_b64"])
+        side["mixed_step_ms"].append(run["mixed"]["ms_per_step"])
         for turn in run["train"]["turns"]:
             side["step_ms"].setdefault(f"fused_bn_{turn['fused_bn']}",
                                        []).append(turn["ms_per_step"])

@@ -1,13 +1,17 @@
-"""Time the bf16 attention bodies at other tile and block sizes.
+"""Time the attention bodies at other tile and block sizes.
 
 Builds copies of ``csrc/attention_qkv_{fwd,bwd}.cu`` in which one of the
-compile-time sizes of the tensor-core body is changed (the chunk of keys
-a forward warp holds in registers, the warps per block, the rows a
-backward warp sweeps at a time, the bf16 terms that carry dS), and times
-each against the source as it is on the same inputs, in turns, with its
-worst error against the plain version:
+compile-time sizes of a tensor-core body is changed (bf16: the chunk of
+keys a forward warp holds in registers, the warps per block, the rows a
+backward warp sweeps at a time, the bf16 terms that carry dS; f32: the
+warps per block of the whole-sequence bodies, the tiles a backward step
+takes; or ``{fwd,bwd}_f32_small=int``: the small TF32 part rounded by the
+integer add and mask instead of cvt.rna, csrc/attention_tf32.cuh), and
+times each against the source as it is on the same inputs, in turns,
+with its worst error against the plain version:
 
     python -m hgr_tpu_torch.tools.tune_attention [--batch 64 256]
+        [--dtype float32] [--variants knob=value ...]
 
 Needs the card and nvcc. Prints one JSON line per (variant, batch) and,
 first, one per build (registers, spills).
@@ -28,27 +32,53 @@ KNOBS = {
     "bwd_tiles": ("attention_qkv_bwd", "constexpr int kBwdTiles = "),
     "bwd_warps": ("attention_qkv_bwd", "constexpr int kBwdWarps = "),
     "bwd_split": ("attention_qkv_bwd", "constexpr int kSplit = "),
+    "f32_fwd_warps": ("attention_qkv_fwd", "constexpr int kF32Warps = "),
+    "f32_bwd_warps": ("attention_qkv_bwd", "constexpr int kF32Warps = "),
+    "f32_tiles": ("attention_qkv_bwd", "constexpr int kF32Tiles = "),
 }
-DEFAULT_GRID = ["fwd_chunk_tiles=10", "fwd_warps=2", "fwd_warps=4",
-                "fwd_warps=8", "bwd_tiles=4", "bwd_warps=8", "bwd_split=2"]
+# knob -> (source, header, the text it replaces); value "int" only: the
+# small TF32 part by the integer form of cvt.rna (which turns a NaN of x
+# into -0: faster, not safe)
+HEADER_KNOBS = {
+    f"{kind}_f32_small": (f"attention_qkv_{kind}", "attention_tf32.cuh",
+                          re.compile(r'asm\("cvt\.rna\.tf32\.f32 %0, %1;\\n" '
+                                     r':\s*"=r"\(small\)\s*:\s*"f"\(x - '
+                                     r'__uint_as_float\(big\)\)\);'))
+    for kind in ("fwd", "bwd")}
+_SMALL_INT = ("small = (__float_as_uint(x - __uint_as_float(big)) + "
+              "0x1000u) & 0xffffe000u;")
+DEFAULT_GRID = {
+    "bfloat16": ["fwd_chunk_tiles=10", "fwd_warps=2", "fwd_warps=4",
+                 "fwd_warps=8", "bwd_tiles=4", "bwd_warps=8", "bwd_split=2"],
+    "float32": ["f32_fwd_warps=8", "f32_bwd_warps=4", "f32_tiles=2",
+                "fwd_f32_small=int", "bwd_f32_small=int"],
+}
 SCALE = 32 ** -0.5
 
 
 def _variant_source(spec: str) -> tuple:
-    """(source name, its text with the knob set) for ``knob=value``; the
-    unchanged source for 'as-is:<source>'."""
+    """(source name, its text with the knob set, {header: patched text})
+    for ``knob=value``; the unchanged source for 'as-is:<source>'."""
     from hgr_tpu_torch.utils.cuda_build import CSRC_DIR
 
     if spec.startswith("as-is:"):
         name = spec.split(":", 1)[1]
-        return name, (CSRC_DIR / f"{name}.cu").read_text()
+        return name, (CSRC_DIR / f"{name}.cu").read_text(), {}
     knob, value = spec.split("=")
+    if knob in HEADER_KNOBS:
+        name, header, pattern = HEADER_KNOBS[knob]
+        text = (CSRC_DIR / header).read_text()
+        if value != "int" or not pattern.search(text):
+            raise ValueError(f"{spec}: takes =int, and csrc/{header} must "
+                             "round small with cvt.rna")
+        return name, (CSRC_DIR / f"{name}.cu").read_text(), {
+            header: pattern.sub(_SMALL_INT, text)}
     name, prefix = KNOBS[knob]
     text = (CSRC_DIR / f"{name}.cu").read_text()
     found = re.search(re.escape(prefix) + r"\d+;", text)
     if found is None:
         raise ValueError(f"{prefix!r} not in csrc/{name}.cu")
-    return name, text.replace(found.group(0), f"{prefix}{int(value)};")
+    return name, text.replace(found.group(0), f"{prefix}{int(value)};"), {}
 
 
 def _build(specs) -> dict:
@@ -61,8 +91,16 @@ def _build(specs) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, spec in enumerate(specs):
-        name, text = _variant_source(spec)
-        src = out_dir / f"v{i}_{name}.cu"
+        name, text, headers = _variant_source(spec)
+        # a variant's own directory: a patched header there is found
+        # before csrc/'s (quoted includes search the source's directory)
+        var_dir = out_dir / f"v{i}"
+        var_dir.mkdir(exist_ok=True)
+        for header in {h.name for h in CSRC_DIR.glob("*.cuh")} - set(headers):
+            (var_dir / header).unlink(missing_ok=True)
+        for header, patched in headers.items():
+            (var_dir / header).write_text(patched)
+        src = var_dir / f"{name}.cu"
         src.write_text(text)
         lib = src.with_suffix(".so")
         procs[spec] = (name, lib, subprocess.Popen(
@@ -76,9 +114,16 @@ def _build(specs) -> dict:
             raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
         ptxas = [f"{used}; {spills}" for entry, spills, used in re.findall(
             r"Compiling entry function '(\w+)'.*?(\d+ bytes spill stores)"
-            r".*?(Used \d+ registers)", log, flags=re.S) if "mma" in entry]
+            r".*?(Used \d+ registers)", log, flags=re.S)
+            if "mma" in entry or "tf32" in entry]
         built[spec] = (name, ctypes.CDLL(str(lib)), ptxas)
     return built
+
+
+def _code(t) -> int:
+    import torch
+
+    return 0 if t.dtype == torch.float32 else 1
 
 
 def _scratch(lib, b: int, n: int, heads: int, qkv):
@@ -89,7 +134,7 @@ def _scratch(lib, b: int, n: int, heads: int, qkv):
     fn = lib.attention_qkv_bwd_scratch_floats
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
-    count = fn(b, n, heads, 32, 1)
+    count = fn(b, n, heads, 32, _code(qkv))
     return (torch.empty(count, dtype=torch.float32, device=qkv.device)
             if count else None)
 
@@ -102,8 +147,8 @@ def _call(name: str, lib, qkv, g, out, stream) -> None:
         fn = lib.attention_qkv_fwd
         fn.argtypes = [c.c_void_p, c.c_void_p] + [c.c_int] * 4 + [
             c.c_float, c.c_int, c.c_void_p]
-        rc = fn(qkv.data_ptr(), out.data_ptr(), b, n, heads, 32, SCALE, 1,
-                stream)
+        rc = fn(qkv.data_ptr(), out.data_ptr(), b, n, heads, 32, SCALE,
+                _code(qkv), stream)
     else:
         fn = lib.attention_qkv_bwd
         fn.argtypes = [c.c_void_p] * 4 + [c.c_int] * 4 + [
@@ -111,7 +156,7 @@ def _call(name: str, lib, qkv, g, out, stream) -> None:
         scratch = _scratch(lib, b, n, heads, qkv)
         rc = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), b, n, heads,
-                32, SCALE, 1, stream)
+                32, SCALE, _code(qkv), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed ({rc})")
 
@@ -138,23 +183,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--n", type=int, default=145)
-    ap.add_argument("--variants", nargs="+", default=DEFAULT_GRID,
-                    help="knob=value, knobs: " + ", ".join(KNOBS))
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
+    ap.add_argument("--variants", nargs="+", default=None,
+                    help="knob=value, knobs: " + ", ".join(
+                        [*KNOBS, *HEADER_KNOBS]) + " (default: the "
+                    "dtype's grid)")
     args = ap.parse_args(argv)
+    variants = args.variants or DEFAULT_GRID[args.dtype]
     if not torch.cuda.is_available():
         raise SystemExit("tune_attention needs a CUDA card")
-    specs = ["as-is:attention_qkv_fwd", "as-is:attention_qkv_bwd",
-             *args.variants]
+    specs = ["as-is:attention_qkv_fwd", "as-is:attention_qkv_bwd", *variants]
     built = _build(specs)
     for spec, (_, _, ptxas) in built.items():
         print(json.dumps({"build": spec, "ptxas": ptxas}), flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b in args.batch:
-        qkv = torch.randn(b, args.n, 768, device="cuda",
-                          generator=gen).to(torch.bfloat16)
-        g = torch.randn(b, args.n, 256, device="cuda",
-                        generator=gen).to(torch.bfloat16)
+        dt = getattr(torch, args.dtype)
+        qkv = torch.randn(b, args.n, 768, device="cuda", generator=gen).to(dt)
+        g = torch.randn(b, args.n, 256, device="cuda", generator=gen).to(dt)
         refs = {"attention_qkv_fwd": A.attention_qkv_reference(
                     qkv, 8, 32, SCALE),
                 "attention_qkv_bwd": A.attention_qkv_bwd_reference(
@@ -170,7 +218,8 @@ def main(argv=None) -> int:
 
             ms = _time_ms(torch, fn, 50 if name.endswith("fwd") else 20)
             row = rows.setdefault(spec, {"variant": spec, "kernel": name,
-                                         "batch": b, "runs_ms": []})
+                                         "dtype": args.dtype, "batch": b,
+                                         "runs_ms": []})
             row["runs_ms"].append(ms)
             row["max_abs_err"] = (out.float() - refs[name].float()).abs(
             ).max().item()

@@ -561,40 +561,108 @@ def _last_whole(kernel, dtype):
     return n
 
 
+# the bytes of dynamic shared memory one H100 SM offers its blocks, and
+# what each resident block reserves (the kernels' route rule)
+SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
+
+
+def _holds_two(kernel, n, dtype):
+    """Whether an SM holds two whole-sequence blocks at length n: the
+    whole route's shared memory per padded row (read at a length where
+    that route runs) times pad16(n)."""
+    lib = A._kernel() if kernel == "fwd" else A._bwd_kernel()
+    smem = getattr(lib, f"attention_qkv_{kernel}_smem_bytes")
+    per_row = smem(16, A._DTYPE_CODES[dtype], D) // 16
+    whole = per_row * (-(-n // 16) * 16)
+    return SMEM_PER_SM // (whole + SMEM_RESERVED) >= 2
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_every_length_routes_and_matches(dtype):
-    """No length is refused: at the largest n whose head fits in one
-    block's shared memory each kernel takes the whole-sequence route, one
-    row more takes the key-chunked route, and both match their plain
-    versions, with a launch counted each. The whole-sequence route
-    reaches at least the lengths the CUDA-core bodies took (785 forward,
-    384 backward)."""
+    """No length is refused. The whole-sequence route runs where the rule
+    says it pays: the forward while one register chunk holds the sequence
+    (160 keys at head_dim 32), the backward while an SM holds two of its
+    blocks; the model's N = 145 stays on it. At the last length each
+    kernel takes whole, and one row more (the key-chunked route), both
+    routes match the plain versions with a launch counted each, and give
+    the same bits as each other (``launch_on_route``)."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
     n_fwd, n_bwd = _last_whole("fwd", dt), _last_whole("bwd", dt)
-    assert n_fwd >= 785 and n_bwd >= 384
-    for n in (n_fwd, n_fwd + 1):
-        x = _qkv(1, n, 3, dtype)[..., :3 * D].contiguous()
-        before = A.fused_attention_qkv.launches
-        got = A.fused_attention_qkv(x, 1, D, SCALE)
-        assert A.fused_attention_qkv.launches == before + 1
-        np.testing.assert_allclose(
-            got.float().cpu().numpy(),
-            A.attention_qkv_reference(x, 1, D, SCALE).float().cpu().numpy(),
-            **TOL[dtype])
-    assert A.kernel_route("fwd", n_fwd + 1, D, dt) == 1
-    for n in (n_bwd, n_bwd + 1):
-        x = _qkv(1, n, 4, dtype)[..., :3 * D].contiguous()
-        g = torch.randn(1, n, D, device="cuda").to(dt)
-        before = A.fused_attention_qkv_bwd.launches
-        got = A.fused_attention_qkv_bwd(x, g, 1, D, SCALE)
-        assert A.fused_attention_qkv_bwd.launches == before + 1
-        np.testing.assert_allclose(
-            got.float().cpu().numpy(),
-            A.attention_qkv_bwd_reference(x, g, 1, D, SCALE).float().cpu()
-            .numpy(), **GRAD_TOL[dtype])
-    assert A.kernel_route("bwd", n_bwd + 1, D, dt) == 1
+    assert n_fwd == 160 and n_bwd >= 145
+    assert _holds_two("bwd", n_bwd, dt) and not _holds_two("bwd", n_bwd + 1,
+                                                          dt)
+    for kernel, last in (("fwd", n_fwd), ("bwd", n_bwd)):
+        for n in (last, last + 1):
+            x = _qkv(1, n, 3, dtype)[..., :3 * D].contiguous()
+            g = torch.randn(1, n, D, device="cuda").to(dt)
+            counter = (A.fused_attention_qkv if kernel == "fwd"
+                       else A.fused_attention_qkv_bwd)
+            before = counter.launches
+            if kernel == "fwd":
+                got = A.fused_attention_qkv(x, 1, D, SCALE)
+                want = A.attention_qkv_reference(x, 1, D, SCALE)
+            else:
+                got = A.fused_attention_qkv_bwd(x, g, 1, D, SCALE)
+                want = A.attention_qkv_bwd_reference(x, g, 1, D, SCALE)
+            assert counter.launches == before + 1
+            np.testing.assert_allclose(
+                got.float().cpu().numpy(), want.float().cpu().numpy(),
+                **(TOL if kernel == "fwd" else GRAD_TOL)[dtype])
+            routes = [A.launch_on_route(kernel, r, x, 1, D, SCALE,
+                                        g if kernel == "bwd" else None)
+                      for r in (0, 1)]
+            assert torch.equal(routes[0], routes[1])
+            assert torch.equal(got, routes[0])
+        assert A.kernel_route(kernel, last, D, dt) == 0
+        assert A.kernel_route(kernel, last + 1, D, dt) == 1
+
+
+# the lengths of chip_smoke's route sweep (both routes timed there)
+ROUTE_SWEEP = [("fwd", n) for n in (145, 257, 401, 481, 577, 689, 785, 961)
+               ] + [("bwd", n) for n in (145, 257, 401, 481, 577, 688)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kernel,n", ROUTE_SWEEP)
+def test_routes_give_the_same_bits_at_the_sweep_lengths(kernel, n, dtype):
+    """At each length of the route sweep, 2 images of the model's 8 heads:
+    the whole-sequence route (where one block holds the head) and the
+    key-chunked route give the same bits, and the entry point gives
+    those of the route it takes."""
+    _cuda_or_skip()
+    dt = getattr(torch, dtype)
+    x = _qkv(2, n, n, dtype)
+    g = torch.from_numpy(np.random.RandomState(n + 1).randn(2, n, H * D)
+                         .astype(np.float32)).to("cuda", dt)
+    cot = g if kernel == "bwd" else None
+    outs = {}
+    for r in (0, 1):
+        try:
+            outs[r] = A.launch_on_route(kernel, r, x, H, D, SCALE, cot)
+        except ValueError:  # the head does not fit one block
+            assert r == 0
+    entry = (A.fused_attention_qkv(x, H, D, SCALE) if kernel == "fwd"
+             else A.fused_attention_qkv_bwd(x, g, H, D, SCALE))
+    assert torch.equal(entry, outs[A.kernel_route(kernel, n, D, dt)])
+    if 0 in outs:
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.gpu
+def test_routed_launch_refuses_a_route_that_does_not_exist():
+    """``launch_on_route`` raises for a whole-sequence route at padded
+    width 256 (none is built there), before any launch is counted."""
+    _cuda_or_skip()
+    x = torch.zeros(1, 17, 3 * 2 * 256, device="cuda")
+    before = A.fused_attention_qkv.launches
+    with pytest.raises(ValueError, match="route 0"):
+        A.launch_on_route("fwd", 0, x, 2, 256, 256 ** -0.5)
+    assert A.fused_attention_qkv.launches == before
+    A.launch_on_route("fwd", 1, x, 2, 256, 256 ** -0.5)
+    assert A.fused_attention_qkv.launches == before + 1
 
 
 @pytest.mark.gpu
