@@ -156,8 +156,8 @@ TF32_PEAK_FLOPS, TF32_TERMS = 495e12, 3
 # their bits compared: bf16 at (64, n, 768) for each n here, and f32 at
 # the --dtype mixed step's (256, 145, 768)
 ROUTE_SWEEP = [(kernel, 64, n, "bfloat16") for kernel, lengths in (
-    ("fwd", (145, 257, 401, 481, 577, 689, 785, 961)),
-    ("bwd", (145, 257, 401, 481, 577, 688))) for n in lengths] + [
+    ("fwd", (145, 193, 257, 401, 481, 577, 689, 785, 961)),
+    ("bwd", (145, 161, 193, 257, 401, 481, 577, 688))) for n in lengths] + [
     (kernel, TRAIN_BATCH, 145, "float32") for kernel in ("fwd", "bwd")]
 # Kernel vs its plain version on the card: the JAX kernel tests' own
 # tolerances (tests/test_attention_pallas.py); bf16 output is one rounding
@@ -964,7 +964,8 @@ def long_path_phase(torch, n_bn: int) -> dict:
     """C2's paths through the entry points a user calls, MultiTaskNet
     small at full width with seeded random weights: one bf16 train step
     at 448 px (N = 785, B = 64, the CLI defaults: de-mixed pullbacks) with
-    the fused BN route off and on, one f32 step at 320 px (N = 401, B =
+    the fused BN route off and on, each then timed steadily (2 warm-up and
+    6 timed steps, CUDA events), one f32 step at 320 px (N = 401, B =
     16) off and on, one bf16 step at 192 px (B = 64) of the model with 2
     heads x 256 (every attention kernel at padded width 256) off and on,
     and the bf16 serving forward at 448 px (B = 64). Each
@@ -1018,9 +1019,21 @@ def long_path_phase(torch, n_bn: int) -> dict:
                 check(got == want, f"{px} px {dtype} step, fused BN {route}: "
                                    f"launches {got} != {want}")
                 check(np.isfinite(loss), f"{px} px step loss {loss}")
-                turns.append({"fused_bn": route, "loss": loss,
-                              "seconds_first_step": seconds,
-                              "launches": got})
+                turn = {"fused_bn": route, "loss": loss,
+                        "seconds_first_step": seconds, "launches": got}
+                if px == LONG_BF16:
+                    # the 448 px step's steady time (CUDA events): 2
+                    # warm-up steps and 6 timed, as the train line's turns
+                    held = [state]
+
+                    def one_step(held=held):
+                        held[0], _ = step(held[0], batch, gen)
+
+                    turn["ms_per_step"] = cuda_time_ms(
+                        torch, one_step, iters=TURN_STEPS,
+                        warmup=TURN_WARMUP)
+                    state = held[0]
+                turns.append(turn)
         finally:
             layers._FUSED_BN = None
         after = model.state_dict()

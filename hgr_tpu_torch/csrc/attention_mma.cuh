@@ -107,18 +107,21 @@ __device__ __forceinline__ void cp_async_wait() {
 // zero rows n..npad-1, so that products over the padded tile see zeros and
 // never stale shared memory (0 x NaN is NaN). 16-byte cp.async copies when
 // the rows allow them (16-byte aligned, row stride and d multiples of 8
-// elements), else one element per thread into the same layout. The caller
-// waits (cp_async_wait_all or a group wait) and synchronises the block.
+// elements), else one element per thread into the same layout; thread
+// ``tid`` of the ``threads`` that stage takes every threads-th piece. The
+// caller waits (cp_async_wait_all, a group wait, or an mbarrier that the
+// copies arrive on) and synchronises the threads that read.
 template <int Dp>
-__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
-                                           int64_t row, bf16* dst, int n,
-                                           int npad, int d) {
+__device__ __forceinline__ void stage_rows_by(const bf16* __restrict__ src,
+                                              int64_t row, bf16* dst, int n,
+                                              int npad, int d, unsigned tid,
+                                              unsigned threads) {
   constexpr int kPad = row_pad(Dp);
   constexpr int kChunks = Dp / 8;  // 16-byte chunks of a staged row
   if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % 8 == 0 &&
       d % 8 == 0) {
     const int dc = d >> 3;
-    for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
+    for (int idx = tid; idx < n * kChunks; idx += threads) {
       const int j = idx / kChunks;
       const int c = idx - j * kChunks;
       if (c < dc) {
@@ -130,17 +133,127 @@ __device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
     }
   } else {
     const bf16 zero = __float2bfloat16(0.f);
-    for (int idx = threadIdx.x; idx < n * Dp; idx += blockDim.x) {
+    for (int idx = tid; idx < n * Dp; idx += threads) {
       const int j = idx / Dp;
       const int f = idx - j * Dp;
       dst[j * kPad + f] = f < d ? src[j * row + f] : zero;
     }
   }
-  for (int idx = threadIdx.x; idx < (npad - n) * kChunks; idx += blockDim.x) {
+  for (int idx = tid; idx < (npad - n) * kChunks; idx += threads) {
     const int j = n + idx / kChunks;
     *reinterpret_cast<uint4*>(dst + j * kPad + (idx % kChunks) * 8) =
         make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// ---- The staged ring of the bf16 key-chunked bodies (the forward's at
+// Dp = 32, the backward's at Dp <= 64).
+// Chunks of the other side pass through kStages buffers in shared memory.
+// One producer warp stages chunk i into buffer i % kStages by cp.async and
+// arrives on that buffer's ``full`` barrier twice a lane: once when its
+// copies have landed (cp.async.mbarrier.arrive.noinc) and once after its
+// plain zero stores (mbarrier.arrive, a release); the consumer warps wait
+// on ``full`` for the buffer they read, and each arrives once on its
+// ``empty`` barrier when done, which the producer waits on before it
+// stages chunk i + kStages there. No warp waits for the block: a fast warp
+// runs up to kStages - 1 chunks ahead of the slowest.
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  int stage = 0;
+  unsigned phase = 0;
+  // the next chunk's buffer
+  __device__ __forceinline__ void advance(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// 32 producer lanes, each arriving twice a chunk
+constexpr unsigned kRingFullCount = 64;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// arrives on ``bar`` once every cp.async this thread issued has landed
+__device__ __forceinline__ void mbar_arrive_copies(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// waits for the completion of the barrier's phase of parity ``parity``
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "RING_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra RING_WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Thread 0 initialises the ring's barriers (``consumers`` warps release a
+// buffer); the caller synchronises the block before their first use.
+__device__ __forceinline__ void ring_init(const Ring& ring, int stages,
+                                          int consumers) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring.full + s, kRingFullCount);
+      mbar_init(ring.empty + s, static_cast<unsigned>(consumers));
+    }
+    mbar_fence_init();
+  }
+}
+
+// The producer lane's side of one chunk: wait until the buffer is free,
+// ``stage()`` issues the lane's copies and zero stores, then arrive.
+template <typename F>
+__device__ __forceinline__ void ring_produce(Ring& ring, int stages,
+                                             F&& stage) {
+  mbar_wait(ring.empty + ring.stage, ring.phase ^ 1u);
+  stage(ring.stage);
+  mbar_arrive_copies(ring.full + ring.stage);
+  mbar_arrive(ring.full + ring.stage);
+  ring.advance(stages);
+}
+
+// A consumer warp: wait for the current buffer to be full ...
+__device__ __forceinline__ void ring_acquire(const Ring& ring) {
+  mbar_wait(ring.full + ring.stage, ring.phase);
+}
+
+// ... and release it when every lane is done reading it
+__device__ __forceinline__ void ring_release(Ring& ring, int stages,
+                                             int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(ring.empty + ring.stage);
+  ring.advance(stages);
+}
+
+template <int Dp>
+__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
+                                           int64_t row, bf16* dst, int n,
+                                           int npad, int d) {
+  stage_rows_by<Dp>(src, row, dst, n, npad, d, threadIdx.x, blockDim.x);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -340,6 +453,26 @@ __device__ __forceinline__ void masked_scores(float (&s)[NT][4],
     } else {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = -INFINITY;
     }
+  }
+}
+
+// masked_scores for a step of the ring bodies: where every key of the
+// step lies below n, the same scaled products without the mask's compares
+// and selects.
+template <int Dp, int NT>
+__device__ __forceinline__ void step_scores(float (&s)[NT][4],
+                                            const uint32_t (&qa)[Dp / 16][4],
+                                            const bf16* ks, int key0, int n,
+                                            int npad, float scale, int lane) {
+  if (key0 + 8 * NT <= n && key0 + 8 * NT <= npad) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      product_t<Dp>(s[j], qa, ks, key0 + 8 * j, lane);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+    }
+  } else {
+    masked_scores<Dp>(s, qa, ks, key0, n, npad, scale, lane);
   }
 }
 

@@ -56,10 +56,11 @@
 // Two bodies, chosen by the compute type, no atomics anywhere, so the
 // result is deterministic, and both in two phases: query rows give dq and
 // the rows' softmax statistics (max, 1 / sum, rd), then key rows give dk
-// and dv from those statistics. While an SM holds two blocks that stage
-// the head's whole Q, K, V and G (n <= 336 at D = 32 in bf16, n <= 192 in
-// f32), both phases run in one block per (head, image) with the
-// statistics in shared memory. Past that, the key-chunked route runs the
+// and dv from those statistics. While an SM holds four blocks that stage
+// the head's whole Q, K, V and G in bf16 at Dp = 32 (n <= 160), two in
+// f32 and at other bf16 widths (n <= 192 at D = 32 in f32), both
+// phases run in one block per (head, image) with the statistics in
+// shared memory. Past that, the key-chunked route runs the
 // phases as two kernels: one over query tiles (dq and the statistics, K
 // and V streamed through shared memory in chunks), then one over key
 // tiles (dk and dv, Q, G and the statistics streamed likewise); the
@@ -68,8 +69,11 @@
 // in a fixed order, and both routes take the same steps in the same
 // order: they give the same bits. The rule is the measured crossover:
 // timed at (64, n, 768) bf16 on an H100 (chip_smoke's route sweep), the
-// whole body took 0.319 ms against the chunked 0.334 at n = 257 (two
-// blocks an SM) and 1.122 against 0.683 at n = 401 (one block an SM).
+// whole body took 0.085 ms against the ring pair's 0.117 at n = 145 (four
+// blocks an SM), 0.134 against 0.130 at n = 161 and 0.214 against 0.160
+// at n = 193 (three) (PERF.md section 6), at D = 32; f32 keeps the
+// two-block rule measured for its bodies, and so do the other bf16
+// widths, whose crossover was not swept.
 //
 // bf16 (every train path): Hopper's tensor cores through
 // mma.sync.aligned.m16n8k16 bf16 -> f32 (attention_mma.cuh). The block
@@ -102,6 +106,31 @@
 // (tools/probe_score_bits.py), so the two phases see the same P. The
 // key-chunked kernels take the same 16-row steps in the same order, so
 // they compute the same bits as the whole-sequence body would.
+//
+// The key-chunked route at Dp <= 64 (the 448 px path) is the pair of ring
+// bodies. Bound at (B=64, N=785, H=8, D=32, bf16): 180.1 MB moved (qkv
+// and g read, dqkv written once), 0.0537 ms at 3.35 TB/s, against
+// 10 N^2 D H B = 1.01e11 FLOP, 0.102 ms at 989 TFLOP/s: bound by its
+// operations. The bits ask for more work than that: S and dA twice in
+// phase 1 and once in phase 2, dS into dq and dk as kSplit bf16 terms,
+// 13 products of 2 N^2 D a head (2.62e11 FLOP, 0.27 ms even at the peak),
+// and three expf a score (~0.23 ms at the SFU's 16 a clock an SM). What
+// the bodies do about the rest:
+//   - one block per 16 W rows (W = kRingWarps consumer warps, fewer for
+//     a shorter head), the other side streamed through attention_mma.cuh's
+//     Ring (one producer warp, kRingStages buffers of kLongRows rows with a
+//     full and an empty mbarrier each): no block barrier in the loop, and
+//     each staged chunk serves 7 tiles where the earlier kernels' served
+//     4 (8 blocks a head at N = 785 against 13: ~1.3 GB through L2 a call
+//     against ~2.1);
+//   - each warp step spans 8 * ring_tiles() keys (phase 1) or queries
+//     (phase 2) instead of 16: the products, maxima, exps and shuffles of
+//     its 16-row sub-steps are issued side by side, then folded
+//     (fold_steps) and accumulated (accumulate_steps,
+//     key_accumulate_steps) in the 16-row order, so that m, l, rd, dq, dk
+//     and dv keep their bits.
+// Dp >= 128 keeps the earlier key-chunked kernels (64 rows a block, two
+// cp.async buffers, two block barriers a chunk, 16-row steps).
 //
 // f32 (--dtype mixed's decoder, the check paths; gradients held at 1e-4):
 // the bf16 body's phases, routes and order on the tensor cores by a
@@ -199,8 +228,31 @@ __host__ __device__ constexpr int f32_long_rows(int dp) {
   return tc::a_in_smem(dp) ? kLongRows / 2 : kLongRows;
 }
 // Least whole-sequence blocks an SM must hold for that route to run
-// (route()).
+// (route()), and for the bf16 body at Dp = 32, the only width whose
+// crossover with the ring pair was swept: 4, N <= 160 (chip_smoke's route
+// sweep: the ring pair won from n = 161 on). Other widths keep 2.
 constexpr int kWholeBlocks = 2;
+constexpr int kWholeBlocksRing = 4;
+// The key-chunked route's ring bodies (Dp <= 64): most consumer warps
+// (16-row tiles) a block besides the producer warp, buffers of the ring
+// (kLongRows rows of the other side each), the least blocks an SM must
+// hold (ptxas fits the registers to it: blocks of 8 warps, two an SM,
+// leave 128 a thread; 9 would leave 96 and spill), and the 8-row C tiles
+// of S and dA a warp takes a step at Dp <= 32 (half as many at 64).
+// tools/tune_attention.py times other values.
+constexpr int kRingWarps = 7;
+constexpr int kRingStages = 3;
+constexpr int kRingBlocks = 2;
+constexpr int kRingTiles = 4;
+__host__ __device__ constexpr bool ring_body(int dp) { return dp <= 64; }
+template <int Dp>
+__host__ __device__ constexpr int ring_tiles() {
+  return Dp <= 32 || kRingTiles <= 2 ? kRingTiles : kRingTiles / 2;
+}
+static_assert(kLongRows % (8 * kRingTiles) == 0, "whole steps a chunk");
+// the ring's barriers (a full and an empty one a buffer) ahead of the
+// staged rows, in whole 16-byte units
+constexpr int kRingHeader = 16 * ((16 * kRingStages + 15) / 16);
 
 // dS from P, dA and the row's sum rd, in the same instructions in both
 // phases
@@ -289,8 +341,9 @@ __device__ __forceinline__ void query_dscores(float (&s)[NT][4],
 
 // Phase 2, one step of queries from q0 on: s (raw K Q^T) becomes P^T and
 // da (V G^T) dS^T, from the rows' saved max, 1 / sum and rd (indexed from
-// q0 as the step is); queries at or beyond ``limit`` give 0.
-template <int NT>
+// q0 as the step is); queries at or beyond ``limit`` give 0. kAll: every
+// query of the step lies below limit (no compares and selects).
+template <int NT, bool kAll = false>
 __device__ __forceinline__ void key_pds(float (&s)[NT][4],
                                         float (&da)[NT][4], int q0,
                                         int limit, const float* row_max,
@@ -304,7 +357,7 @@ __device__ __forceinline__ void key_pds(float (&s)[NT][4],
     for (int e = 0; e < 4; ++e) {
       const int i = q0 + 8 * j + 2 * t + (e & 1);  // the query
       float p = 0.f, ds = 0.f;
-      if (i < limit) {
+      if (kAll || i < limit) {
         p = expf(__fmul_rn(s[j][e], scale) - row_max[i]) * row_inv[i];
         ds = dscore(p, da[j][e], row_dot[i], scale);
       }
@@ -333,6 +386,128 @@ __device__ __forceinline__ void key_accumulate(
         tc::pack(s[2 * p + 1][0], s[2 * p + 1][1]),
         tc::pack(s[2 * p + 1][2], s[2 * p + 1][3])}};
     tc::accumulate<Dp, 1>(dv, pa, gs, k0, lane);
+  }
+}
+
+// Phase 1, a step of NT / 2 16-key sub-steps: fold each into the running
+// max m, sum l and rd of rows g and g + 8 as fold_step folds one, in the
+// same order, with the same values: the sub-steps' maxima, exps and sums
+// are taken side by side (a max is exact in any order), then applied one
+// after the other. Sub-steps from ``live`` on hold no key below n and are
+// left out, as the 16-key loop left them.
+template <int NT>
+__device__ __forceinline__ void fold_steps(const float (&s)[NT][4],
+                                           const float (&da)[NT][4],
+                                           float (&m)[2], float (&l)[2],
+                                           float (&rd)[2], int live) {
+  constexpr int K = NT / 2;
+  // mc[k]: the running max after sub-step k
+  float mc[K][2], sum[K][2], dot[K][2], f[K][2];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float x[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 2 * k; j < 2 * k + 2; ++j) {
+      x[0] = fmaxf(x[0], fmaxf(s[j][0], s[j][1]));
+      x[1] = fmaxf(x[1], fmaxf(s[j][2], s[j][3]));
+    }
+    mc[k][0] = tc::quad_max(x[0]);
+    mc[k][1] = tc::quad_max(x[1]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float before = k == 0 ? m[r] : mc[k - 1][r];
+      mc[k][r] = fmaxf(before, mc[k][r]);
+      // the first sub-step's factor is exp(-inf) = 0
+      f[k][r] = expf(before - mc[k][r]);
+      sum[k][r] = 0.f;
+      dot[k][r] = 0.f;
+    }
+#pragma unroll
+    for (int j = 2 * k; j < 2 * k + 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(s[j][e] - mc[k][e >> 1]);
+        sum[k][e >> 1] += x;
+        dot[k][e >> 1] = fmaf(da[j][e], x, dot[k][e >> 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[k][r] = tc::quad_sum(sum[k][r]);
+      dot[k][r] = tc::quad_sum(dot[k][r]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k < live) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = l[r] * f[k][r] + sum[k][r];
+        rd[r] = rd[r] * f[k][r] + dot[k][r];
+        m[r] = mc[k][r];
+      }
+    }
+  }
+}
+
+// acc += X . rows over a step's 16-row sub-steps from r0 on, in order, as
+// accumulate_split takes one (X: the step's NT C tiles in f32); sub-steps
+// from ``live`` on are left out. The step with every sub-step live takes
+// no branch between them, so that their products interleave.
+template <int Dp, int NT>
+__device__ __forceinline__ void accumulate_steps(float (&acc)[Dp / 8][4],
+                                                 const float (&x)[NT][4],
+                                                 const tc::bf16* rows, int r0,
+                                                 int live, int lane) {
+  if (live >= NT / 2) {
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      accumulate_split<Dp>(acc, x[2 * p], x[2 * p + 1], rows, r0 + 16 * p,
+                           lane);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      if (p < live) {
+        accumulate_split<Dp>(acc, x[2 * p], x[2 * p + 1], rows, r0 + 16 * p,
+                             lane);
+      }
+    }
+  }
+}
+
+// Phase 2, a step: key_accumulate over its 16-query sub-steps from q0 on,
+// in order; sub-steps from ``live`` on are left out (as accumulate_steps).
+template <int Dp, int NT>
+__device__ __forceinline__ void key_accumulate_steps(
+    float (&dk)[Dp / 8][4], float (&dv)[Dp / 8][4], const float (&s)[NT][4],
+    const float (&da)[NT][4], const tc::bf16* qs, const tc::bf16* gs, int q0,
+    int live, int lane) {
+  auto one = [&](int p) {
+    accumulate_split<Dp>(dk, da[2 * p], da[2 * p + 1], qs, q0 + 16 * p,
+                         lane);
+    // P^T rounded to bf16, as the forward multiplied V by it
+    const uint32_t pa[1][4] = {{
+        tc::pack(s[2 * p][0], s[2 * p][1]),
+        tc::pack(s[2 * p][2], s[2 * p][3]),
+        tc::pack(s[2 * p + 1][0], s[2 * p + 1][1]),
+        tc::pack(s[2 * p + 1][2], s[2 * p + 1][3])}};
+    tc::accumulate<Dp, 1>(dv, pa, gs, q0 + 16 * p, lane);
+  };
+  if (live >= NT / 2) {
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) one(p);
+  } else {
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      if (p < live) one(p);
+    }
   }
 }
 
@@ -494,9 +669,9 @@ attention_bwd_mma_kernel(const Operands<tc::bf16> ops, int n, int d_arg,
   }
 }
 
-// bf16 key-chunked route, phase 1: one block per 16 * kLongWarps query
-// rows, K and V kLongRows rows at a time (double-buffered cp.async
-// groups) -> dq and the rows' max, 1 / sum and rd in ``stats``.
+// bf16 key-chunked route at Dp >= 128, phase 1: one block per 16 *
+// kLongWarps query rows, K and V kLongRows rows at a time (double-buffered
+// cp.async groups) -> dq and the rows' max, 1 / sum and rd in ``stats``.
 template <int Dp>
 __global__ void __launch_bounds__(kLongWarps * 32)
 attention_bwd_mma_q_kernel(const Operands<tc::bf16> ops,
@@ -614,8 +789,9 @@ attention_bwd_mma_q_kernel(const Operands<tc::bf16> ops,
   }
 }
 
-// bf16 key-chunked route, phase 2: one block per 16 * kLongWarps key
-// rows, Q, G and the rows' statistics kLongRows rows at a time -> dk, dv.
+// bf16 key-chunked route at Dp >= 128, phase 2: one block per 16 *
+// kLongWarps key rows, Q, G and the rows' statistics kLongRows rows at a
+// time -> dk, dv.
 template <int Dp>
 __global__ void __launch_bounds__(kLongWarps * 32 * key_roles(Dp))
 attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
@@ -748,6 +924,238 @@ attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
       tc::store_rows<Dp>(dk, o.head(b, h, d), o.row, c0, n, d, lane);
     }
   }
+}
+
+// bf16 key-chunked route at Dp <= 64, phase 1, the ring body: one block
+// per 16 * W query rows (W consumer warps, a 16-row tile each, and one
+// producer warp), K and V streamed kLongRows rows at a time through the
+// kRingStages buffers of attention_mma.cuh's Ring, twice (sweep 0 takes m,
+// l and rd; sweep 1 dq), 8 * ring_tiles() keys a warp step -> dq and the
+// rows' max, 1 / sum and rd in ``stats``. The 16-key sub-steps keep the
+// whole-sequence body's order: the same bits.
+template <int Dp>
+__global__ void __launch_bounds__(32 * (kRingWarps + 1), kRingBlocks)
+attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
+                                float* __restrict__ stats, int n, int heads,
+                                int d, float scale) {
+  using tc::bf16;
+  constexpr int kPad = tc::row_pad(Dp);
+  constexpr int NT = ring_tiles<Dp>();
+  constexpr int kBuf = 2 * kLongRows * kPad;  // K then V of one chunk
+  extern __shared__ uint4 smem_tc[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
+  tc::Ring ring{bars, bars + kRingStages};
+  const int warps = (blockDim.x >> 5) - 1;  // the last warp stages
+  const int rows = 16 * warps;
+  bf16* qs = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem_tc) +
+                                     kRingHeader);  // rows rows each
+  bf16* gs = qs + rows * kPad;
+  bf16* kv = gs + rows * kPad;  // kRingStages buffers of kBuf
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int npad = tc::pad16(n);
+  const int q0 = blockIdx.x * rows;
+  const int tiles = min(warps, (npad - q0) / 16);  // warps with a tile
+  tc::ring_init(ring, kRingStages, tiles);
+  const int cnt = min(rows, n - q0);
+  tc::stage_rows<Dp>(ops.q.head(b, h, d) + q0 * ops.q.row, ops.q.row, qs,
+                     cnt, rows, d);
+  tc::stage_rows<Dp>(ops.g.head(b, h, d) + q0 * ops.g.row, ops.g.row, gs,
+                     cnt, rows, d);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  const int chunks = (n + kLongRows - 1) / kLongRows;
+  if (warp == warps) {  // K and V chunk by chunk, once a sweep
+    const bf16* kh = ops.k.head(b, h, d);
+    const bf16* vh = ops.v.head(b, h, d);
+    for (int i = 0; i < 2 * chunks; ++i) {
+      const int k0 = (i < chunks ? i : i - chunks) * kLongRows;
+      const int kc = min(kLongRows, n - k0);
+      tc::ring_produce(ring, kRingStages, [&](int st) {
+        bf16* kb = kv + st * kBuf;
+        tc::stage_rows_by<Dp>(kh + k0 * ops.k.row, ops.k.row, kb, kc,
+                              kLongRows, d, lane, 32u);
+        tc::stage_rows_by<Dp>(vh + k0 * ops.v.row, ops.v.row,
+                              kb + kLongRows * kPad, kc, kLongRows, d, lane,
+                              32u);
+      });
+    }
+    tc::cp_async_wait_all();
+    return;
+  }
+  if (warp >= tiles) return;
+
+  const int r0 = q0 + 16 * warp;  // this warp's query tile
+  uint32_t qa[Dp / 16][4], ga[Dp / 16][4];
+  tc::load_a<Dp>(qa, qs, 16 * warp, lane);
+  tc::load_a<Dp>(ga, gs, 16 * warp, lane);
+  float s[NT][4], da[NT][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+  float inv[2] = {0.f, 0.f};
+  float dq[Dp / 8][4] = {};
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int c = 0; c < chunks; ++c) {
+      tc::ring_acquire(ring);
+      const bf16* kb = kv + ring.stage * kBuf;
+      const bf16* vb = kb + kLongRows * kPad;
+      const int left = n - c * kLongRows;  // keys from the chunk's first
+      for (int key0 = 0; key0 < kLongRows && key0 < left; key0 += 8 * NT) {
+        // the step's 16-key sub-steps that hold a key below n
+        const int live = min(NT / 2, (left - key0 + 15) / 16);
+        tc::step_scores<Dp>(s, qa, kb, key0, left, kLongRows, scale, lane);
+        tc::products<Dp>(da, ga, vb, key0, kLongRows, lane);
+        if (sweep == 0) {
+          fold_steps(s, da, m, l, rd, live);
+        } else {
+          query_dscores(s, da, m, inv, rd, scale);
+          accumulate_steps<Dp>(dq, s, kb, key0, live, lane);
+        }
+      }
+      tc::ring_release(ring, kRingStages, lane);
+    }
+    if (sweep == 0) {
+      inv[0] = 1.f / l[0];
+      inv[1] = 1.f / l[1];
+      rd[0] *= inv[0];
+      rd[1] *= inv[1];
+    }
+  }
+  tc::store_rows<Dp>(dq, ops.dq.head(b, h, d), ops.dq.row, r0, n, d, lane);
+  if (t == 0) {
+    float* st = stats_of(stats, b, h, heads, npad);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      st[r0 + g + 8 * r] = m[r];
+      st[npad + r0 + g + 8 * r] = inv[r];
+      st[2 * npad + r0 + g + 8 * r] = rd[r];
+    }
+  }
+}
+
+// bf16 key-chunked route at Dp <= 64, phase 2, the ring body: one block
+// per 16 * W key rows (as phase 1), Q, G and the rows' statistics streamed
+// kLongRows rows at a time through the ring, 8 * ring_tiles() queries a
+// warp step -> dk, dv, in the whole-sequence body's 16-query order.
+template <int Dp>
+__global__ void __launch_bounds__(32 * (kRingWarps + 1), kRingBlocks)
+attention_bwd_mma_ring_k_kernel(const Operands<tc::bf16> ops,
+                                const float* __restrict__ stats, int n,
+                                int heads, int d, float scale) {
+  using tc::bf16;
+  constexpr int kPad = tc::row_pad(Dp);
+  constexpr int NT = ring_tiles<Dp>();
+  // Q then G of one chunk, then its 3 x kLongRows statistics (f32)
+  constexpr int kBuf = 2 * kLongRows * kPad + 6 * kLongRows;
+  extern __shared__ uint4 smem_tc[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
+  tc::Ring ring{bars, bars + kRingStages};
+  const int warps = (blockDim.x >> 5) - 1;  // the last warp stages
+  const int rows = 16 * warps;
+  bf16* ks = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem_tc) +
+                                     kRingHeader);  // rows rows each
+  bf16* vs = ks + rows * kPad;
+  bf16* qg = vs + rows * kPad;  // kRingStages buffers of kBuf
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int npad = tc::pad16(n);
+  const int k0 = blockIdx.x * rows;
+  const int tiles = min(warps, (npad - k0) / 16);  // warps with a tile
+  tc::ring_init(ring, kRingStages, tiles);
+  const int cnt = min(rows, n - k0);
+  tc::stage_rows<Dp>(ops.k.head(b, h, d) + k0 * ops.k.row, ops.k.row, ks,
+                     cnt, rows, d);
+  tc::stage_rows<Dp>(ops.v.head(b, h, d) + k0 * ops.v.row, ops.v.row, vs,
+                     cnt, rows, d);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  const int chunks = (n + kLongRows - 1) / kLongRows;
+  if (warp == warps) {  // Q, G and the statistics chunk by chunk
+    const bf16* qh = ops.q.head(b, h, d);
+    const bf16* gh = ops.g.head(b, h, d);
+    const float* sh = stats + (static_cast<int64_t>(b) * heads + h) * 3 * npad;
+    for (int c = 0; c < chunks; ++c) {
+      const int q0 = c * kLongRows;
+      const int qc = min(kLongRows, n - q0);
+      tc::ring_produce(ring, kRingStages, [&](int st) {
+        bf16* qb = qg + st * kBuf;
+        tc::stage_rows_by<Dp>(qh + q0 * ops.q.row, ops.q.row, qb, qc,
+                              kLongRows, d, lane, 32u);
+        tc::stage_rows_by<Dp>(gh + q0 * ops.g.row, ops.g.row,
+                              qb + kLongRows * kPad, qc, kLongRows, d, lane,
+                              32u);
+        // the rows' max, 1 / sum and rd below npad (the pad rows past n
+        // are never read: key_pds gives their queries 0)
+        float* sb = reinterpret_cast<float*>(qb + 2 * kLongRows * kPad);
+        const int sr = min(kLongRows, npad - q0);
+        if (reinterpret_cast<uintptr_t>(sh) % 16 == 0) {
+          for (int idx = lane; idx < 3 * (sr / 4); idx += 32) {
+            const int w = idx / (sr / 4), i = 4 * (idx - w * (sr / 4));
+            tc::cp_async16(sb + w * kLongRows + i, sh + w * npad + q0 + i);
+          }
+        } else {
+          for (int idx = lane; idx < 3 * sr; idx += 32) {
+            const int w = idx / sr, i = idx - w * sr;
+            sb[w * kLongRows + i] = sh[w * npad + q0 + i];
+          }
+        }
+      });
+    }
+    tc::cp_async_wait_all();
+    return;
+  }
+  if (warp >= tiles) return;
+
+  const int c0 = k0 + 16 * warp;  // this warp's key tile
+  // K's and V's A fragments in registers at Dp = 16, else read from the
+  // staged rows at each step in the same mma order (products_smem), which
+  // keeps the registers within the 128 a thread that two blocks an SM
+  // leave
+  constexpr bool kASmem = Dp >= 32;
+  uint32_t ka[kASmem ? 1 : Dp / 16][4], va[kASmem ? 1 : Dp / 16][4];
+  if constexpr (!kASmem) {
+    tc::load_a<Dp>(ka, ks, 16 * warp, lane);
+    tc::load_a<Dp>(va, vs, 16 * warp, lane);
+  }
+  float s[NT][4], da[NT][4];
+  float dk[Dp / 8][4] = {}, dv[Dp / 8][4] = {};
+  for (int c = 0; c < chunks; ++c) {
+    tc::ring_acquire(ring);
+    const bf16* qb = qg + ring.stage * kBuf;
+    const bf16* gb = qb + kLongRows * kPad;
+    const float* st = reinterpret_cast<const float*>(gb + kLongRows * kPad);
+    const int left = n - c * kLongRows;  // queries from the chunk's first
+    for (int q0 = 0; q0 < kLongRows && q0 < left; q0 += 8 * NT) {
+      // the step's 16-query sub-steps that hold a query below n
+      const int live = min(NT / 2, (left - q0 + 15) / 16);
+      if constexpr (kASmem) {  // S^T, dA^T
+        tc::products_smem<Dp>(s, ks, 16 * warp, qb, q0, kLongRows, lane);
+        tc::products_smem<Dp>(da, vs, 16 * warp, gb, q0, kLongRows, lane);
+      } else {
+        tc::products<Dp>(s, ka, qb, q0, kLongRows, lane);
+        tc::products<Dp>(da, va, gb, q0, kLongRows, lane);
+      }
+      if (q0 + 8 * NT <= left) {
+        key_pds<NT, true>(s, da, q0, left, st, st + kLongRows,
+                          st + 2 * kLongRows, scale, lane);
+      } else {
+        key_pds(s, da, q0, left, st, st + kLongRows, st + 2 * kLongRows,
+                scale, lane);
+      }
+      key_accumulate_steps<Dp>(dk, dv, s, da, qb, gb, q0, live, lane);
+    }
+    tc::ring_release(ring, kRingStages, lane);
+  }
+  tc::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d, lane);
+  tc::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d, lane);
 }
 
 // The f32 body, whole-sequence route: the bf16 body's two phases and
@@ -1061,6 +1469,14 @@ size_t smem_whole(int n, int dtype, int dp) {
 }
 
 size_t smem_long(int dtype, int dp) {
+  // the ring bodies: 2 tiles of 16 W rows and kRingStages buffers of 2 R
+  // rows, plus the k kernel's 3 R statistics a buffer
+  if (dtype == 1 && ring_body(dp)) {
+    return kRingHeader +
+           (2 * 16 * kRingWarps + kRingStages * 2 * kLongRows) *
+               tc::row_pad(dp) * sizeof(tc::bf16) +
+           kRingStages * 3 * kLongRows * sizeof(float);
+  }
   // 2 tiles of 16 W rows and 2 buffers of 2 R rows, plus the k kernel's
   // 2 x 3 R statistics (W warps a block, R rows a chunk)
   if (dtype == 1) {
@@ -1084,7 +1500,8 @@ bool whole_fits(int n, int dtype, int dp) {
 // note at the top for the measured crossover).
 int route(int n, int dtype, int dp) {
   if (!whole_fits(n, dtype, dp)) return 1;
-  return tc::blocks_per_sm(smem_whole(n, dtype, dp)) >= kWholeBlocks ? 0 : 1;
+  const int least = dtype == 1 && dp == 32 ? kWholeBlocksRing : kWholeBlocks;
+  return tc::blocks_per_sm(smem_whole(n, dtype, dp)) >= least ? 0 : 1;
 }
 
 size_t smem_of(int r, int n, int dtype, int dp) {
@@ -1126,7 +1543,10 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
   constexpr int dtype = kMma ? 1 : 0;
   const size_t smem = smem_of(r, n, dtype, Dp);
   const void *qk, *kk;
-  if constexpr (kMma) {
+  if constexpr (kMma && ring_body(Dp)) {
+    qk = reinterpret_cast<const void*>(attention_bwd_mma_ring_q_kernel<Dp>);
+    kk = reinterpret_cast<const void*>(attention_bwd_mma_ring_k_kernel<Dp>);
+  } else if constexpr (kMma) {
     qk = reinterpret_cast<const void*>(attention_bwd_mma_q_kernel<Dp>);
     kk = reinterpret_cast<const void*>(attention_bwd_mma_k_kernel<Dp>);
   } else {
@@ -1166,7 +1586,18 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
   }
   if ((err = allow_smem(qk, smem)) != cudaSuccess) return err;
   if ((err = allow_smem(kk, smem)) != cudaSuccess) return err;
-  if constexpr (kMma) {
+  if constexpr (kMma && ring_body(Dp)) {
+    const int tiles = tc::pad16(n) / 16;
+    const int warps = tiles < kRingWarps ? tiles : kRingWarps;
+    const dim3 grid((tiles + warps - 1) / warps, heads, batch);
+    attention_bwd_mma_ring_q_kernel<Dp>
+        <<<grid, 32 * (warps + 1), smem, stream>>>(ops, stats, n, heads, d,
+                                                   scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    attention_bwd_mma_ring_k_kernel<Dp>
+        <<<grid, 32 * (warps + 1), smem, stream>>>(ops, stats, n, heads, d,
+                                                   scale);
+  } else if constexpr (kMma) {
     const dim3 grid((tc::pad16(n) + 16 * kLongWarps - 1) / (16 * kLongWarps),
                     heads, batch);
     attention_bwd_mma_q_kernel<Dp><<<grid, 32 * kLongWarps, smem, stream>>>(

@@ -61,10 +61,11 @@
 // holds the sequence, where it computes S once and the chunked route
 // twice, and an SM holds two of its blocks. Past one chunk the whole body
 // sweeps twice as well, with one block a head where the chunked route has
-// one per 64 queries: timed at (64, n, 768) bf16 on an H100 (chip_smoke's
-// route sweep), the chunked route took 0.097 ms against 0.151 at n = 257,
-// 0.550 against 1.627 at n = 785, and the whole body 0.025 against 0.036
-// at n = 145 (PERF.md section 6).
+// one per 112 queries (64 at widths other than 32): timed at (64, n, 768)
+// bf16 on an H100 (chip_smoke's route sweep), the whole body took 0.025
+// ms against the ring body's 0.042 at n = 145 and 0.068 against 0.075 at
+// 193, the ring body 0.100 against 0.144 at n = 257 and 0.539 against
+// 1.616 at 785 (PERF.md section 6).
 //
 // bf16 (every train and serve path): Hopper's tensor cores through
 // mma.sync.aligned.m16n8k16 bf16 -> f32 (attention_mma.cuh). The
@@ -87,13 +88,41 @@
 //   shared memory;
 //   out rounded to bf16 and stored by row stride, pad rows not written.
 // Shared memory: 3 (Dp + 8) * 2 bytes per padded row (38,400 at N = 145,
-// Dp = 32). The key-chunked route is one block per 64 queries (four warps,
-// a 16-row tile each), their Q staged once, and the keys' register chunk
-// staged as one shared-memory chunk of K (and V in the second sweep),
-// double-buffered by cp.async groups so that chunk c + 1 loads while
-// chunk c is computed. A per-element division and expf cost more than the
-// products here, hence the reciprocal and the SFU exp.
-// tools/tune_attention.py times the body at other chunk and block sizes.
+// Dp = 32). A per-element division and expf cost more than the products
+// here, hence the reciprocal and the SFU exp.
+//
+// The key-chunked route at Dp = 32 (the model's width, the 448 px path)
+// is the ring body.
+// Bound at (B=64, N=785, H=8, D=32, bf16): 102.9 MB moved (qkv read once,
+// 77.17 MB; out written once, 25.72 MB), 0.0307 ms at 3.35 TB/s, against
+// 4 N^2 D H B = 4.04e10 FLOP, 0.0408 ms at 989 TFLOP/s: bound by its
+// operations. The function as the Pallas kernel defines it sets a higher
+// floor: P is rounded after it is normalised, so both sweeps compute every
+// score and exponentiate it, 6.3e8 exps at N = 785, ~0.15 ms at the SFU's
+// 16 a clock an SM. What the body does about the rest:
+//   - one block per 16 W queries (W consumer warps, a 16-row tile each):
+//     each staged chunk of K and V serves W tiles (7 at N = 785, against 4
+//     before), which cuts the L2 stream of K twice and V once per block
+//     (8 blocks a head at N = 785 against 13: ~0.62 GB a call);
+//   - one producer warp stages the chunks by cp.async into kRingStages
+//     buffers, each with a full and an empty mbarrier (attention_mma.cuh,
+//     Ring): no block barrier in the loop, a warp waits only for the chunk
+//     it reads;
+//   - the fold's 160-key register chunk is taken kRingPiece tiles at a
+//     time, its max over every piece and then the exps and their sum with
+//     the scores computed again: 90 registers a thread instead of the
+//     whole chunk's ~168, so an SM holds two blocks of eight warps;
+//   - lane_exps takes the bare MUFU.EX2 where exp2f's subnormal fix-up
+//     does nothing. The pieces are what let it pay: in the earlier
+//     kernel, whose fold holds the whole chunk, it took ptxas from 162
+//     registers to 168 and 40 bytes of spill, and the forward from 0.56
+//     to 0.61 ms at (64, 785, 768) (PERF.md section 6).
+// Each warp takes the key-chunked kernel's steps in the same order, the
+// sums in the same order: the same bits. The other widths keep the
+// earlier key-chunked kernel (64 queries a block, two cp.async buffers,
+// two block barriers a chunk): the ring body was timed at Dp = 32 only.
+// tools/tune_attention.py times the bodies at other chunk, block, piece
+// and ring sizes.
 //
 // f32 (cli.export's f32 eval, --dtype mixed's decoder, the check paths):
 // the same structure, routes and steps on the tensor cores by a three-way
@@ -150,8 +179,32 @@ __host__ __device__ constexpr int chunk_tiles() {
 // batch (B = 64, 512 blocks) runs in one wave; at N = 145 the 10 query
 // tiles go 4, 3, 3 to the warps.
 constexpr int kFwdWarps = 3;
-// Warps (16-row query tiles) per block of the key-chunked route.
+// Warps (16-row query tiles) per block of the key-chunked route at widths
+// other than Dp = 32.
 constexpr int kLongWarps = 4;
+// The key-chunked route's ring body (Dp = 32): most consumer warps (16-row
+// query tiles) a block besides its producer warp, buffers of the ring, and
+// the least blocks an SM must hold (ptxas fits the registers to it: blocks
+// of 8 warps, two an SM, leave 128 a thread; 9 would leave 96).
+// tools/tune_attention.py times other values.
+constexpr int kRingWarps = 7;
+constexpr int kRingStages = 4;
+constexpr int kRingBlocks = 2;
+// 8-key C tiles of scores a ring warp holds at a time: a piece of the
+// register chunk (which keeps the fold's 160 keys, chunk_tiles), its
+// scores computed twice in the first sweep (for the max, then the exps);
+// the whole chunk where the piece does not divide it
+constexpr int kRingPiece = 4;
+__host__ __device__ constexpr bool ring_body(int dp) { return dp == 32; }
+template <int Dp>
+__host__ __device__ constexpr int ring_piece() {
+  return chunk_tiles<Dp>() % kRingPiece == 0 && kRingPiece % 2 == 0
+             ? kRingPiece
+             : chunk_tiles<Dp>();
+}
+// the ring's barriers (a full and an empty one a buffer) ahead of the
+// staged rows, in whole 16-byte units
+constexpr int kRingHeader = 16 * ((16 * kRingStages + 15) / 16);
 // Most warps per block of the f32 whole-sequence body (10 query tiles at
 // N = 145 go 3, 3, 2, 2), and the least whole-sequence blocks an SM must
 // hold for that route to run (route()).
@@ -164,6 +217,40 @@ constexpr int kWholeBlocks = 2;
 // than its own rounding. (The backward keeps expf: its dS stays in f32.)
 __device__ __forceinline__ float softmax_exp(float x) {
   return exp2f(x * 1.4426950408889634f);
+}
+
+// exp_scores for the ring body, by lane: where every argument of the lane
+// is at least -126, exp2f is the bare ex2.approx.ftz (one MUFU.EX2: its
+// subnormal fix-up, a compare and two predicated multiplies, does nothing
+// there), so those lanes take that instruction alone; the same bits.
+template <int NT>
+__device__ __forceinline__ void lane_exps(float (&s)[NT][4],
+                                          const float (&m)[2]) {
+  float lo = INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      // softmax_exp's argument
+      s[j][e] = (s[j][e] - m[e >> 1]) * 1.4426950408889634f;
+      lo = fminf(lo, s[j][e]);
+    }
+  }
+  if (lo >= -126.f) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(s[j][e]) : "f"(s[j][e]));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e]);
+    }
+  }
 }
 
 // exp for the softmax: the SFU's (softmax_exp) in the bf16 body, expf in
@@ -305,9 +392,9 @@ attention_fwd_mma_kernel(const Operand<tc::bf16> q_op,
   }
 }
 
-// The bf16 key-chunked route: one block per 16 * kLongWarps queries, K
-// and V through shared memory a register chunk at a time (see the note at
-// the top).
+// The bf16 key-chunked route at widths other than Dp = 32: one block per
+// 16 * kLongWarps queries, K and V through shared memory a register chunk
+// at a time (see the note at the top).
 template <int Dp>
 __global__ void __launch_bounds__(kLongWarps * 32)
 attention_fwd_mma_long_kernel(const Operand<tc::bf16> q_op,
@@ -399,6 +486,133 @@ attention_fwd_mma_long_kernel(const Operand<tc::bf16> q_op,
     tc::store_rows<Dp>(o, out + static_cast<int64_t>(b) * n * hd + h * d,
                        hd, q0 + 16 * warp, n, d, lane);
   }
+}
+
+// The bf16 key-chunked route at Dp = 32, the ring body: one block per
+// 16 * W queries (W consumer warps, a 16-row tile each, and one producer
+// warp), K and then K and V streamed a register chunk at a time through
+// the kRingStages buffers of attention_mma.cuh's Ring. Each warp takes the
+// key-chunked kernel's steps on its tile in the same order, so it gives
+// the same bits (see the note at the top).
+template <int Dp>
+__global__ void __launch_bounds__(32 * (kRingWarps + 1), kRingBlocks)
+attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
+                              const Operand<tc::bf16> k_op,
+                              const Operand<tc::bf16> v_op,
+                              tc::bf16* __restrict__ out, int n, int heads,
+                              int d, float scale) {
+  constexpr int kPad = tc::row_pad(Dp);
+  constexpr int NT = chunk_tiles<Dp>();
+  constexpr int kChunk = 8 * NT;
+  constexpr int kBuf = 2 * kChunk * kPad;  // K then V of one chunk
+  constexpr int PT = ring_piece<Dp>();
+  extern __shared__ uint4 smem_tc[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
+  tc::Ring ring{bars, bars + kRingStages};
+  const int warps = (blockDim.x >> 5) - 1;  // the last warp stages
+  const int rows = 16 * warps;
+  tc::bf16* qs = reinterpret_cast<tc::bf16*>(
+      reinterpret_cast<char*>(smem_tc) + kRingHeader);  // rows rows
+  tc::bf16* kv = qs + rows * kPad;  // kRingStages buffers of kBuf
+
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = blockIdx.x * rows;
+  const int npad = tc::pad16(n);
+  const int tiles = min(warps, (npad - q0) / 16);  // warps with a tile
+  tc::ring_init(ring, kRingStages, tiles);
+  tc::stage_rows<Dp>(q_op.head(b, h, d) + q0 * q_op.row, q_op.row, qs,
+                     min(rows, n - q0), rows, d);
+  tc::cp_async_wait_all();
+  __syncthreads();
+
+  const int chunks = (n + kChunk - 1) / kChunk;
+  if (warp == warps) {  // chunk i < chunks: K for sweep 1; then K and V
+    const tc::bf16* kh = k_op.head(b, h, d);
+    const tc::bf16* vh = v_op.head(b, h, d);
+    for (int i = 0; i < 2 * chunks; ++i) {
+      const bool with_v = i >= chunks;
+      const int k0 = (with_v ? i - chunks : i) * kChunk;
+      const int cnt = min(kChunk, n - k0);
+      tc::ring_produce(ring, kRingStages, [&](int st) {
+        tc::bf16* kb = kv + st * kBuf;
+        tc::stage_rows_by<Dp>(kh + k0 * k_op.row, k_op.row, kb, cnt, kChunk,
+                              d, lane, 32u);
+        if (with_v) {
+          tc::stage_rows_by<Dp>(vh + k0 * v_op.row, v_op.row,
+                                kb + kChunk * kPad, cnt, kChunk, d, lane,
+                                32u);
+        }
+      });
+    }
+    tc::cp_async_wait_all();
+    return;
+  }
+  if (warp >= tiles) return;
+
+  uint32_t qa[Dp / 16][4];
+  tc::load_a<Dp>(qa, qs, 16 * warp, lane);
+  float s[PT][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[Dp / 8][4] = {};
+  float inv[2] = {0.f, 0.f};
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    for (int c = 0; c < chunks; ++c) {
+      tc::ring_acquire(ring);
+      const tc::bf16* kb = kv + ring.stage * kBuf;
+      const int left = n - c * kChunk;  // keys from the chunk's first
+      if (sweep == 1) {
+#pragma unroll 1
+        for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
+          tc::step_scores<Dp>(s, qa, kb, key0, left, kChunk, scale, lane);
+          lane_exps(s, m);
+          accumulate_pv<Dp>(o, s, inv, kb + kChunk * kPad, key0, kChunk,
+                            lane);
+        }
+      } else {
+        // fold_chunk a piece at a time: the chunk's max over every
+        // piece's scores, then their exps and sum, the scores recomputed
+        float mc[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll 1
+        for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
+          tc::step_scores<Dp>(s, qa, kb, key0, left, kChunk, scale, lane);
+#pragma unroll
+          for (int j = 0; j < PT; ++j) {
+            mc[0] = fmaxf(mc[0], fmaxf(s[j][0], s[j][1]));
+            mc[1] = fmaxf(mc[1], fmaxf(s[j][2], s[j][3]));
+          }
+        }
+        mc[0] = tc::quad_max(mc[0]);
+        mc[1] = tc::quad_max(mc[1]);
+#pragma unroll 1
+        for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
+          tc::step_scores<Dp>(s, qa, kb, key0, left, kChunk, scale, lane);
+          lane_exps(s, mc);
+#pragma unroll
+          for (int j = 0; j < PT; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sum[e >> 1] += s[j][e];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // every chunk holds a key below n, so mc is finite; the first
+          // chunk's factor is exp(-inf) = 0
+          l[r] = l[r] * score_exp<false>(m[r] - mc[r]) + tc::quad_sum(sum[r]);
+          m[r] = mc[r];
+        }
+      }
+      tc::ring_release(ring, kRingStages, lane);
+    }
+    // P normalised by the rounded reciprocal of the sum
+    inv[0] = 1.f / l[0];
+    inv[1] = 1.f / l[1];
+  }
+  tc::store_rows<Dp>(o, out + static_cast<int64_t>(b) * n * heads * d + h * d,
+                     static_cast<int64_t>(heads) * d, q0 + 16 * warp, n, d,
+                     lane);
 }
 
 // o += P V over one chunk of keys from key0 on, in f32: P = e * inv from
@@ -582,6 +796,11 @@ size_t smem_whole(int n, int dtype, int dp) {
 }
 
 size_t smem_long(int dtype, int dp) {
+  if (dtype == 1 && ring_body(dp)) {
+    return kRingHeader +
+           sizeof(tc::bf16) * tc::row_pad(dp) *
+               (16 * kRingWarps + kRingStages * 2 * 8 * chunk_tiles_for(dp));
+  }
   const int rows = 16 * kLongWarps + 4 * 8 * chunk_tiles_for(dp);
   return dtype == 1 ? sizeof(tc::bf16) * rows * tc::row_pad(dp)
                     : sizeof(float) * rows * tf::row_pad(dp);
@@ -660,13 +879,27 @@ cudaError_t launch_mma(const Operands3<tc::bf16>& ops, void* out, int batch,
       return cudaGetLastError();
     }
   }
-  const cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(attention_fwd_mma_long_kernel<Dp>), smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (tc::pad16(n) + 16 * kLongWarps - 1) / (16 * kLongWarps);
-  attention_fwd_mma_long_kernel<Dp><<<dim3(blocks, heads, batch),
-                                      32 * kLongWarps, smem, stream>>>(
-      ops.q, ops.k, ops.v, o, n, heads, d, scale);
+  if constexpr (ring_body(Dp)) {
+    const cudaError_t err = allow_smem(
+        reinterpret_cast<const void*>(attention_fwd_mma_ring_kernel<Dp>),
+        smem);
+    if (err != cudaSuccess) return err;
+    const int tiles = tc::pad16(n) / 16;
+    const int warps = tiles < kRingWarps ? tiles : kRingWarps;
+    attention_fwd_mma_ring_kernel<Dp><<<
+        dim3((tiles + warps - 1) / warps, heads, batch), 32 * (warps + 1),
+        smem, stream>>>(ops.q, ops.k, ops.v, o, n, heads, d, scale);
+  } else {
+    const cudaError_t err = allow_smem(
+        reinterpret_cast<const void*>(attention_fwd_mma_long_kernel<Dp>),
+        smem);
+    if (err != cudaSuccess) return err;
+    const int blocks =
+        (tc::pad16(n) + 16 * kLongWarps - 1) / (16 * kLongWarps);
+    attention_fwd_mma_long_kernel<Dp><<<dim3(blocks, heads, batch),
+                                        32 * kLongWarps, smem, stream>>>(
+        ops.q, ops.k, ops.v, o, n, heads, d, scale);
+  }
   return cudaGetLastError();
 }
 

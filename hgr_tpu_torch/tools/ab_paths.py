@@ -3,8 +3,10 @@
 Each checkout runs its own ``chip_smoke.py`` phases in a process of its
 own, with its own kernels built from its own sources: the bf16 forward
 at the serving batch (B = 64), the train step at B = 256 with fused BN
-off and on, and the ``--dtype mixed`` step at B = 256 (bf16 compute, the
-f32 decoder: the f32 attention kernels, fused BN on). The checkouts run
+off and on, the ``--dtype mixed`` step at B = 256 (bf16 compute, the
+f32 decoder: the f32 attention kernels, fused BN on), and the 448 px
+path (N = 785: the key-chunked attention route): the bf16 train step at
+B = 64 and the serving forward at B = 64. The checkouts run
 in the order given, then in reverse, so a parent and a change compare
 within one call:
 
@@ -78,6 +80,44 @@ end.synchronize()
 print(json.dumps({"mixed": {"batch": cs.TRAIN_BATCH,
                             "ms_per_step": start.elapsed_time(end) / 6,
                             "loss": float(m["total_loss"])}}))
+# the 448 px path (N = 785, the key-chunked attention route), as
+# chip_smoke's long paths build it: the bf16 train step at B = 64 (CLI
+# defaults: de-mixed pullbacks, fused BN off), 2 warm-up steps and 6
+# timed, and the bf16 serving forward at B = 64
+from hgr_tpu_torch.config import ModelConfig, TrainConfig
+from hgr_tpu_torch.models import MultiTaskNet
+from hgr_tpu_torch.train.steps import resolve_grad_demix
+px = cs.LONG_BF16
+del state, step, batch
+torch.cuda.empty_cache()
+L._FUSED_BN = None
+model = MultiTaskNet(image_size=(px, px), dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0))
+state = create_train_state(model, device="cuda")
+step = make_train_step(AugmentConfig(), image_size=(px, px),
+                       heatmap_size=(px // 4, px // 4),
+                       grad_demix=resolve_grad_demix(
+                           TrainConfig(), ModelConfig(
+                               compute_dtype="bfloat16")))
+batch = {k: torch.from_numpy(v).cuda() for k, v in cs._staged_batch(
+    cs.LONG_BF16_BATCH, seed=7, canvas=px + 64).items()}
+held = [state]
+def one_step():
+    held[0], _ = step(held[0], batch, gen)
+step_ms = cs.cuda_time_ms(torch, one_step, iters=6, warmup=2)
+del state, held, step, batch
+model = MultiTaskNet(image_size=(px, px), dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0)
+                     ).eval().to("cuda")
+x = torch.randn(cs.SERVE_BATCH, px, px, 3, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(8))
+with torch.inference_mode():
+    fwd_ms = cs.cuda_time_ms(torch, lambda: model(x, need_attnmap=False),
+                             iters=10, warmup=2)
+print(json.dumps({"long448": {"batch": cs.LONG_BF16_BATCH,
+                              "step_ms": step_ms,
+                              "serve_batch": cs.SERVE_BATCH,
+                              "forward_ms": fwd_ms}}))
 """
 
 
@@ -93,17 +133,21 @@ os.chdir(tree)
 import torch
 from hgr_tpu_torch.ops import attention as A
 out, calls = {}, {}
-for b, n in ((64, 145), (256, 145), (64, 785)):
-    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
+# (and at head widths 16 and 64, 768 features: the bodies at Dp = 16, 64)
+for b, n, dh in ((64, 145, 32), (256, 145, 32), (64, 785, 32),
+                 (64, 145, 16), (64, 785, 16), (64, 145, 64), (64, 785, 64)):
+    gen = torch.Generator(device="cuda").manual_seed(
+        b * 1000 + n + (dh if dh != 32 else 0))
     qkv = torch.randn(b, n, 768, device="cuda", generator=gen).to(
         torch.bfloat16)
     g = torch.randn(b, n, 256, device="cuda", generator=gen).to(
         torch.bfloat16)
-    calls[f"fwd_{b}_{n}"] = (lambda qkv=qkv: A.fused_attention_qkv(
-        qkv, 8, 32, 32 ** -0.5))
-    calls[f"bwd_{b}_{n}"] = (lambda qkv=qkv, g=g:
-                             A.fused_attention_qkv_bwd(qkv, g, 8, 32,
-                                                       32 ** -0.5))
+    key = f"{b}_{n}" if dh == 32 else f"{b}_{n}_d{dh}"
+    calls[f"fwd_{key}"] = (lambda qkv=qkv, dh=dh: A.fused_attention_qkv(
+        qkv, 256 // dh, dh, dh ** -0.5))
+    calls[f"bwd_{key}"] = (lambda qkv=qkv, g=g, dh=dh:
+                           A.fused_attention_qkv_bwd(qkv, g, 256 // dh, dh,
+                                                     dh ** -0.5))
 # the f32 bodies at the serving and training shapes, and their distance
 # from the float64 plain version of the same inputs
 f64 = {}
@@ -295,7 +339,8 @@ def compile_report(trees) -> dict:
     """The attention sources' entry functions in both checkouts (each
     built in a process of its own, both at once, unless built already):
     each entry's ptxas line on either side and whether its SASS is the
-    same, for the entries both sides have."""
+    same, for the entries both sides have; the ptxas lines of the entries
+    only one side has."""
     builds = [subprocess.Popen([sys.executable, "-c", _BUILD, tree])
               for tree in trees]
     for proc in builds:
@@ -310,7 +355,10 @@ def compile_report(trees) -> dict:
                 "sass_lines": [len(first[e][1] or ()),
                                len(second[e][1] or ())]}
             for e in first if e in second}
-        report[name]["only_in_second"] = sorted(set(second) - set(first))
+        report[name]["only_in_first"] = {
+            e: first[e][0] for e in sorted(set(first) - set(second))}
+        report[name]["only_in_second"] = {
+            e: second[e][0] for e in sorted(set(second) - set(first))}
     return report
 
 
@@ -319,7 +367,8 @@ def _side(tree: str) -> dict:
                           capture_output=True, text=True, check=True)
     out = {"tree": tree}
     for line in proc.stdout.splitlines():
-        if line.startswith(('{"model"', '{"train"', '{"mixed"')):
+        if line.startswith(('{"model"', '{"train"', '{"mixed"',
+                            '{"long448"')):
             print(line, flush=True)
             out.update(json.loads(line))
     return out
@@ -348,9 +397,13 @@ def main(argv=None) -> int:
     for run in runs:
         side = summary.setdefault(run["tree"], {"forward_b64_ms": [],
                                                 "step_ms": {},
-                                                "mixed_step_ms": []})
+                                                "mixed_step_ms": [],
+                                                "step_448_ms": [],
+                                                "forward_448_ms": []})
         side["forward_b64_ms"].append(run["model"]["bf16_ms_per_forward_b64"])
         side["mixed_step_ms"].append(run["mixed"]["ms_per_step"])
+        side["step_448_ms"].append(run["long448"]["step_ms"])
+        side["forward_448_ms"].append(run["long448"]["forward_ms"])
         for turn in run["train"]["turns"]:
             side["step_ms"].setdefault(f"fused_bn_{turn['fused_bn']}",
                                        []).append(turn["ms_per_step"])

@@ -3,7 +3,9 @@
 Builds copies of ``csrc/attention_qkv_{fwd,bwd}.cu`` in which one of the
 compile-time sizes of a tensor-core body is changed (bf16: the chunk of
 keys a forward warp holds in registers, the warps per block, the rows a
-backward warp sweeps at a time, the bf16 terms that carry dS; f32: the
+backward warp sweeps at a time, the bf16 terms that carry dS; the
+key-chunked ring bodies' consumer warps, buffers, least blocks an SM and
+backward step width; f32: the
 warps per block of the whole-sequence bodies, the tiles a backward step
 takes; or ``{fwd,bwd}_f32_small=int``: the small TF32 part rounded by the
 integer add and mask instead of cvt.rna, csrc/attention_tf32.cuh), and
@@ -11,7 +13,8 @@ times each against the source as it is on the same inputs, in turns,
 with its worst error against the plain version:
 
     python -m hgr_tpu_torch.tools.tune_attention [--batch 64 256]
-        [--dtype float32] [--variants knob=value ...]
+        [--n 785] [--dtype float32] [--grid ring]
+        [--variants knob=value ...]
 
 Needs the card and nvcc. Prints one JSON line per (variant, batch) and,
 first, one per build (registers, spills).
@@ -32,6 +35,14 @@ KNOBS = {
     "bwd_tiles": ("attention_qkv_bwd", "constexpr int kBwdTiles = "),
     "bwd_warps": ("attention_qkv_bwd", "constexpr int kBwdWarps = "),
     "bwd_split": ("attention_qkv_bwd", "constexpr int kSplit = "),
+    "fwd_ring_warps": ("attention_qkv_fwd", "constexpr int kRingWarps = "),
+    "fwd_ring_stages": ("attention_qkv_fwd", "constexpr int kRingStages = "),
+    "fwd_ring_blocks": ("attention_qkv_fwd", "constexpr int kRingBlocks = "),
+    "fwd_ring_piece": ("attention_qkv_fwd", "constexpr int kRingPiece = "),
+    "bwd_ring_warps": ("attention_qkv_bwd", "constexpr int kRingWarps = "),
+    "bwd_ring_stages": ("attention_qkv_bwd", "constexpr int kRingStages = "),
+    "bwd_ring_blocks": ("attention_qkv_bwd", "constexpr int kRingBlocks = "),
+    "bwd_ring_tiles": ("attention_qkv_bwd", "constexpr int kRingTiles = "),
     "f32_fwd_warps": ("attention_qkv_fwd", "constexpr int kF32Warps = "),
     "f32_bwd_warps": ("attention_qkv_bwd", "constexpr int kF32Warps = "),
     "f32_tiles": ("attention_qkv_bwd", "constexpr int kF32Tiles = "),
@@ -50,6 +61,10 @@ _SMALL_INT = ("small = (__float_as_uint(x - __uint_as_float(big)) + "
 DEFAULT_GRID = {
     "bfloat16": ["fwd_chunk_tiles=10", "fwd_warps=2", "fwd_warps=4",
                  "fwd_warps=8", "bwd_tiles=4", "bwd_warps=8", "bwd_split=2"],
+    # the key-chunked route's ring bodies (run with --n 785)
+    "ring": ["fwd_ring_warps=8", "fwd_ring_stages=3", "fwd_ring_piece=2",
+             "bwd_ring_warps=8", "bwd_ring_stages=4", "bwd_ring_tiles=2",
+             "bwd_ring_blocks=1"],
     "float32": ["f32_fwd_warps=8", "f32_bwd_warps=4", "f32_tiles=2",
                 "fwd_f32_small=int", "bwd_f32_small=int"],
 }
@@ -58,13 +73,14 @@ SCALE = 32 ** -0.5
 
 def _variant_source(spec: str) -> tuple:
     """(source name, its text with the knob set, {header: patched text})
-    for ``knob=value``; the unchanged source for 'as-is:<source>'."""
+    for ``knob=value`` (or ``knob=value,knob2=value2`` of one source); the
+    unchanged source for 'as-is:<source>'."""
     from hgr_tpu_torch.utils.cuda_build import CSRC_DIR
 
     if spec.startswith("as-is:"):
         name = spec.split(":", 1)[1]
         return name, (CSRC_DIR / f"{name}.cu").read_text(), {}
-    knob, value = spec.split("=")
+    knob, value = spec.split(",")[0].split("=")
     if knob in HEADER_KNOBS:
         name, header, pattern = HEADER_KNOBS[knob]
         text = (CSRC_DIR / header).read_text()
@@ -73,12 +89,20 @@ def _variant_source(spec: str) -> tuple:
                              "round small with cvt.rna")
         return name, (CSRC_DIR / f"{name}.cu").read_text(), {
             header: pattern.sub(_SMALL_INT, text)}
-    name, prefix = KNOBS[knob]
-    text = (CSRC_DIR / f"{name}.cu").read_text()
-    found = re.search(re.escape(prefix) + r"\d+;", text)
-    if found is None:
-        raise ValueError(f"{prefix!r} not in csrc/{name}.cu")
-    return name, text.replace(found.group(0), f"{prefix}{int(value)};"), {}
+    # one knob, or several of one source joined by commas
+    names, text = set(), None
+    for part in spec.split(","):
+        knob, value = part.split("=")
+        name, prefix = KNOBS[knob]
+        names.add(name)
+        if text is None:
+            text = (CSRC_DIR / f"{name}.cu").read_text()
+        found = re.search(re.escape(prefix) + r"\d+;", text)
+        if found is None or len(names) > 1:
+            raise ValueError(f"{spec}: {prefix!r} not in csrc/{name}.cu, "
+                             "or knobs of two sources")
+        text = text.replace(found.group(0), f"{prefix}{int(value)};")
+    return name, text, {}
 
 
 def _build(specs) -> dict:
@@ -111,11 +135,18 @@ def _build(specs) -> dict:
     for spec, (name, lib, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
-        ptxas = [f"{used}; {spills}" for entry, spills, used in re.findall(
-            r"Compiling entry function '(\w+)'.*?(\d+ bytes spill stores)"
-            r".*?(Used \d+ registers)", log, flags=re.S)
-            if "mma" in entry or "tf32" in entry]
+            if spec.startswith("as-is:"):
+                raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
+            # a variant that does not build is reported and left out
+            print(json.dumps({"build": spec, "failed": log[-2000:]}),
+                  flush=True)
+            continue
+        ptxas = [f"{entry}: {used}; {spills}"
+                 for entry, spills, used in re.findall(
+                     r"Compiling entry function '(\w+)'.*?"
+                     r"(\d+ bytes spill stores).*?(Used \d+ registers)",
+                     log, flags=re.S)
+                 if "mma" in entry or "tf32" in entry]
         built[spec] = (name, ctypes.CDLL(str(lib)), ptxas)
     return built
 
@@ -189,12 +220,16 @@ def main(argv=None) -> int:
                     help="knob=value, knobs: " + ", ".join(
                         [*KNOBS, *HEADER_KNOBS]) + " (default: the "
                     "dtype's grid)")
+    ap.add_argument("--grid", choices=sorted(DEFAULT_GRID), default=None,
+                    help="a default grid of variants (default: the "
+                    "dtype's; 'ring': the key-chunked ring bodies)")
     args = ap.parse_args(argv)
-    variants = args.variants or DEFAULT_GRID[args.dtype]
+    variants = args.variants or DEFAULT_GRID[args.grid or args.dtype]
     if not torch.cuda.is_available():
         raise SystemExit("tune_attention needs a CUDA card")
     specs = ["as-is:attention_qkv_fwd", "as-is:attention_qkv_bwd", *variants]
     built = _build(specs)
+    specs = [spec for spec in specs if spec in built]
     for spec, (_, _, ptxas) in built.items():
         print(json.dumps({"build": spec, "ptxas": ptxas}), flush=True)
     stream = torch.cuda.current_stream().cuda_stream

@@ -323,9 +323,10 @@ def test_tensor_core_bwd_numerics_match_pallas_bwd_kernel(n):
 
 # (n, head_dim, heads): lengths the card's kernels take key-chunked (401
 # in the f32 backward, 785 in the bf16 backward) and the padded widths
-# 16, 64, 128 (48 pads to 64); B·H kept to 1-2 for interpret mode
-LONG_CASES = [(n, hd, 2 if hd == 16 else 1) for n in (401, 785)
-              for hd in (16, 48, 64, 128)]
+# 16, 32 (the model's, which the key-chunked ring bodies serve), 64, 128
+# (48 pads to 64); B·H kept to 1-2 for interpret mode
+LONG_CASES = [(n, hd, 2 if hd in (16, 32) else 1) for n in (401, 785)
+              for hd in (16, 32, 48, 64, 128)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

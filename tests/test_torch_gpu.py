@@ -566,15 +566,15 @@ def _last_whole(kernel, dtype):
 SMEM_PER_SM, SMEM_RESERVED = 233472, 1024
 
 
-def _holds_two(kernel, n, dtype):
-    """Whether an SM holds two whole-sequence blocks at length n: the
-    whole route's shared memory per padded row (read at a length where
-    that route runs) times pad16(n)."""
+def _holds_two(kernel, n, dtype, blocks=2):
+    """Whether an SM holds two (or ``blocks``) whole-sequence blocks at
+    length n: the whole route's shared memory per padded row (read at a
+    length where that route runs) times pad16(n)."""
     lib = A._kernel() if kernel == "fwd" else A._bwd_kernel()
     smem = getattr(lib, f"attention_qkv_{kernel}_smem_bytes")
     per_row = smem(16, A._DTYPE_CODES[dtype], D) // 16
     whole = per_row * (-(-n // 16) * 16)
-    return SMEM_PER_SM // (whole + SMEM_RESERVED) >= 2
+    return SMEM_PER_SM // (whole + SMEM_RESERVED) >= blocks
 
 
 @pytest.mark.gpu
@@ -583,16 +583,18 @@ def test_every_length_routes_and_matches(dtype):
     """No length is refused. The whole-sequence route runs where the rule
     says it pays: the forward while one register chunk holds the sequence
     (160 keys at head_dim 32), the backward while an SM holds two of its
-    blocks; the model's N = 145 stays on it. At the last length each
-    kernel takes whole, and one row more (the key-chunked route), both
-    routes match the plain versions with a launch counted each, and give
-    the same bits as each other (``launch_on_route``)."""
+    blocks (four in bf16, against the ring bodies: 160 keys at head_dim
+    32); the model's N = 145 stays on it. At the last length each kernel
+    takes whole, and one row more (the key-chunked route), both routes
+    match the plain versions with a launch counted each, and give the
+    same bits as each other (``launch_on_route``)."""
     _cuda_or_skip()
     dt = getattr(torch, dtype)
     n_fwd, n_bwd = _last_whole("fwd", dt), _last_whole("bwd", dt)
     assert n_fwd == 160 and n_bwd >= 145
-    assert _holds_two("bwd", n_bwd, dt) and not _holds_two("bwd", n_bwd + 1,
-                                                          dt)
+    blocks = 4 if dtype == "bfloat16" else 2
+    assert _holds_two("bwd", n_bwd, dt, blocks) and not _holds_two(
+        "bwd", n_bwd + 1, dt, blocks)
     for kernel, last in (("fwd", n_fwd), ("bwd", n_bwd)):
         for n in (last, last + 1):
             x = _qkv(1, n, 3, dtype)[..., :3 * D].contiguous()
@@ -620,13 +622,24 @@ def test_every_length_routes_and_matches(dtype):
 
 
 # the lengths of chip_smoke's route sweep (both routes timed there)
-ROUTE_SWEEP = [("fwd", n) for n in (145, 257, 401, 481, 577, 689, 785, 961)
-               ] + [("bwd", n) for n in (145, 257, 401, 481, 577, 688)]
+ROUTE_SWEEP = [("fwd", n) for n in (145, 193, 257, 401, 481, 577, 689, 785,
+                                    961)
+               ] + [("bwd", n) for n in (145, 161, 193, 257, 401, 481, 577,
+                                         688)]
+# lengths at the key-chunked ring bodies' edges: 16-row tiles and blocks
+# (127-129, 255-257, 1025: a last tile of one query row; 785 = 7 x 112 +
+# 1, in the sweep for the forward: a last block of one query row), the
+# forward's 160-key chunks (160, 161, 321) and the backward's 64-row
+# chunks (64, 65, 193), and ring buffers reused (every length past two
+# chunks)
+RING_EDGES = [(kernel, n) for kernel, lengths in (
+    ("fwd", (127, 128, 129, 160, 161, 255, 321, 1025)),
+    ("bwd", (64, 65, 127, 128, 129, 255, 785, 1025))) for n in lengths]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("kernel,n", ROUTE_SWEEP)
+@pytest.mark.parametrize("kernel,n", ROUTE_SWEEP + RING_EDGES)
 def test_routes_give_the_same_bits_at_the_sweep_lengths(kernel, n, dtype):
     """At each length of the route sweep, 2 images of the model's 8 heads:
     the whole-sequence route (where one block holds the head) and the
@@ -668,7 +681,8 @@ def test_routed_launch_refuses_a_route_that_does_not_exist():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("head_dim", [16, 32, 48, 64, 128])
-@pytest.mark.parametrize("n", [385, 401, 689, 785, 961, 1025])
+@pytest.mark.parametrize("n", [385, 401, 689, 785, 961, 1025, 127, 128, 129,
+                               255, 257])
 def test_kernels_match_plain_versions_at_any_length_and_width(n, head_dim,
                                                                dtype):
     """Packed and split, forward and backward, against the plain versions
@@ -702,6 +716,28 @@ def test_kernels_match_plain_versions_at_any_length_and_width(n, head_dim,
         .float().cpu().numpy(), **GRAD_TOL[dtype])
     assert torch.equal(s_out, out)
     for got, want in zip(s_d, d.chunk(3, dim=-1)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_equals_packed_at_the_448_px_shape(dtype):
+    """At the 448 px path's (64, 785) with the model's 8 heads of 32 (the
+    key-chunked route), the split kernels on the chunk views give the
+    packed kernels' bits, forward and backward."""
+    _cuda_or_skip()
+    x = _qkv(64, 785, 785, dtype)
+    g = torch.from_numpy(np.random.RandomState(786).randn(64, 785, H * D)
+                         .astype(np.float32)).to("cuda", getattr(torch,
+                                                                 dtype))
+    assert A.kernel_route("fwd", 785, D, x.dtype) == 1
+    assert A.kernel_route("bwd", 785, D, x.dtype) == 1
+    ops = x.chunk(3, dim=-1)
+    assert torch.equal(A.fused_attention_split(*ops, H, D, SCALE),
+                       A.fused_attention_qkv(x, H, D, SCALE))
+    d = A.fused_attention_qkv_bwd(x, g, H, D, SCALE)
+    for got, want in zip(A.fused_attention_split_bwd(*ops, g, H, D, SCALE),
+                         d.chunk(3, dim=-1)):
         assert torch.equal(got, want)
 
 
