@@ -337,16 +337,16 @@ def build_phase():
                           text=True, timeout=60).stdout.strip().splitlines()
     emit({"nvcc": nvcc[-1] if nvcc else None})
     # dynamic shared memory per block, which ptxas does not see, and the
-    # route (0 whole sequence, 1 key-chunked, 2 column-sliced), by body:
-    # float32 (CUDA cores), bfloat16 (tensor cores); at N=145 and at 448
-    # px's N=785, at the model's head width, at 256 and at 512
+    # route (0 whole sequence, 1 key-chunked, 2 head widths above 256), by
+    # body: float32 and bfloat16 (both on the tensor cores); at N=145 and
+    # at 448 px's N=785, at the model's head width, at 256 and at 512
     smem = {name: {f"{dtype}_n{n}_d{d}": {
         "route": getattr(built[name].lib, f"{name}_route")(n, code, d),
         "bytes": getattr(built[name].lib, f"{name}_smem_bytes")(n, code, d)}
         for dtype, code in (("float32", 0), ("bfloat16", 1))
         for n in (145, 785) for d in (HEAD_DIM, 256, 512)}
         for name in ("attention_qkv_fwd", "attention_qkv_bwd")}
-    tf32 = _tf32_entries(built)
+    mma = _tensor_core_entries(built)
     for name in SOURCES:
         b = built[name]
         emit({"build": {
@@ -355,21 +355,28 @@ def build_phase():
             "nvcc_seconds": b.build_seconds,
             "all_builds_wall_seconds": wall,
             # per entry function: its registers, shared memory, spills
-            "ptxas": [f"{entry}: {used}; {spills}" for entry, spills, used
-                      in re.findall(
-                          r"Compiling entry function '(\w+)'.*?"
-                          r"(\d+ bytes spill stores, \d+ bytes spill loads)"
-                          r".*?(Used \d+ registers[^\n]*)",
-                          b.ptxas_log, flags=re.S)],
+            "ptxas": _ptxas_lines(b.ptxas_log),
             "dynamic_smem_per_block": smem.get(name, {}),
-            "tf32_mma_per_f32_entry": tf32.get(name, {}),
+            "mma_per_entry": mma.get(name, {}),
         }})
 
 
-def _tf32_entries(built) -> dict:
-    """Per attention source, each f32 entry function (``*_tf32_*``) with
-    the count of HMMA.1688.F32.TF32 instructions in its SASS (cuobjdump):
-    the f32 bodies run on the tensor cores. Fails if one has none."""
+def _ptxas_lines(log: str) -> list:
+    """Each entry function of an nvcc -Xptxas -v log with its registers
+    and spills."""
+    return [f"{entry}: {used}; {spills}" for entry, spills, used in
+            re.findall(r"Compiling entry function '(\w+)'.*?"
+                       r"(\d+ bytes spill stores, \d+ bytes spill loads)"
+                       r".*?(Used \d+ registers[^\n]*)", log, flags=re.S)]
+
+
+def _tensor_core_entries(built) -> dict:
+    """Per attention source, the tensor-core instructions in the SASS
+    (cuobjdump) of each f32 entry function (``*_tf32_*`` and the f32
+    bodies of head widths above 256, HMMA.1688.F32.TF32) and each bf16
+    body of head widths above 256 (HMMA.16816.F32.BF16), with the FFMA
+    count beside those of the wide bodies: every f32 body and every wide
+    body runs its products on the tensor cores. Fails if one has none."""
     from hgr_tpu_torch.utils.cuda_build import _nvcc
 
     cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
@@ -382,13 +389,23 @@ def _tf32_entries(built) -> dict:
         for line in sass.splitlines():
             head = re.search(r"Function : (\w+)", line)
             if head:
-                entry = head.group(1) if "tf32" in head.group(1) else None
+                fn = head.group(1)
+                wide = "attn_wide" in fn
+                f32 = "tf32" in fn or (wide and "IfE" in fn)
+                entry = fn if f32 or wide else None
                 if entry:
-                    counts[entry] = 0
-            elif entry and "HMMA.1688.F32.TF32" in line:
-                counts[entry] += 1
-        check(counts and all(counts.values()),
-              f"{name}: f32 entries without HMMA.1688.F32.TF32: {counts}")
+                    counts[entry] = {"hmma": 0, "ffma": 0,
+                                     "kind": "HMMA.1688.F32.TF32" if f32
+                                     else "HMMA.16816.F32.BF16"}
+            elif entry:
+                if counts[entry]["kind"] in line:
+                    counts[entry]["hmma"] += 1
+                elif "FFMA" in line:
+                    counts[entry]["ffma"] += 1
+        check(counts and all(c["hmma"] for c in counts.values()),
+              f"{name}: entries without tensor-core mma: {counts}")
+        check(any("attn_wide" in e for e in counts),
+              f"{name}: no body of head widths above 256 in the SASS")
         found[name] = counts
     return found
 
@@ -713,6 +730,8 @@ C2_SHAPES = [
     (64, 145, 4, 64, "bfloat16"), (64, 145, 2, 128, "bfloat16"),
     (16, 785, 16, 16, "bfloat16"), (16, 785, 4, 48, "bfloat16"),
     (16, 785, 4, 64, "bfloat16"), (16, 785, 2, 128, "bfloat16"),
+    # the 448 px shape at widths 16 and 64 (the ring pair's other widths)
+    (64, 785, 16, 16, "bfloat16"), (64, 785, 4, 64, "bfloat16"),
     (16, 401, 16, 16, "float32"), (16, 401, 4, 48, "float32"),
     (16, 401, 4, 64, "float32"), (16, 401, 2, 128, "float32"),
     # the widths that pad to 256 (every length key-chunked there)
@@ -723,14 +742,22 @@ C2_SHAPES = [
 # split, at (2, n, 2 heads x head_dim) for every (n, head_dim, dtype) here
 C2_WIDE_CHECKS = [(n, d, dtype) for n in (145, 785) for d in (160, 192, 256)
                   for dtype in ("bfloat16", "float32")]
-# C2 above head width 256 (the column-sliced bodies): each kernel, packed
-# and split, forward and backward, against its plain version and timed
-# beside SDPA, at (4, n, 2 heads x head_dim)
+# C2 above head width 256 (csrc/attention_wide.cuh, route 2): each kernel,
+# packed and split, forward and backward, against its plain version and
+# timed beside SDPA, at (B, n, 2 heads x head_dim): the earlier (4, n)
+# shapes, the full-card shapes (64, 145) and (16, 785) at 512, and widths
+# 257 (not a multiple of 64) and 384 at (4, 145)
 C2_WIDER_SHAPES = [(4, n, 2, d, dtype) for n in (145, 785) for d in (320, 512)
-                   for dtype in ("bfloat16", "float32")]
+                   for dtype in ("bfloat16", "float32")] + [
+    (b, n, 2, 512, dtype) for b, n in ((64, 145), (16, 785))
+    for dtype in ("bfloat16", "float32")] + [
+    (4, 145, 2, d, dtype) for d in (257, 384)
+    for dtype in ("bfloat16", "float32")]
 # the long paths' model with 256-wide heads (2 x 256 at dim 256), a bf16
-# step at 192 px
+# step at 192 px, fused BN off and on; and with 384-wide heads (2 x 384:
+# the bodies of head widths above 256), fused BN off
 WIDE_HEADS = {"heads": 2, "head_dim": 256}
+WIDER_HEADS = {"heads": 2, "head_dim": 384}
 # the long paths: 448 px bf16 (N = 785) and 320 px f32 (N = 401) training,
 # their staged canvases 64 px wider than the crop
 LONG_BF16, LONG_F32 = 448, 320
@@ -843,6 +870,7 @@ def c2_wider_phase(torch) -> list:
     packed ones bit for bit, each timed beside SDPA with its bound."""
     from hgr_tpu_torch.ops import attention as A
 
+    t0 = time.perf_counter()
     rows = []
     for b, n, h, d, dtype in C2_WIDER_SHAPES:
         dt = getattr(torch, dtype)
@@ -910,8 +938,19 @@ def c2_wider_phase(torch) -> list:
             rows.append(row)
         del qkv, g, out, ref, dx, dref, diff, s_out, s_d, ops
         torch.cuda.empty_cache()
-    emit({"kernel_checks_c2_wider": rows})
+    emit({"kernel_checks_c2_wider": rows, "wide_ptxas": _wide_ptxas(),
+          "seconds": time.perf_counter() - t0})
     return rows
+
+
+def _wide_ptxas() -> list:
+    """ptxas's registers and spills of each body of head widths above 256
+    (the attention sources' entries in namespace attn_wide)."""
+    from hgr_tpu_torch.utils.cuda_build import load_kernels
+
+    built = load_kernels(["attention_qkv_fwd", "attention_qkv_bwd"])
+    return [line for b in built.values() for line in _ptxas_lines(b.ptxas_log)
+            if "attn_wide" in line.split(":")[0]]
 
 
 def route_phase(torch) -> list:
@@ -968,22 +1007,31 @@ def long_path_phase(torch, n_bn: int) -> dict:
     6 timed steps, CUDA events), one f32 step at 320 px (N = 401, B =
     16) off and on, one bf16 step at 192 px (B = 64) of the model with 2
     heads x 256 (every attention kernel at padded width 256) off and on,
-    and the bf16 serving forward at 448 px (B = 64). Each
+    one with 2 heads x 384 (the bodies of head widths above 256, route
+    2) off, and the bf16 serving forward at 448 px (B = 64). Each
     checks its launches per step or forward against the counts the code
     gives, finite losses and outputs, and that the step moved every
     parameter. Returns the launches of the whole phase."""
     from hgr_tpu_torch.config import AugmentConfig, ModelConfig, TrainConfig
     from hgr_tpu_torch.models import MultiTaskNet, layers
+    from hgr_tpu_torch.ops import attention as A
     from hgr_tpu_torch.train.state import create_train_state
     from hgr_tpu_torch.train.steps import make_train_step, resolve_grad_demix
 
     c0 = _counts()
     steps = []
-    for px, dtype, batch_size, arch in (
-            (LONG_BF16, "bfloat16", LONG_BF16_BATCH, {}),
-            (LONG_F32, "float32", LONG_F32_BATCH, {}),
-            (IMAGE, "bfloat16", LONG_BF16_BATCH, WIDE_HEADS)):
+    for px, dtype, batch_size, arch, routes in (
+            (LONG_BF16, "bfloat16", LONG_BF16_BATCH, {}, ("off", "on")),
+            (LONG_F32, "float32", LONG_F32_BATCH, {}, ("off", "on")),
+            (IMAGE, "bfloat16", LONG_BF16_BATCH, WIDE_HEADS, ("off", "on")),
+            (IMAGE, "bfloat16", LONG_BF16_BATCH, WIDER_HEADS, ("off",))):
         dt = getattr(torch, dtype)
+        if arch is WIDER_HEADS:
+            n = (px // 16) ** 2 + 1
+            check(A.kernel_route("fwd", n, arch["head_dim"], dt) == 2
+                  and A.kernel_route("bwd", n, arch["head_dim"], dt) == 2,
+                  f"{arch} at {px} px: not the route of head widths above "
+                  "256")
         demix = resolve_grad_demix(TrainConfig(),
                                    ModelConfig(compute_dtype=dtype))
         pullbacks = 2 if demix else 1
@@ -1000,7 +1048,7 @@ def long_path_phase(torch, n_bn: int) -> dict:
         before = {k: v.detach().clone() for k, v in model.state_dict().items()}
         turns = []
         try:
-            for route in ("off", "on"):
+            for route in routes:
                 layers._FUSED_BN = route == "on"
                 torch.cuda.synchronize()
                 k0 = _counts()
@@ -1071,7 +1119,7 @@ def long_path_phase(torch, n_bn: int) -> dict:
     launches = _delta(_counts(), c0)
     emit({"long_paths": {
         "model": "MultiTaskNet small (dim 256, depth 4, 8x32 heads; the "
-                 "wide-head step 2x256), seeded random weights",
+                 "wide-head steps 2x256 and 2x384), seeded random weights",
         "train_steps": steps,
         "serving_448_bf16": {"batch": SERVE_BATCH, "n": 785,
                              "ms_per_forward": ms,
@@ -4359,8 +4407,8 @@ def main() -> int:
     mesh_checks_phase(torch, tp_save, work)
 
     # main path 5, C2's lengths and widths: 448 px bf16 and 320 px f32
-    # train steps, a bf16 step with 256-wide heads, the 448 px serving
-    # forward
+    # train steps, bf16 steps with 256- and 384-wide heads, the 448 px
+    # serving forward
     _zero_counts()
     longer = long_path_phase(torch, n_bn)
     for name in single_path:

@@ -30,8 +30,8 @@
 // gradient (B, N, 3*H*D) as three thirds each with row stride 3*H*D;
 // attention_split_bwd passes its caller's operands as they are. The two
 // entry points compute bit-identical gradients on the same data. Head
-// widths above 256 take the column-sliced bodies of attention_wide.cuh
-// (three kernels and the chunked route's statistics scratch). Up to 256
+// widths above 256 take the bodies of attention_wide.cuh (two kernels
+// and the chunked route's statistics scratch). Up to 256
 // widths are handled as in the forward: bodies templated over the padded
 // width Dp in {16, 32, 64, 128, 256}, staged features D..Dp-1 zero, output
 // columns beyond D never written. At Dp = 256 every length takes the
@@ -1684,8 +1684,8 @@ extern "C" {
 // The route the body for ``dtype`` (0 = float32, 1 = bfloat16) takes at
 // sequence length n and head width head_dim: 0 = one block per (head,
 // image) with the whole sequence in shared memory, 1 = key-chunked (two
-// kernels and a statistics scratch), 2 = the column-sliced bodies of head
-// widths above 256 (three kernels and the same scratch).
+// kernels and a statistics scratch), 2 = the bodies of head widths above
+// 256 (attention_wide.cuh: two kernels and the same scratch).
 int attention_qkv_bwd_route(int n, int dtype, int head_dim) {
   if (head_dim >= attn_wide::kNarrowest) return 2;
   return route(n, dtype, tc::padded_width(head_dim));
@@ -1694,7 +1694,9 @@ int attention_qkv_bwd_route(int n, int dtype, int head_dim) {
 // Shared memory one block of that route needs, in bytes (static on
 // route 2, dynamic on the others).
 int attention_qkv_bwd_smem_bytes(int n, int dtype, int head_dim) {
-  if (head_dim >= attn_wide::kNarrowest) return attn_wide::kBwdSmem;
+  if (head_dim >= attn_wide::kNarrowest) {
+    return attn_wide::bwd_smem_bytes(dtype);
+  }
   return static_cast<int>(smem_bytes(n, dtype, tc::padded_width(head_dim)));
 }
 

@@ -23,8 +23,8 @@
 // tensors) with no copy and no concatenation. The two entry points
 // therefore compute bit-identical outputs on the same data.
 //
-// Head widths above 256 take the column-sliced bodies of
-// attention_wide.cuh (route 2). Up to 256, every body is a template over
+// Head widths above 256 take the bodies of attention_wide.cuh (route
+// 2). Up to 256, every body is a template over
 // the padded width Dp in {16, 32, 64, 128, 256} (the smallest that holds
 // D); the true D is a runtime
 // value. Staged features D..Dp-1 are zero, so the dot products over Dp
@@ -1002,8 +1002,8 @@ extern "C" {
 
 // The route the body for ``dtype`` (0 = float32, 1 = bfloat16) takes at
 // sequence length n and head width head_dim: 0 = the whole sequence in
-// one block's shared memory, 1 = key-chunked, 2 = the column-sliced body
-// of head widths above 256.
+// one block's shared memory, 1 = key-chunked, 2 = the body of head
+// widths above 256 (attention_wide.cuh).
 int attention_qkv_fwd_route(int n, int dtype, int head_dim) {
   if (head_dim >= attn_wide::kNarrowest) return 2;
   return route(n, dtype, tc::padded_width(head_dim));
@@ -1012,7 +1012,9 @@ int attention_qkv_fwd_route(int n, int dtype, int head_dim) {
 // Shared memory one block of that route needs, in bytes (static on
 // route 2, dynamic on the others).
 int attention_qkv_fwd_smem_bytes(int n, int dtype, int head_dim) {
-  if (head_dim >= attn_wide::kNarrowest) return attn_wide::kFwdSmem;
+  if (head_dim >= attn_wide::kNarrowest) {
+    return attn_wide::fwd_smem_bytes(dtype);
+  }
   return static_cast<int>(smem_bytes(n, dtype, tc::padded_width(head_dim)));
 }
 

@@ -46,10 +46,12 @@ hgr_tpu/ops/attention_pallas.py).
   (and at every length at padded width 256) they stream the keys (and,
   in the backward, the queries) through shared memory in chunks, with
   the same bits (``kernel_route``; ``launch_on_route`` takes either route
-  for the comparison). Head widths above 256 take a simpler body that
-  cuts the head into column slices (``csrc/attention_wide.cuh``, both
-  types on the CUDA cores). The chunked and sliced backwards keep the
-  rows' softmax statistics in a scratch the wrapper allocates.
+  for the comparison). Head widths above 256 take the bodies of
+  ``csrc/attention_wide.cuh`` (route 2, also on the tensor cores): the
+  head padded to a multiple of 64 features, each score tile computed
+  once per pass over all of them, P or dS shared by the warps through
+  shared memory. The chunked and wide backwards keep the rows' softmax
+  statistics in a scratch the wrapper allocates.
 * ``attention_core`` — the unfused chain on heads-first tensors that can
   also return the post-softmax map (``_xla_attention_core`` :139); the
   model's need-map path and ``fused_attention=False`` use it.
@@ -256,9 +258,8 @@ def kernel_route(kernel: str, n: int, head_dim: int,
                  dtype: torch.dtype) -> int:
     """The route ``kernel`` ('fwd' or 'bwd') takes on the card at sequence
     length ``n`` and ``head_dim`` in ``dtype``: 0 = the whole sequence of
-    a head in one block's shared memory, 1 = key-chunked, 2 = the
-    column-sliced body of head widths above 256. Builds the kernel
-    library (needs nvcc)."""
+    a head in one block's shared memory, 1 = key-chunked, 2 = the bodies
+    of head widths above 256. Builds the kernel library (needs nvcc)."""
     lib = _kernel() if kernel == "fwd" else _bwd_kernel()
     return getattr(lib, f"attention_qkv_{kernel}_route")(
         n, _DTYPE_CODES[dtype], head_dim)
@@ -266,7 +267,7 @@ def kernel_route(kernel: str, n: int, head_dim: int,
 
 def _bwd_scratch(lib, b: int, n: int, heads: int, head_dim: int,
                  t: torch.Tensor):
-    """The f32 statistics scratch of the chunked and sliced backwards
+    """The f32 statistics scratch of the chunked and wide backwards
     (None on the whole-sequence route, which needs none)."""
     count = lib.attention_qkv_bwd_scratch_floats(b, n, heads, head_dim,
                                                  _DTYPE_CODES[t.dtype])

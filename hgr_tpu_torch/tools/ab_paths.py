@@ -16,12 +16,15 @@ within one call:
 First each checkout's attention kernels, bn kernels and warp run on the
 same seeded inputs and the outputs are compared bit for bit
 (``same_bits``; values, so a uint8 crop equals an f32 crop of the same
-levels), each with its time; the f32 attention cases, whose bits a
-change of arithmetic moves by design, also report the largest difference
-between the two sides and each side's distance from float64 (``f32``);
-then each attention entry function's ptxas line on either side and
-whether its SASS is the same (``compile``). Needs the card. Prints each
-run's model, train and mixed lines, then one JSON summary line.
+levels), each with its time; the f32 attention cases and the cases of
+head widths above 256 (``wide_*``: the bodies of route 2, bf16 and f32),
+whose bits a change of arithmetic moves by design, also report the
+largest difference between the two sides and each side's distance from
+float64 (``f32``); then each attention entry function's ptxas line on
+either side and whether its SASS is the same (``compile``, with
+``narrow_same_sass``: whether every entry outside the route-2 bodies kept
+its SASS). Needs the card. Prints each run's model, train and mixed
+lines, then one JSON summary line.
 """
 
 from __future__ import annotations
@@ -164,6 +167,25 @@ for b, seed in ((64, 32), (256, 33)):
         x32.double(), 8, 32, 32 ** -0.5)
     f64[f"bwd_{b}_145_f32"] = A.attention_qkv_bwd_reference(
         x32.double(), g32.double(), 8, 32, 32 ** -0.5)
+# the bodies of head widths above 256 (route 2), 2 heads: the earlier (4, n)
+# shapes, the full-card shapes and the 2 x 384 step's, bf16 and f32, with
+# each output's distance from the float64 plain version
+for b, n, dh in ((4, 145, 320), (4, 785, 512), (64, 145, 512),
+                 (16, 785, 512), (64, 145, 384)):
+    for dt in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(device="cuda").manual_seed(b + n + dh)
+        x = torch.randn(b, n, 6 * dh, device="cuda", generator=gen).to(dt)
+        gw = torch.randn(b, n, 2 * dh, device="cuda", generator=gen).to(dt)
+        key = f"wide_{b}_{n}_{dh}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
+        calls[f"fwd_{key}"] = (lambda x=x, dh=dh: A.fused_attention_qkv(
+            x, 2, dh, dh ** -0.5))
+        calls[f"bwd_{key}"] = (lambda x=x, gw=gw, dh=dh:
+                               A.fused_attention_qkv_bwd(x, gw, 2, dh,
+                                                         dh ** -0.5))
+        f64[f"fwd_{key}"] = A.attention_qkv_reference(x.double(), 2, dh,
+                                                      dh ** -0.5)
+        f64[f"bwd_{key}"] = A.attention_qkv_bwd_reference(
+            x.double(), gw.double(), 2, dh, dh ** -0.5)
 # the fused jitter + warp at the training shape (B = 256 uint8 canvases,
 # 256 -> 192, half the images jittered), through the wrapper, at 0 and 90
 # degrees (the transpose route)
@@ -331,8 +353,17 @@ def _entries(tree: str, name: str) -> dict:
             entry = untag(found.group(1))
             code[entry] = []
         elif entry is not None and "/*" in line:
-            code[entry].append(untag(line.strip()))
+            # cuobjdump pads the columns to the listing's widest line
+            code[entry].append(untag(" ".join(line.split())))
     return {e: (line, code.get(e)) for e, line in ptxas.items()}
+
+
+def _first_diff(a, b):
+    """The first pair of SASS lines that differ (None if none do)."""
+    for x, y in zip(a or (), b or ()):
+        if x != y:
+            return [x, y]
+    return None if len(a or ()) == len(b or ()) else ["(length)", "(length)"]
 
 
 def compile_report(trees) -> dict:
@@ -353,8 +384,12 @@ def compile_report(trees) -> dict:
             e: {"ptxas": [first[e][0], second[e][0]],
                 "same_sass": first[e][1] == second[e][1],
                 "sass_lines": [len(first[e][1] or ()),
-                               len(second[e][1] or ())]}
+                               len(second[e][1] or ())],
+                "first_diff": _first_diff(first[e][1], second[e][1])}
             for e in first if e in second}
+        report[name]["narrow_same_sass"] = all(
+            row["same_sass"] for e, row in report[name].items()
+            if "attn_wide" not in e)
         report[name]["only_in_first"] = {
             e: first[e][0] for e in sorted(set(first) - set(second))}
         report[name]["only_in_second"] = {

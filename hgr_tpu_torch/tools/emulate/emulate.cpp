@@ -1,0 +1,293 @@
+// Runs csrc/attention_wide.cuh's kernels on the host: one fiber (ucontext)
+// per CUDA thread, scheduled in turns; __syncthreads, __syncwarp and the
+// warp collectives (ldmatrix, mma, shuffles) as barriers over the block or
+// the warp, a collective's operands exchanged through per-warp slots. A
+// block's shared memory starts as NaN, so a read of anything not staged
+// shows. Built and driven by hgr_tpu_torch/tools/emulate_wide.py:
+//   emulate <f32|bf16> B N H D scale <packed|split> <dir>
+// reads dir/qkv.bin (B, N, 3 H D) and dir/g.bin (B, N, H D) as float32,
+// runs the forward and both backward kernels on the packed operands or on
+// three contiguous copies, and writes dir/out_<layout>.bin and
+// dir/dqkv_<layout>.bin as float32.
+#include <ucontext.h>
+
+#include <cstdio>
+#include <cstdlib>
+#include <functional>
+#include <string>
+#include <vector>
+
+#include "attention_mma.cuh"
+#include "attention_tf32.cuh"
+#include "cuda_runtime.h"
+
+EmuIdx emu_block_idx, emu_block_dim, emu_grid_dim;
+
+namespace {
+struct Fiber {
+  ucontext_t ctx;
+  EmuIdx tid;
+  bool done;
+  std::vector<char> stack;
+};
+std::vector<Fiber> fibers;
+ucontext_t scheduler;
+int current = -1;
+long progress = 0;  // barriers passed and fibers finished
+std::function<void()> body;
+
+void yield() { swapcontext(&fibers[current].ctx, &scheduler); }
+
+void entry() {
+  body();
+  fibers[current].done = true;
+  ++progress;
+  swapcontext(&fibers[current].ctx, &scheduler);
+}
+
+int block_arrived = 0, block_gen = 0;
+
+struct WarpState {
+  int arrived = 0, gen = 0;
+  uint32_t slots[32][8];
+};
+WarpState warps[32];
+
+void warp_barrier() {
+  WarpState& w = warps[current / 32];
+  const int gen = w.gen;
+  if (++w.arrived == 32) {
+    w.arrived = 0;
+    ++w.gen;
+    ++progress;
+  } else {
+    while (w.gen == gen) yield();
+  }
+}
+}  // namespace
+
+EmuIdx& emu_thread_idx() { return fibers[current].tid; }
+
+void __syncthreads() {
+  const int gen = block_gen;
+  if (++block_arrived == static_cast<int>(fibers.size())) {
+    block_arrived = 0;
+    ++block_gen;
+    ++progress;
+  } else {
+    while (block_gen == gen) yield();
+  }
+}
+
+void __syncwarp() { warp_barrier(); }
+
+namespace emu {
+void post(const uint32_t* v, int n) {
+  memcpy(warps[current / 32].slots[current % 32], v, n * 4);
+  warp_barrier();
+}
+const uint32_t* slot(int l) { return warps[current / 32].slots[l]; }
+void done() { warp_barrier(); }
+int lane() { return current % 32; }
+}  // namespace emu
+
+float __shfl_xor_sync(unsigned, float v, int mask) {
+  const uint32_t w = __float_as_uint(v);
+  emu::post(&w, 1);
+  const float r = __uint_as_float(emu::slot(emu::lane() ^ mask)[0]);
+  emu::done();
+  return r;
+}
+
+// the bulk copies complete at once; their barriers are no-ops
+namespace attn_wide {
+inline void bulk_copy(void* dst, const void* src, unsigned bytes,
+                      uint64_t*) {
+  memcpy(dst, src, bytes);
+}
+inline void expect_bytes(uint64_t*, unsigned) {}
+}  // namespace attn_wide
+
+#include "attention_wide_dev.cuh"
+
+namespace attn_wide {
+alignas(16) uint4 wide_smem[232448 / 16];
+}
+
+namespace {
+void run_block(int threads, const std::function<void()>& fn) {
+  for (auto& u : attn_wide::wide_smem) {
+    u = {0x7fc00000u, 0x7fc00000u, 0x7fc00000u, 0x7fc00000u};
+  }
+  body = fn;
+  fibers.assign(threads, Fiber());
+  for (int i = 0; i < threads; ++i) {
+    Fiber& f = fibers[i];
+    f.tid = {unsigned(i), 0, 0};
+    f.done = false;
+    f.stack.resize(1 << 18);
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = f.stack.data();
+    f.ctx.uc_stack.ss_size = f.stack.size();
+    f.ctx.uc_link = nullptr;
+    makecontext(&f.ctx, entry, 0);
+  }
+  for (auto& w : warps) w.arrived = w.gen = 0;
+  block_arrived = 0;
+  emu_block_dim = {unsigned(threads), 1, 1};
+  while (true) {
+    bool any = false;
+    const long before = progress;
+    for (int i = 0; i < threads; ++i) {
+      if (fibers[i].done) continue;
+      any = true;
+      current = i;
+      swapcontext(&scheduler, &fibers[i].ctx);
+    }
+    if (!any) break;
+    if (progress == before) {
+      fprintf(stderr, "deadlock in block (%u, %u, %u)\n", emu_block_idx.x,
+              emu_block_idx.y, emu_block_idx.z);
+      exit(3);
+    }
+  }
+}
+
+template <typename Fn>
+void grid(int gx, int gy, int gz, Fn fn) {
+  emu_grid_dim = {unsigned(gx), unsigned(gy), unsigned(gz)};
+  for (int z = 0; z < gz; ++z) {
+    for (int y = 0; y < gy; ++y) {
+      for (int x = 0; x < gx; ++x) {
+        emu_block_idx = {unsigned(x), unsigned(y), unsigned(z)};
+        run_block(attn_wide::kThreads, fn);
+      }
+    }
+  }
+}
+
+std::vector<float> read_floats(const std::string& path, size_t n) {
+  std::vector<float> v(n);
+  FILE* f = fopen(path.c_str(), "rb");
+  if (!f || fread(v.data(), 4, n, f) != n) {
+    fprintf(stderr, "cannot read %s\n", path.c_str());
+    exit(2);
+  }
+  fclose(f);
+  return v;
+}
+
+void write_floats(const std::string& path, const std::vector<float>& v) {
+  FILE* f = fopen(path.c_str(), "wb");
+  fwrite(v.data(), 4, v.size(), f);
+  fclose(f);
+}
+
+template <typename T>
+T from_float(float x);
+template <>
+float from_float<float>(float x) {
+  return x;
+}
+template <>
+__nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+float to_float(float x) { return x; }
+float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+void run(int B, int N, int H, int D, float scale, bool split,
+         const std::string& dir) {
+  using namespace attn_wide;
+  const int64_t hd = int64_t(H) * D;
+  const auto qkvf = read_floats(dir + "/qkv.bin", size_t(B) * N * 3 * hd);
+  const auto gf = read_floats(dir + "/g.bin", size_t(B) * N * hd);
+  std::vector<T> qkv(qkvf.size()), gg(gf.size());
+  for (size_t i = 0; i < qkv.size(); ++i) qkv[i] = from_float<T>(qkvf[i]);
+  for (size_t i = 0; i < gg.size(); ++i) gg[i] = from_float<T>(gf[i]);
+  std::vector<T> sq, sk, sv;
+  const T *q, *k, *v;
+  int64_t img, row;
+  if (split) {
+    sq.resize(size_t(B) * N * hd);
+    sk = sq;
+    sv = sq;
+    for (int64_t r = 0; r < int64_t(B) * N; ++r) {
+      for (int64_t f = 0; f < hd; ++f) {
+        sq[r * hd + f] = qkv[r * 3 * hd + f];
+        sk[r * hd + f] = qkv[r * 3 * hd + hd + f];
+        sv[r * hd + f] = qkv[r * 3 * hd + 2 * hd + f];
+      }
+    }
+    q = sq.data();
+    k = sk.data();
+    v = sv.data();
+    img = N * hd;
+    row = hd;
+  } else {
+    q = qkv.data();
+    k = q + hd;
+    v = q + 2 * hd;
+    img = N * 3 * hd;
+    row = 3 * hd;
+  }
+  const std::string tag = split ? "split" : "packed";
+  const int groups = cdiv(pad_width(D), kOut);
+  // the launches' grids (launch_fwd, launch_bwd)
+  std::vector<T> out(size_t(B) * N * hd, from_float<T>(NAN));
+  const Rows<const T> rq{q, img, row}, rk{k, img, row}, rv{v, img, row};
+  const Rows<T> ro{out.data(), N * hd, hd};
+  const int f_tiles = cdiv(N, Kind<T>::kFwdRows);
+  grid(f_tiles * groups, H, B,
+       [&] { wide_fwd_kernel<T>(rq, rk, rv, ro, N, D, scale, f_tiles); });
+  std::vector<float> outf(out.size());
+  for (size_t i = 0; i < out.size(); ++i) outf[i] = to_float(out[i]);
+  write_floats(dir + "/out_" + tag + ".bin", outf);
+
+  std::vector<T> dq(size_t(B) * N * hd, from_float<T>(NAN)), dk = dq,
+                                                             dv = dq;
+  const Rows<const T> rg{gg.data(), N * hd, hd};
+  const Rows<T> rdq{dq.data(), N * hd, hd}, rdk{dk.data(), N * hd, hd},
+      rdv{dv.data(), N * hd, hd};
+  std::vector<float> stats(size_t(B) * H * 3 * pad16(N), NAN);
+  const int q_tiles = cdiv(N, Kind<T>::kRows);
+  const int k_tiles = cdiv(N, Kind<T>::kKeys);
+  grid(q_tiles * groups, H, B, [&] {
+    wide_bwd_q_kernel<T>(rq, rk, rv, rg, rdq, stats.data(), N, H, D, scale,
+                         q_tiles);
+  });
+  grid(k_tiles * groups, H, B, [&] {
+    wide_bwd_k_kernel<T>(rq, rk, rv, rg, rdk, rdv, stats.data(), N, H, D,
+                         scale, k_tiles);
+  });
+  std::vector<float> dqkv(size_t(B) * N * 3 * hd);
+  for (int64_t r = 0; r < int64_t(B) * N; ++r) {
+    for (int64_t f = 0; f < hd; ++f) {
+      dqkv[r * 3 * hd + f] = to_float(dq[r * hd + f]);
+      dqkv[r * 3 * hd + hd + f] = to_float(dk[r * hd + f]);
+      dqkv[r * 3 * hd + 2 * hd + f] = to_float(dv[r * hd + f]);
+    }
+  }
+  write_floats(dir + "/dqkv_" + tag + ".bin", dqkv);
+}
+}  // namespace
+
+int main(int argc, char** argv) {
+  if (argc != 9) {
+    fprintf(stderr,
+            "usage: emulate <f32|bf16> B N H D scale <packed|split> dir\n");
+    return 2;
+  }
+  const std::string dtype = argv[1];
+  const int B = atoi(argv[2]), N = atoi(argv[3]), H = atoi(argv[4]),
+            D = atoi(argv[5]);
+  const float scale = strtof(argv[6], nullptr);
+  const bool split = std::string(argv[7]) == "split";
+  if (dtype == "f32") {
+    run<float>(B, N, H, D, scale, split, argv[8]);
+  } else {
+    run<__nv_bfloat16>(B, N, H, D, scale, split, argv[8]);
+  }
+  return 0;
+}

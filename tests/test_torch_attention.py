@@ -375,7 +375,7 @@ def test_plain_versions_match_pallas_at_long_n_and_other_widths(
 
 def test_head_width_above_128_raises_naming_the_roadmap_item():
     """Every head width is taken since ROADMAP C2 closed: up to 256 by the
-    padded bodies, above 256 by the column-sliced ones (the name dates
+    padded bodies, above 256 by those of attention_wide.cuh (the name dates
     from the limit of 128, when widths above it raised naming C2; it is
     kept so that the test's record runs on). Only a width below 1 raises,
     before any launch."""
@@ -393,8 +393,8 @@ def test_head_width_above_128_raises_naming_the_roadmap_item():
     (1, True), (16, True), (128, True), (129, True), (160, True),
     (192, True), (256, True), (0, False), (257, True), (512, True)])
 def test_check_head_dim_takes_1_to_256(head_dim, taken):
-    """Widths 1 to 256 (the padded bodies) and above (the column-sliced
-    bodies) are taken; 0 is not."""
+    """Widths 1 to 256 (the padded bodies) and above (the bodies of
+    attention_wide.cuh) are taken; 0 is not."""
     if taken:
         A._check_head_dim(head_dim)
     else:
@@ -419,19 +419,20 @@ def test_plain_versions_match_pallas_at_head_widths_to_256(n, head_dim,
     _plain_against_pallas(n, head_dim, dtype)
 
 
-# head widths above 256, which the card routes to the column-sliced
-# bodies (csrc/attention_wide.cuh): 320 cuts into a full 256-wide output
-# slice and a partial one, 512 into two full ones
-WIDER_CASES = [(17, 320), (17, 512)]
+# head widths above 256, which the card routes to the bodies of
+# csrc/attention_wide.cuh (D padded with zero features to a multiple of
+# 64): 320 and 512, 257 (not a multiple of 64, one feature past 256) and
+# 384 at a length past one 32-key chunk
+WIDER_CASES = [(17, 320), (17, 512), (17, 257), (33, 384)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,head_dim", WIDER_CASES)
 def test_plain_versions_match_pallas_at_head_widths_above_256(n, head_dim,
                                                               dtype):
-    """What the card's column-sliced bodies are held to, against the
-    Pallas kernels (which take any static head width) in interpret
-    mode."""
+    """What the card's bodies of head widths above 256 are held to,
+    against the Pallas kernels (which take any static head width) in
+    interpret mode."""
     _plain_against_pallas(n, head_dim, dtype)
 
 

@@ -743,8 +743,9 @@ def test_split_equals_packed_at_the_448_px_shape(dtype):
 
 @pytest.mark.gpu
 def test_head_width_above_128_raises_naming_c2_before_any_launch():
-    """Since ROADMAP C2 closed, widths above 256 launch (the column-sliced
-    bodies, route 2) and only a width below 1 raises, before any launch.
+    """Since ROADMAP C2 closed, widths above 256 launch (the bodies of
+    attention_wide.cuh, route 2) and only a width below 1 raises, before
+    any launch.
     (The name dates from the limit of 128; it is kept so that the test's
     record runs on.)"""
     _cuda_or_skip()
@@ -811,14 +812,19 @@ def test_kernels_match_plain_versions_at_head_widths_to_256(n, head_dim,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("head_dim", [320, 512])
-@pytest.mark.parametrize("n", [145, 785])
+@pytest.mark.parametrize("head_dim", [257, 264, 320, 384, 392, 512, 640,
+                                      1040])
+@pytest.mark.parametrize("n", [17, 145, 785])
 def test_kernels_match_plain_versions_at_head_widths_above_256(n, head_dim,
                                                                dtype):
-    """The column-sliced bodies (route 2), packed and split, forward and
-    backward, against the plain versions at the existing tolerances, and
-    the split kernels on the chunk views equal to the packed ones bit for
-    bit."""
+    """The bodies of head widths above 256 (route 2), packed and split,
+    forward and backward, against the plain versions at the existing
+    tolerances, and the split kernels on the chunk views equal to the
+    packed ones bit for bit: widths staged element by element (257),
+    bulk-copied with zero padding (264, 392: multiples of 8, not of 64),
+    whole 64-feature slices (320, 384, 512), and wider than one staged
+    row (640, 1040: the scores summed over feature groups, two and three
+    output groups)."""
     _cuda_or_skip()
     heads = 2
     hd = heads * head_dim
