@@ -291,6 +291,13 @@ DEMIX_F32_B = 8
 DEMIX_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # tools/display_data's default batch, which path 17 warps
 DISPLAY_BATCH = 32
+# path 20: tools/headtohead at a tiny recipe B (one seed, 2 epochs of 32 /
+# 16 / 16 images at the recipe's batch of 32, whose attention and warp
+# shapes the kernel phases check: MESH_BATCH // 4, DISPLAY_BATCH), then
+# tools/h2h_stats over it and the committed finals
+H2H_RECIPE = ["--seed", "42", "--epochs", "2", "--lr", "1e-3",
+              "--lr_step", "30", "40", "--batch_size", "32", "--train_n",
+              "32", "--val_n", "16", "--test_n", "16"]
 
 
 def emit(obj) -> None:
@@ -424,7 +431,8 @@ def kernel_phase(torch):
     # (1024, bf16): the int8 path's timed batch; (16, f32): its card vs
     # CPU forward; (1, bf16 and f32): the exported programs at batch 1;
     # (128, bf16): serve_bench's largest batch and path 18's rank batch;
-    # (32, bf16): path 19's microbatch; (8, f32): the mesh parity steps
+    # (32, bf16): path 19's microbatch and path 20's recipe batch; (8,
+    # f32): the mesh parity steps
     for b, n, dtype in [(64, 145, "bfloat16"), (64, 145, "float32"),
                         (256, 145, "bfloat16"), (DET_BATCH, 145, "bfloat16"),
                         (4, 145, "float32"), (1, 37, "bfloat16"),
@@ -583,8 +591,8 @@ def bwd_kernel_phase(torch):
     )
 
     checks, main = [], None
-    # (128 and 32, bf16): the rank batches of paths 18 and 19; (8, f32):
-    # the mesh parity steps
+    # (128 and 32, bf16): the rank batches of paths 18 and 19 (32: also
+    # path 20's recipe batch); (8, f32): the mesh parity steps
     for b, n, dtype in [(TRAIN_BATCH, 145, "bfloat16"), (64, 145, "bfloat16"),
                         (64, 145, "float32"), (1, 37, "bfloat16"),
                         (1, 37, "float32"), (TRAIN_BATCH, 145, "float32"),
@@ -1246,8 +1254,9 @@ def warp_kernel_phase(torch):
     canvases, a shrinking affine (scale 0.25: smaller sub-tiles), and the
     train steps' own inputs (a staged batch and an augment draw) at every
     canvas a path of this script warps: 256 -> 192 (B=256; B=128 and 64,
-    the mesh paths' rank batches; B=32, display_data's and path 19's
-    microbatch), 512 -> 448 (B=64) and 384 -> 320 (B=16). Per case
+    the mesh paths' rank batches; B=32, display_data's, path 19's
+    microbatch and path 20's recipe batch), 512 -> 448 (B=64) and
+    384 -> 320 (B=16). Per case
     ``same_bits`` against the plain version on the card and
     ``same_bits_cpu`` against the plain version on the CPU (which equals the JAX package's crop bit for bit,
     tests/test_torch_augment.py); wrapper and plain times with the spread
@@ -2714,28 +2723,45 @@ def model_phase(torch, state):
     return forwards
 
 
-def serve_phase(torch, state, model=None, line="serve"):
+def serve_phase(torch, state, model=None, line="serve", weights=None):
     """2048 crops through ClassifierService from 4 client threads, then
     POST /classify through the port's HTTP handler: the bf16 model of
-    ``state``, or ``model`` (emitted as ``line``)."""
-    from hgr_tpu_torch.cli.serve import make_handler
+    ``state``, or ``model`` (emitted as ``line``), or the checkpoint
+    ``weights`` served by the serving CLI's ``build_service`` with no
+    ``--image_size``, whose crop size must be the one in the checkpoint's
+    run_meta.json."""
+    from hgr_tpu_torch.cli import serve as cli_serve
     from hgr_tpu_torch.config import DEFAULT_NAMES
+    from hgr_tpu_torch.infer.weights import read_run_meta
     from hgr_tpu_torch.models import MultiTaskNet
     from hgr_tpu_torch.serve import ClassifierService
 
-    if model is None:
-        model = MultiTaskNet(image_size=(IMAGE, IMAGE), dtype=torch.bfloat16)
-        model.load_state_dict(state, strict=True)
-        model = model.eval().to("cuda")
-    svc = ClassifierService(model, class_names=DEFAULT_NAMES,
-                            max_batch=SERVE_BATCH, max_wait_ms=5.0,
-                            pipeline_depth=4)
+    meta_size = None
+    if weights is not None:
+        args = cli_serve.build_parser().parse_args(
+            ["--weights", weights, "--max_batch", str(SERVE_BATCH)])
+        svc = cli_serve.build_service(args)
+        meta_size = tuple(read_run_meta(weights)["image_size"])
+        check(svc.image_size == meta_size
+              and tuple(args.image_size) == meta_size,
+              f"served crop {svc.image_size} (args {args.image_size}) != "
+              f"run_meta.json's {meta_size}")
+    else:
+        if model is None:
+            model = MultiTaskNet(image_size=(IMAGE, IMAGE),
+                                 dtype=torch.bfloat16)
+            model.load_state_dict(state, strict=True)
+            model = model.eval().to("cuda")
+        svc = ClassifierService(model, class_names=DEFAULT_NAMES,
+                                max_batch=SERVE_BATCH, max_wait_ms=5.0,
+                                pipeline_depth=4)
+    size = svc.image_size[0]
     httpd = None
     try:
         svc.warm()
         n_clients, per_client = 4, 512
         rng = np.random.RandomState(1)
-        crops = rng.randint(0, 256, (n_clients, per_client, IMAGE, IMAGE, 3),
+        crops = rng.randint(0, 256, (n_clients, per_client, size, size, 3),
                             np.uint8)
         results = [None] * n_clients
         errors = []
@@ -2764,10 +2790,11 @@ def serve_phase(torch, state, model=None, line="serve"):
             check(p.shape == (19,) and bool(np.isfinite(p).all())
                   and abs(float(p.sum()) - 1.0) < 1e-3, "probs")
             check(lm.shape == (21, 2) and bool((lm >= 0).all())
-                  and bool((lm < IMAGE).all()), "landmarks inside the crop")
+                  and bool((lm < size).all()), "landmarks inside the crop")
         snap = svc.metrics.snapshot()
 
-        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(svc))
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    cli_serve.make_handler(svc))
         server = threading.Thread(target=httpd.serve_forever, daemon=True)
         server.start()
         base = f"http://127.0.0.1:{httpd.server_address[1]}"
@@ -2785,7 +2812,7 @@ def serve_phase(torch, state, model=None, line="serve"):
             check(p.shape == (19,) and abs(float(p.sum()) - 1.0) < 1e-3
                   and body["label"] == int(p.argmax()), "HTTP probs")
             check(lm.shape == (21, 2) and bool((lm >= 0).all())
-                  and bool((lm < IMAGE).all()), "HTTP landmarks")
+                  and bool((lm < size).all()), "HTTP landmarks")
             check(body["label"] == answers[i]["label"],
                   "HTTP answer equals the direct answer")
             http_ok += 1
@@ -2794,6 +2821,8 @@ def serve_phase(torch, state, model=None, line="serve"):
         check(stats["errors"] == 0, "no serving errors")
         emit({line: {
             "dtype": "bfloat16", "max_batch": SERVE_BATCH,
+            "image_size": list(svc.image_size),
+            "run_meta_image_size": meta_size and list(meta_size),
             "clients": n_clients, "crops": len(answers),
             "seconds": seconds, "crops_per_s": len(answers) / seconds,
             "request_latency_ms": snap.get("latency_ms"),
@@ -4052,6 +4081,63 @@ def bn_ab_phase(torch, n_bn: int, work: str) -> dict:
     return total
 
 
+def h2h_phase(torch, work: str) -> dict:
+    """``tools/headtohead`` at a tiny recipe B (H2H_RECIPE) through the
+    training CLI in a process of its own, which writes its launch counts,
+    then ``tools/h2h_stats`` over that run and the committed finals of
+    the reference and the JAX package. The run has a test row; its
+    launches are 8 attention backwards a step, and 4 attention forwards
+    and one warp a step or evaluation batch (the loaders pad the tail
+    batch), no bn launch (fused BN off, the CLI default); each statistic
+    of one seed has a finite mean and interval (sd and t need two).
+    Returns the run's counts."""
+    from hgr_tpu_torch.tools import h2h_stats, headtohead
+
+    root = os.path.join(work, "h2h")
+    workdir = os.path.join(root, "s42")
+    args = headtohead.build_parser().parse_args(H2H_RECIPE)
+    t0 = time.perf_counter()
+    with _tool_quiet():
+        summary = headtohead.main(H2H_RECIPE + ["--workdir", workdir])
+        stats = h2h_stats.main(["--r5_glob", os.path.join(root, "s*"),
+                                "--out", os.path.join(root, "stats.json")])
+    seconds = time.perf_counter() - t0
+    steps = args.epochs * -(-args.train_n // args.batch_size)
+    evals = (args.epochs * -(-args.val_n // args.batch_size)
+             + -(-args.test_n // args.batch_size))
+    with open(os.path.join(workdir, "ours_out", headtohead.RUN_NAME,
+                           "ranks", "rank0.json")) as f:
+        ran = json.load(f)
+    counts = ran["launches"]
+    rows = headtohead.read_jsonl(os.path.join(
+        workdir, "ours_logs", headtohead.RUN_NAME, "metrics.jsonl"))
+    tests = [r for r in rows if "test/epoch_f1" in r]
+    check(ran["step"] == steps and len(tests) == 1
+          and 0.0 <= tests[0]["test/epoch_f1"] <= 1.0
+          and 0.0 <= tests[0]["test/pose_acc"] <= 1.0,
+          f"headtohead ran {ran['step']} steps (expected {steps}), test "
+          f"rows {tests}")
+    check(counts["attention_qkv_bwd"] == 8 * steps
+          and counts["attention_qkv_fwd"] == 4 * (steps + evals)
+          and counts["warp_twopass"] == steps + evals
+          and sum(counts.values()) == 13 * steps + 5 * evals,
+          f"headtohead launches {counts} for {steps} steps and {evals} "
+          "evaluation batches")
+    for side in ("port_minus_ref", "port_minus_jax"):
+        for metric in ("f1", "pose"):
+            st = stats[side][metric]
+            check(st["n"] == 1 and np.isfinite(st["mean"])
+                  and all(np.isfinite(v) for v in st["boot95_ci"]),
+                  f"h2h_stats {side} {metric}: {st}")
+    emit({"h2h": {"recipe": H2H_RECIPE, "steps": steps,
+                  "eval_batches": evals, "seconds": seconds,
+                  "ours": summary["ours"], "seeds": stats["seeds"],
+                  "port_minus_ref": stats["port_minus_ref"],
+                  "port_minus_jax": stats["port_minus_jax"],
+                  "launches": counts}})
+    return counts
+
+
 def _fallback_ops(torch, fn) -> list:
     """The operators the legacy vmap runs as a loop over the rows while
     ``fn`` runs (torch's fallback warnings, switched on around it)."""
@@ -4525,6 +4611,27 @@ def main() -> int:
         check(accumed[name] > 0,
               f"the cached accumulating mesh launched {name}")
 
+    # main path 20, the head-to-head tools: headtohead's tiny recipe B
+    # through the training CLI (its counts live in its process), then
+    # h2h_stats over it and the committed finals
+    _zero_counts()
+    h2h = h2h_phase(torch, work)
+    for name in ("attention_qkv_fwd", "attention_qkv_bwd", "warp_twopass"):
+        check(h2h[name] > 0, f"headtohead's run launched {name}")
+
+    # main path 21, the serving CLI's build_service on the loop phase's
+    # checkpoint with no --image_size: the crop size of its run_meta.json
+    from hgr_tpu_torch.train.checkpoint import best_or_last
+
+    _zero_counts()
+    forwards = serve_phase(torch, None, line="serve_checkpoint",
+                           weights=best_or_last(loop_save))
+    checkpointed = _counts()
+    check(checkpointed["attention_qkv_fwd"] == 4 * forwards > 0
+          and sum(checkpointed.values()) == 4 * forwards,
+          f"checkpoint serving launches {checkpointed} != 4 x {forwards} "
+          "forwards")
+
     by_path = {"serve": served, "train": trained, "loop": looped,
                "mesh": meshed, "long": longer, "detect": detected,
                "quant": quanted, "export": exported,
@@ -4533,7 +4640,8 @@ def main() -> int:
                "attribution": attributed, "bn_convergence_ab": ab,
                "batched_demix": batched, "debug_images": debugged,
                "display_data": displayed, "uneven_tp": uneven,
-               "cache_accum": accumed}
+               "cache_accum": accumed, "h2h": h2h,
+               "serve_checkpoint": checkpointed}
     emit({"launches_by_path": {name: {p: c[name] for p, c in by_path.items()}
                                for name in KERNELS}})
     emit({"kernels": [{

@@ -22,7 +22,7 @@ dynamic micro-batching (port of cli/serve.py). Endpoints:
 
 Usage:
   python -m hgr_tpu_torch.cli.serve --weights cls.npz [--device cuda]
-      [--dtype bfloat16] [--quantize calib.npy]
+      [--dtype bfloat16] [--image_size H W] [--quantize calib.npy]
       [--det_weight det.npz --frame_hw 360 640]
       [--port 8000] [--max_batch 64] [--max_wait_ms 5]
 
@@ -30,6 +30,9 @@ Usage:
 cli/convert.py), a reference .ckpt, a training checkpoint .pt of the
 port or an orbax directory of the JAX package (read with tensorstore,
 ``infer/weights.py``); an empty value serves a seeded random init.
+The crop size is ``--image_size``, else the ``image_size`` of the
+``run_meta.json`` a training run wrote beside the checkpoint, else
+192 x 192 (the JAX server's rule, cli/serve.py:94).
 ``--quantize`` takes a .npy/.npz of calibration crops (N, H, W, 3) uint8
 BGR (an .npz's first array): the GELAN backbone is quantized to int8
 (infer/quant.py) from them, and /classify and /detect both serve the
@@ -64,6 +67,7 @@ def build_service(args):
     from hgr_tpu_torch.infer.weights import (
         build_classifier,
         load_classifier_weights,
+        resolve_image_size,
     )
     from hgr_tpu_torch.serve.engine import ClassifierService
 
@@ -74,7 +78,8 @@ def build_service(args):
             "--device cpu to serve on the CPU")
     data_cfg = (load_data_config(args.data) if args.data
                 else DataConfig(names=dict(DEFAULT_NAMES)))
-    image_size = tuple(args.image_size)
+    image_size = resolve_image_size(args.weights, args.image_size)
+    args.image_size = list(image_size)  # the detector service reuses it
     backbone = {"auto": "auto", "gelans": "small",
                 "gelanl": "large"}[args.backbone]
     state = load_classifier_weights(args.weights, image_size,
@@ -285,7 +290,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backbone", default="auto",
                     choices=["auto", "gelans", "gelanl"],
                     help="GELAN variant of the weights; auto detects it")
-    ap.add_argument("--image_size", nargs=2, type=int, default=[192, 192])
+    ap.add_argument("--image_size", nargs=2, type=int, default=None,
+                    help="crop geometry the weights were trained at; "
+                         "default: the checkpoint's run_meta.json, else "
+                         "192 192")
     ap.add_argument("--quantize", default=None,
                     help="calibration crops (.npy/.npz, (N, H, W, 3) uint8 "
                          "BGR): serve an int8 backbone (PTQ)")

@@ -31,6 +31,8 @@ import subprocess
 import sys
 from typing import Optional, Sequence
 
+from hgr_tpu_torch.tools.headtohead import _pythonpath_with_repo, build_fixture
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
@@ -63,34 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_fixture(root: str, train_n: int, val_n: int, test_n: int,
-                  image_size: int = 224) -> str:
-    """The synthetic splits (seeds 0-2) and a data-config YAML in the
-    reference's schema (configs/hagrid.yaml) with the recipe's augments;
-    returns the config's path."""
-    from hgr_tpu_torch.config import DEFAULT_NAMES
-    from hgr_tpu_torch.data.synthetic import write_synthetic_split
-
-    os.makedirs(root, exist_ok=True)
-    for split, n, seed in (("train", train_n, 0), ("val", val_n, 1),
-                           ("test", test_n, 2)):
-        write_synthetic_split(root, split, n, image_size=image_size,
-                              seed=seed)
-    cfg = os.path.join(root, "data.yaml")
-    with open(cfg, "w") as f:
-        f.write(f"path: {root}\n"
-                "train: annotations/train\n"
-                "val: annotations/val\n"
-                "test: annotations/test\n\n"
-                "num_joints: 21\nnum_classes: 19\n\nnames:\n")
-        for k, v in DEFAULT_NAMES.items():
-            f.write(f"  {k}: {v}\n")
-        f.write("\naugments:\n  rotate_factor: 20\n  scale_factor: 0.35\n"
-                "  translate_factor: 0.02\n  horizontal_flip: true\n"
-                "  color_jittering: true\n")
-    return cfg
-
-
 def parse_arm(name: str, stdout: str) -> dict:
     """The per-epoch validation lines and the test F1 of a CLI run's
     output; raises where either is missing (a drifted log format, or a
@@ -111,9 +85,7 @@ def parse_arm(name: str, stdout: str) -> dict:
 
 
 def run_arm(name: str, cfg: str, workdir: str, args, bn_dtype: str) -> dict:
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
-                                if env.get("PYTHONPATH") else "")
+    env = dict(os.environ, PYTHONPATH=_pythonpath_with_repo())
     if bn_dtype == "bfloat16":
         env["HGR_TPU_BN_DTYPE"] = "bfloat16"
     else:

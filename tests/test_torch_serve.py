@@ -398,3 +398,43 @@ def test_cli_main_parses_all_flags():
     assert isinstance(ns, argparse.Namespace)
     assert (ns.weights, ns.backbone, ns.port, ns.pipeline_depth) == (
         "w.npz", "gelanl", 0, 2)
+
+
+# -- the crop size: flag, then run_meta.json, then 192 x 192 ---------------
+
+
+@pytest.mark.parametrize("meta,flag,want", [
+    ([96, 96], None, (96, 96)),      # the checkpoint's run_meta.json
+    ([96, 96], [48, 48], (48, 48)),  # an explicit --image_size wins
+    (None, None, (192, 192)),        # neither: the default
+])
+def test_build_service_resolves_the_crop_size_as_jax(tmp_path, meta, flag,
+                                                     want):
+    """``build_service`` takes its crop size the way the JAX server does
+    (cli/serve.py:94): the flag, then the run_meta.json beside the
+    checkpoint, then 192 x 192; and writes it back for /detect."""
+    from hgr_tpu.infer.weights import resolve_image_size as jax_resolve
+
+    weight_dir = tmp_path / "weight"
+    weight_dir.mkdir()
+    ckpt = weight_dir / "best.pt"
+    size = tuple(flag or meta or (192, 192))
+    model = MultiTaskNet(image_size=size,
+                         generator=torch.Generator().manual_seed(0))
+    torch.save({"model": model.state_dict()}, ckpt)
+    if meta is not None:
+        (weight_dir / "run_meta.json").write_text(
+            json.dumps({"backbone": "small", "image_size": meta}))
+    argv = ["--weights", str(ckpt), "--device", "cpu", "--dtype", "float32",
+            "--max_batch", "1"]
+    if flag is not None:
+        argv += ["--image_size", *map(str, flag)]
+    args = cli_serve.build_parser().parse_args(argv)
+    svc = cli_serve.build_service(args)
+    try:
+        assert svc.image_size == want == jax_resolve(str(ckpt), flag)
+        assert args.image_size == list(want)
+        out = svc.classify(np.zeros((*want, 3), np.uint8), timeout=60.0)
+        assert np.asarray(out["landmarks"]).shape == (21, 2)
+    finally:
+        svc.stop()
