@@ -56,7 +56,8 @@ random weights:
   B = 16, Adam, 300 steps of ``tools/train_detector_smoke.py``'s step on
   seeded synthetic scenes (the loss must fall), best-box IoU on fresh
   scenes, the weights written as the JAX tool writes them and driving
-  ``HandGesturePipeline``, and an f32 B = 2 step against the CPU;
+  ``HandGesturePipeline``, the JAX tool's trained weights read on the
+  same scenes and frames, and an f32 B = 2 step against the CPU;
 - the classifier's precision and lowering knobs through
   ``make_train_step`` at B = 256: ``--dtype mixed`` (the f32 attention
   kernels at (256, 145, 768)), ``--early_dtype float32`` with fused BN
@@ -2873,6 +2874,14 @@ def _iou(a, b) -> float:
     return float(inter / max(union, 1e-9))
 
 
+def _pipeline_results(pipe, frames) -> list:
+    """``pipe.infer_frames`` over ``frames`` in batches of DET_BATCH."""
+    results = []
+    for i in range(0, len(frames), DET_BATCH):
+        results += pipe.infer_frames(frames[i:i + DET_BATCH])
+    return results
+
+
 def _hits(results, gts) -> int:
     return sum(r is not None and _iou(r["box"], g) > DET_HIT_IOU
                for r, g in zip(results, gts))
@@ -3506,9 +3515,11 @@ def detector_train_phase(torch, state, work: str) -> int:
     per step and frames/s by CUDA events, peak memory, the loss falling,
     best-box IoU on DET_EVAL fresh scenes, the weights written as the JAX
     tool writes them and read back equal, and ``HandGesturePipeline``
-    driven by them on this path's 360x640 scenes. Then an f32 B = 2 step
-    on the card against the CPU. Returns the classifier forwards the
-    pipeline ran (the only kernel launches of the path)."""
+    driven by them on this path's 360x640 scenes, beside the readings of
+    the JAX tool's trained weights (DET_WEIGHTS) on the same scenes and
+    frames. Then an f32 B = 2 step on the card against the CPU. Returns
+    the classifier forwards both pipelines ran (the only kernel launches
+    of the path)."""
     from hgr_tpu_torch.config import DEFAULT_NAMES
     from hgr_tpu_torch.infer.detect import HandGesturePipeline
     from hgr_tpu_torch.infer.weights import load_detector_weights
@@ -3577,11 +3588,25 @@ def detector_train_phase(torch, state, work: str) -> int:
     pipe = HandGesturePipeline(state, det_state, DEFAULT_NAMES,
                                dtype=torch.bfloat16, device="cuda")
     scenes, scene_gts = _scenes(DET_EVAL, seed=5)
-    results = []
-    for i in range(0, DET_EVAL, DET_BATCH):
-        results += pipe.infer_frames(scenes[i:i + DET_BATCH])
+    results = _pipeline_results(pipe, scenes)
     hits = _hits(results, scene_gts)
     check(len(results) == DET_EVAL, "the pipeline answered every frame")
+
+    # the JAX tool's trained weights (the committed fixture) on the same
+    # eval scenes and pipeline frames: the yardstick of the readings above
+    fixture = load_detector_weights(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), DET_WEIGHTS))
+    fx_model = YOLOv7Tiny(num_classes=1, dtype=torch.bfloat16)
+    fx_model.load_state_dict(fixture)
+    fx_boxes, fx_scores = tool.best_boxes(fx_model.cuda(),
+                                          torch.from_numpy(frames).cuda())
+    fx_ious = tool.iou_xyxy(fx_boxes, tool.cxcywh_to_xyxy(gts))
+    fx_pipe = HandGesturePipeline(state, fixture, DEFAULT_NAMES,
+                                  dtype=torch.bfloat16, device="cuda")
+    fx_results = _pipeline_results(fx_pipe, scenes)
+    check(len(fx_results) == DET_EVAL,
+          "the fixture's pipeline answered every frame")
+    del fx_model
 
     # an f32 B = 2 step on the card against the CPU (TF32 off), and both
     # against the same step in float64 on the CPU: f32 itself moves this
@@ -3626,6 +3651,11 @@ def detector_train_phase(torch, state, work: str) -> int:
         "iou_gt_0_5_share": float((ious > 0.5).mean()),
         "npz": os.path.relpath(path, work), "pipeline_hits": hits,
         "pipeline_frames": DET_EVAL, "hit_iou": DET_HIT_IOU,
+        "fixture": {"weights": DET_WEIGHTS,
+                    "mean_iou": float(fx_ious.mean()),
+                    "iou_gt_0_5_share": float((fx_ious > 0.5).mean()),
+                    "mean_score": float(fx_scores.mean()),
+                    "pipeline_hits": _hits(fx_results, scene_gts)},
         "f32_b2_vs_cpu": {"loss_rel_err": loss_err,
                           "max_rel_grad_err": grad_errs[worst],
                           "worst_tensor": worst,
@@ -3641,7 +3671,7 @@ def detector_train_phase(torch, state, work: str) -> int:
           f"to float64 {to64}")
     check(stats_err <= 1e-4,
           f"detector step card vs CPU stats: {stats_err}")
-    return pipe.batches
+    return pipe.batches + fx_pipe.batches
 
 
 # main path 10's configurations (hgr_tpu/cli/train.py flags): model

@@ -52,6 +52,10 @@ STRIDES = (8, 16, 32)
 # the running-stat momentum of the detector's BatchNorms (yolo.py:70)
 BN_MOMENTUM = 0.97
 
+# the std of a unit normal truncated to [-2, 2]: Flax's variance_scaling
+# divides by it so that its truncated draws keep the asked-for variance
+_TRUNC_NORMAL_STD = 0.87962566103423978
+
 
 class _BatchNorm(nn.Module):
     """BatchNorm over NCHW channels in f32 (or the input's wider type), as
@@ -168,9 +172,12 @@ class YOLOv7Tiny(nn.Module):
     in [0, 1] with H, W multiples of 32; returns the three raw head maps
     (B, H/s, W/s, 3 (5 + num_classes)) in f32, channels-last.
 
-    Parameters are float32 on the CPU, initialized from ``generator`` (a
-    fresh one seeded with 0 when None): convs U(+-1/sqrt(fan_in)) as
-    torch's defaults, BN identity. Move with ``.to(device)``; call
+    Parameters are float32 on the CPU, drawn as the JAX module's init
+    draws them, from ``generator`` (a fresh one seeded with 0 when None):
+    each ConvAct's conv U(+-1/sqrt(fan_in)) (``torch_kernel_init``), the
+    three ``detect{i}`` convs Flax's default ``lecun_normal`` (a normal of
+    std sqrt(1/fan_in) truncated at two of its pre-correction sigmas) with
+    zero biases, BN identity. Move with ``.to(device)``; call
     ``.eval()`` before an inference forward (a module starts in training
     mode, where BatchNorm takes batch statistics and updates its running
     ones).
@@ -206,12 +213,18 @@ class YOLOv7Tiny(nn.Module):
             setattr(self, f"detect{i}", nn.Conv2d(ch, no, 1, bias=True))
         gen = generator or torch.Generator().manual_seed(0)
         with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, nn.Conv2d):
-                    bound = 1.0 / math.sqrt(mod.weight[0].numel())
+            for name, mod in self.named_modules():
+                if not isinstance(mod, nn.Conv2d):
+                    continue
+                fan_in = mod.weight[0].numel()
+                if name.startswith("detect"):
+                    s = math.sqrt(1.0 / fan_in) / _TRUNC_NORMAL_STD
+                    nn.init.trunc_normal_(mod.weight, 0.0, s, -2.0 * s,
+                                          2.0 * s, generator=gen)
+                    mod.bias.zero_()
+                else:
+                    bound = 1.0 / math.sqrt(fan_in)
                     mod.weight.uniform_(-bound, bound, generator=gen)
-                    if mod.bias is not None:
-                        mod.bias.uniform_(-bound, bound, generator=gen)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = x.to(self.dtype).permute(0, 3, 1, 2)  # NCHW view, channels-last

@@ -256,7 +256,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Train, evaluate and save as the flags say. Returns the model, the
-    losses, the eval IoUs and scores, and the path written."""
+    losses, the eval IoUs and scores, the path written, the seconds the
+    scene pool took and the milliseconds a step (host clock over the
+    steps, up to the last loss read back)."""
     from hgr_tpu_torch.models.yolo import YOLOv7Tiny
     from hgr_tpu_torch.train.state import resolve_device
 
@@ -272,9 +274,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             for _ in range(min(args.unique_batches, args.steps))]
     pool = [(torch.from_numpy(f).to(device), torch.from_numpy(g).to(device))
             for f, g in pool]
-    print(f"scene pool: {len(pool)} batches in {time.time() - t0:.0f}s",
-          flush=True)
+    pool_s = time.time() - t0
+    print(f"scene pool: {len(pool)} batches in {pool_s:.0f}s", flush=True)
     losses = []
+    t1 = time.perf_counter()
     for i in range(args.steps):
         total, parts = step(*pool[i % len(pool)])
         losses.append(total)
@@ -283,6 +286,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                   f"box={float(parts['box']):.4f} "
                   f"obj={float(parts['obj']):.4f} "
                   f"({time.time() - t0:.0f}s)", flush=True)
+    losses = [float(x) for x in losses]  # waits for the last step
+    step_ms = (time.perf_counter() - t1) / args.steps * 1e3
+    print(f"{args.steps} steps: {step_ms:.1f} ms a step", flush=True)
     frames, gts = make_batch(np.random.RandomState(args.seed + 999),
                              args.eval_n, args.size)
     boxes, scores = best_boxes(model, torch.from_numpy(frames).to(device))
@@ -293,8 +299,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     save_detector_npz(model, args.out)
     print(f"saved {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB)",
           flush=True)
-    return {"model": model, "losses": [float(x) for x in losses],
-            "ious": ious, "scores": scores, "out": args.out}
+    return {"model": model, "losses": losses, "ious": ious,
+            "scores": scores, "out": args.out, "pool_seconds": pool_s,
+            "ms_per_step": step_ms}
 
 
 if __name__ == "__main__":

@@ -45,14 +45,21 @@ def _np(a):
 
 
 @pytest.fixture(scope="module")
-def det_init():
-    """A JAX detector (f32, HIGHEST) and its init variables with BN
-    statistics and affine perturbed, so both train- and eval-mode BN do
-    work."""
+def jax_init():
+    """A JAX detector (f32, HIGHEST) and its init variables (PRNGKey(0),
+    64 px) as numpy arrays."""
     jm = jyolo.YOLOv7Tiny(num_classes=1, precision=HI)
     init = jax.jit(lambda key, x: jm.init(key, x, train=True))
-    v = jax.tree_util.tree_map(np.asarray, init(
+    return jm, jax.tree_util.tree_map(np.asarray, init(
         jax.random.PRNGKey(0), jnp.zeros((1, SIZE, SIZE, 3))))
+
+
+@pytest.fixture(scope="module")
+def det_init(jax_init):
+    """The JAX detector and its init variables with BN statistics and
+    affine perturbed, so both train- and eval-mode BN do work."""
+    jm, raw = jax_init
+    v = jax.tree_util.tree_map(lambda a: a, raw)  # its own dicts
     rng = np.random.RandomState(0)
 
     def walk(node, in_bn):
@@ -118,6 +125,35 @@ def test_train_mode_forward_matches_jax(det_init):
         got_e = tm.eval()(torch.from_numpy(x))
     for g, w in zip(got_e, want_e):
         np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
+
+
+def test_fresh_detector_draws_its_variables_as_jax_init(jax_init):
+    """The port's fresh detector (generator seed 0) against the JAX
+    module's ``init`` (PRNGKey(0), 64 px), variable by variable. torch
+    cannot replay jax.random, so the draws differ but their distributions
+    must not: zero exactly where JAX's variables are zero (the BN biases
+    and means, the detect heads' biases), the std within 10% of JAX's for
+    every variable of at least 1,000 elements (the ConvActs' U(+-1/
+    sqrt(fan_in)), the detect heads' lecun_normal), and the detect
+    kernels inside lecun_normal's truncation bound 2·s, s = sqrt(1/fan_in)
+    / 0.8796 (Flax's variance_scaling divides by the std of a unit normal
+    truncated to [-2, 2])."""
+    _, raw = jax_init
+    want = from_flax(raw)
+    got = tyolo.YOLOv7Tiny(num_classes=1, generator=torch.Generator()
+                           .manual_seed(0)).state_dict()
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        g, w = got[k].numpy(), w.numpy()
+        assert g.shape == w.shape, k
+        np.testing.assert_array_equal(g == 0, w == 0, err_msg=k)
+        if w.size >= 1000:
+            assert abs(g.std() - w.std()) <= 0.1 * w.std(), (
+                k, g.std(), w.std())
+    for i in range(3):
+        w = got[f"detect{i}.weight"]
+        s = np.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
+        assert float(w.abs().max()) <= 2.0 * s, i
 
 
 def test_detector_trains_in_training_mode():
@@ -324,5 +360,6 @@ def test_tool_runs_end_to_end_and_never_writes_the_fixture(tmp_path):
                       "--eval_n", "2", "--unique_batches", "1",
                       "--out", out, "--device", "cpu"])
     assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    assert res["pool_seconds"] > 0 and res["ms_per_step"] > 0
     assert res["ious"].shape == (2,) and os.path.exists(out)
     load_detector_weights(out)
