@@ -93,7 +93,11 @@ random weights:
 - ``--device_cache --grad_accum 2`` on {data: 2} through the CLI (each
   rank's rows of every microbatch exchanged between the ranks' caches by
   one all_to_all a batch), and the first exchanged batch against the
-  ranks' blocks, bit for bit.
+  ranks' blocks, bit for bit;
+- ``tools/hagrid_fit`` at 16,384 rows: the sharded device cache built
+  shard by shard at canvas 192 (its invariants, every gathered row and
+  the written boundary rows held to what was written), then the whole
+  split's ballast beside the B = 1024 remat step in two microbatches.
 
 Each path starts with the launch counts at 0 and checks that it launched
 its kernels, as many times as the code gives, and that its outputs are
@@ -299,6 +303,14 @@ DISPLAY_BATCH = 32
 H2H_RECIPE = ["--seed", "42", "--epochs", "2", "--lr", "1e-3",
               "--lr_step", "30", "40", "--batch_size", "32", "--train_n",
               "32", "--val_n", "16", "--test_n", "16"]
+# path 22: tools/hagrid_fit at HAGRID_N rows, its virtual mode in 8 shards
+# at B = 256, its chip mode at its own B = 1024 in 2 microbatches (whose
+# attention and warp shapes the kernel phases check), 3 timed steps
+HAGRID_N, HAGRID_MICRO = 16384, 512
+HAGRID_VIRTUAL = ["--mode", "virtual", "--n", str(HAGRID_N), "--devices",
+                  "8", "--batch", "256"]
+HAGRID_CHIP = ["--mode", "chip", "--n", str(HAGRID_N), "--devices", "1",
+               "--iters", "3"]
 
 
 def emit(obj) -> None:
@@ -433,7 +445,7 @@ def kernel_phase(torch):
     # CPU forward; (1, bf16 and f32): the exported programs at batch 1;
     # (128, bf16): serve_bench's largest batch and path 18's rank batch;
     # (32, bf16): path 19's microbatch and path 20's recipe batch; (8,
-    # f32): the mesh parity steps
+    # f32): the mesh parity steps; (512, bf16): path 22's microbatch
     for b, n, dtype in [(64, 145, "bfloat16"), (64, 145, "float32"),
                         (256, 145, "bfloat16"), (DET_BATCH, 145, "bfloat16"),
                         (4, 145, "float32"), (1, 37, "bfloat16"),
@@ -443,7 +455,8 @@ def kernel_phase(torch):
                         (TRAIN_BATCH, 145, "float32"),
                         (SB_MAX_BATCH, 145, "bfloat16"),
                         (MESH_BATCH // 4, 145, "bfloat16"),
-                        (PARITY_BATCH, 145, "float32")]:
+                        (PARITY_BATCH, 145, "float32"),
+                        (HAGRID_MICRO, 145, "bfloat16")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
                           generator=gen).to(getattr(torch, dtype))
@@ -593,13 +606,15 @@ def bwd_kernel_phase(torch):
 
     checks, main = [], None
     # (128 and 32, bf16): the rank batches of paths 18 and 19 (32: also
-    # path 20's recipe batch); (8, f32): the mesh parity steps
+    # path 20's recipe batch); (8, f32): the mesh parity steps; (512,
+    # bf16): path 22's microbatch
     for b, n, dtype in [(TRAIN_BATCH, 145, "bfloat16"), (64, 145, "bfloat16"),
                         (64, 145, "float32"), (1, 37, "bfloat16"),
                         (1, 37, "float32"), (TRAIN_BATCH, 145, "float32"),
                         (MESH_BATCH, 145, "bfloat16"),
                         (MESH_BATCH // 4, 145, "bfloat16"),
-                        (PARITY_BATCH, 145, "float32")]:
+                        (PARITY_BATCH, 145, "float32"),
+                        (HAGRID_MICRO, 145, "bfloat16")]:
         gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n + 1)
         dt = getattr(torch, dtype)
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
@@ -1230,16 +1245,16 @@ def _inverse_reading(torch, m) -> dict:
     return {"images": m.shape[0], "differ": int(differ.any(dim=1).sum())}
 
 
-def _step_warp_inputs(torch, b: int, px: int, seed: int):
+def _step_warp_inputs(torch, b: int, px: int, seed: int, canvas=None):
     """The warp's inputs in a train step at crop side ``px``: a staged
-    batch (canvas px + 64, ``_staged_batch``) and a draw of the step's
+    batch (canvas px + 64 unless given, ``_staged_batch``) and a draw of the step's
     augments on a card generator, through the pipeline's own
     ``crop_affines``. Returns canvas, affines, gains, do_jitter and the
     batch's orig_to_canvas."""
     from hgr_tpu_torch.config import AugmentConfig
     from hgr_tpu_torch.data.pipeline import crop_affines, draw_augment_params
 
-    batch = _staged_batch(b, seed, canvas=px + 64)
+    batch = _staged_batch(b, seed, canvas=canvas or px + 64)
     t = {k: torch.from_numpy(batch[k]).cuda()
          for k in ("canvas", "orig_to_canvas", "sizes_hw")}
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1256,8 +1271,8 @@ def warp_kernel_phase(torch):
     train steps' own inputs (a staged batch and an augment draw) at every
     canvas a path of this script warps: 256 -> 192 (B=256; B=128 and 64,
     the mesh paths' rank batches; B=32, display_data's, path 19's
-    microbatch and path 20's recipe batch), 512 -> 448 (B=64) and
-    384 -> 320 (B=16). Per case
+    microbatch and path 20's recipe batch), 512 -> 448 (B=64),
+    384 -> 320 (B=16) and 192 -> 192 (B=512, path 22's microbatch). Per case
     ``same_bits`` against the plain version on the card and
     ``same_bits_cpu`` against the plain version on the CPU (which equals the JAX package's crop bit for bit,
     tests/test_torch_augment.py); wrapper and plain times with the spread
@@ -1290,6 +1305,10 @@ def warp_kernel_phase(torch):
         cases.append(({"rot": "step draw"}, canvas, m, gains, do_j, px))
         inverses[f"step_{px}_b{b}_orig_to_canvas"] = _inverse_reading(
             torch, o2c)
+    # path 22's microbatch: 192 -> 192, the cache geometry of hagrid_fit
+    canvas, m, gains, do_j, _ = _step_warp_inputs(
+        torch, HAGRID_MICRO, IMAGE, seed=7, canvas=IMAGE)
+    cases.append(({"rot": "step draw"}, canvas, m, gains, do_j, IMAGE))
     batch, params = _grid_third_case(torch, 8)
     _, m = crop_affines(
         torch.from_numpy(batch["orig_to_canvas"]).cuda(),
@@ -4168,6 +4187,43 @@ def h2h_phase(torch, work: str) -> dict:
     return counts
 
 
+def hagrid_fit_phase(torch) -> dict:
+    """``tools/hagrid_fit`` at HAGRID_N rows, canvas 192: the virtual mode
+    (HAGRID_VIRTUAL; the tool asserts its invariants: equal shard bytes,
+    each at most 1.01 x nominal, blocks of B / 8 rows making up the global
+    batch, every gathered row and every written boundary row as written),
+    then the chip mode (HAGRID_CHIP): the whole split's ballast beside the
+    B = 1024 remat step in two microbatches, whose first rung must fit
+    with a finite loss. The virtual mode launches no kernel; each
+    microbatch of the chip mode's 1 + iters steps launches 4 attention
+    forwards, 8 backwards and one warp, nothing else (fused BN off).
+    Returns the counts."""
+    from hgr_tpu_torch.tools import hagrid_fit
+
+    t0 = time.perf_counter()
+    with _tool_quiet():
+        virtual = hagrid_fit.main(HAGRID_VIRTUAL)
+        chip = hagrid_fit.main(HAGRID_CHIP)
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    check(virtual["row_bytes"] == 110880 and virtual["batches_iterated"] == 3
+          and virtual["batch_canvas_shape"] == [256, IMAGE, IMAGE, 3]
+          and virtual["boundary_rows_checked"] > 0,
+          f"hagrid_fit virtual: {virtual}")
+    rung = chip["ladder"][0]
+    check(len(chip["ladder"]) == 1 and rung["fits"]
+          and np.isfinite(rung["loss"]), f"hagrid_fit chip: {chip}")
+    micro = rung["steps"] * rung["grad_accum"]
+    check(counts["attention_qkv_fwd"] == 4 * micro
+          and counts["attention_qkv_bwd"] == 8 * micro
+          and counts["warp_twopass"] == micro
+          and sum(counts.values()) == 13 * micro,
+          f"hagrid_fit launches {counts} for {micro} microbatches")
+    emit({"hagrid_fit": {"seconds": seconds, "virtual": virtual,
+                         "chip": chip, "launches": counts}})
+    return counts
+
+
 def _fallback_ops(torch, fn) -> list:
     """The operators the legacy vmap runs as a loop over the rows while
     ``fn`` runs (torch's fallback warnings, switched on around it)."""
@@ -4662,6 +4718,13 @@ def main() -> int:
           f"checkpoint serving launches {checkpointed} != 4 x {forwards} "
           "forwards")
 
+    # main path 22, tools/hagrid_fit: the sharded device cache at canvas
+    # 192 shard by shard, then its ballast beside the remat step
+    _zero_counts()
+    fitted = hagrid_fit_phase(torch)
+    for name in ("attention_qkv_fwd", "attention_qkv_bwd", "warp_twopass"):
+        check(fitted[name] > 0, f"hagrid_fit's chip mode launched {name}")
+
     by_path = {"serve": served, "train": trained, "loop": looped,
                "mesh": meshed, "long": longer, "detect": detected,
                "quant": quanted, "export": exported,
@@ -4671,7 +4734,7 @@ def main() -> int:
                "batched_demix": batched, "debug_images": debugged,
                "display_data": displayed, "uneven_tp": uneven,
                "cache_accum": accumed, "h2h": h2h,
-               "serve_checkpoint": checkpointed}
+               "serve_checkpoint": checkpointed, "hagrid_fit": fitted}
     emit({"launches_by_path": {name: {p: c[name] for p, c in by_path.items()}
                                for name in KERNELS}})
     emit({"kernels": [{
