@@ -159,11 +159,25 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TF32_PEAK_FLOPS, TF32_TERMS = 495e12, 3
 # the route sweep: both routes of each attention kernel, timed in turns,
 # their bits compared: bf16 at (64, n, 768) for each n here, and f32 at
-# the --dtype mixed step's (256, 145, 768)
-ROUTE_SWEEP = [(kernel, 64, n, "bfloat16") for kernel, lengths in (
-    ("fwd", (145, 193, 257, 401, 481, 577, 689, 785, 961)),
-    ("bwd", (145, 161, 193, 257, 401, 481, 577, 688))) for n in lengths] + [
-    (kernel, TRAIN_BATCH, 145, "float32") for kernel in ("fwd", "bwd")]
+# the --dtype mixed step's (256, 145, 768); the model's 8 heads of 32, and
+# for the forward also 16 heads of 16 and 4 of 64 (the ring body's other
+# widths): (kernel, batch, n, dtype, heads, head_dim)
+ROUTE_FWD_LENGTHS = (145, 193, 257, 401, 481, 577, 689, 785, 961)
+ROUTE_SWEEP = [(kernel, 64, n, "bfloat16", HEADS, HEAD_DIM)
+               for kernel, lengths in (
+                   ("fwd", ROUTE_FWD_LENGTHS),
+                   ("bwd", (145, 161, 193, 257, 401, 481, 577, 688)))
+               for n in lengths] + [
+    (kernel, TRAIN_BATCH, 145, "float32", HEADS, HEAD_DIM)
+    for kernel in ("fwd", "bwd")] + [
+    ("fwd", 64, n, "bfloat16", h, d) for h, d in ((16, 16), (4, 64))
+    for n in ROUTE_FWD_LENGTHS]
+# the padded head widths whose bf16 key-chunked forward is the ring body
+# (csrc/attention_qkv_fwd.cu, ring_body)
+RING_WIDTHS = (16, 32, 64)
+# the SFU's exp rate an SM a clock (MUFU.EX2, 4 a sub-partition): the
+# bf16 forward's exps set a floor of their own (sfu_floor_ms)
+SFU_PER_SM_CLOCK = 16
 # Kernel vs its plain version on the card: the JAX kernel tests' own
 # tolerances (tests/test_attention_pallas.py); bf16 output is one rounding
 # of an f32 sum whose order differs, so one bf16 ulp at |out| < 2.
@@ -364,9 +378,19 @@ def build_phase():
         "route": getattr(built[name].lib, f"{name}_route")(n, code, d),
         "bytes": getattr(built[name].lib, f"{name}_smem_bytes")(n, code, d)}
         for dtype, code in (("float32", 0), ("bfloat16", 1))
-        for n in (145, 785) for d in (HEAD_DIM, 256, 512)}
+        for n in (145, 785) for d in (16, HEAD_DIM, 64, 256, 512)}
         for name in ("attention_qkv_fwd", "attention_qkv_bwd")}
     mma = _tensor_core_entries(built)
+    # the forward's ring body at each padded head width it serves: its
+    # registers, fitted per width by ptxas, and no spill
+    ring = {dp: [line for line in _ptxas_lines(
+        built["attention_qkv_fwd"].ptxas_log)
+        if f"attention_fwd_mma_ring_kernelILi{dp}E" in line.split(":")[0]]
+        for dp in RING_WIDTHS}
+    check(all(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
+              "loads" in lines[0] for lines in ring.values()),
+          f"the forward's ring bodies: missing or spilling {ring}")
+    emit({"ring_ptxas": {str(dp): lines[0] for dp, lines in ring.items()}})
     for name in SOURCES:
         b = built[name]
         emit({"build": {
@@ -507,6 +531,22 @@ def _bound(nbytes: float, flops: float, dtype: str):
         row.update(tc_bound_ms=max(t_bytes, t_tc),
                    tc_bound_by="bytes" if t_bytes >= t_tc else "operations")
     return row
+
+
+def _sfu_floor_ms(torch, b: int, h: int, n: int, route: int) -> float:
+    """The least time of the bf16 forward's exps on this card: one exp2 a
+    score on the whole-sequence route (one register chunk of keys holds
+    the sequence), two on the key-chunked route (the max and sum sweep,
+    then the P sweep, each exponentiating every score: P is rounded after
+    it is normalised), at SFU_PER_SM_CLOCK an SM a clock at the card's
+    highest SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exps = (1 if route == 0 else 2) * b * h * n * n
+    return exps / (sms * SFU_PER_SM_CLOCK * mhz * 1e6) * 1e3
 
 
 def _alternate(torch, fns, iters: int = 50) -> dict:
@@ -828,6 +868,7 @@ def c2_kernel_phase(torch) -> list:
         es = qkv.element_size()
         fwd = {**base, "kernel": "attention_qkv_fwd",
                "route": A.kernel_route("fwd", n, d, dt),
+               "body": A.forward_body(n, d, dt),
                "max_abs_err": fwd_err, "tol": KERNEL_TOL[dtype],
                **_alternate(torch, {
                    "plain": lambda: A.attention_qkv_reference(qkv, h, d,
@@ -847,6 +888,9 @@ def c2_kernel_phase(torch) -> list:
                    **_sdpa(torch, qh, kh, vh, g_h, scale=scale)}, iters=10),
                **_bound((2 * qkv.numel() + g.numel()) * es,
                         10 * b * h * n * n * d, dtype)}
+        if dtype == "bfloat16" and fwd["route"] != 2:
+            fwd["sfu_floor_ms"] = _sfu_floor_ms(torch, b, h, n,
+                                                fwd["route"])
         for row in (fwd, bwd):
             row["ms"] = row.pop("kernel_ms")
             _pick_library(row)
@@ -978,38 +1022,41 @@ def _wide_ptxas() -> list:
 
 
 def route_phase(torch) -> list:
-    """The route sweep: for each (kernel, batch, n, dtype) of ROUTE_SWEEP,
-    the kernel on the whole-sequence route (where one block holds the
-    head) and on the key-chunked route (``launch_on_route``), timed in
-    turns, with the route the rule takes (``kernel_route``). The two
-    routes must give the same bits, and the entry point those of its
+    """The route sweep: for each (kernel, batch, n, dtype, heads,
+    head_dim) of ROUTE_SWEEP, the kernel on the whole-sequence route
+    (where one block holds the head) and on the key-chunked route
+    (``launch_on_route``), timed in turns, with the route the rule takes
+    (``kernel_route``) and, for the forward, the body it runs there. The
+    two routes must give the same bits, and the entry point those of its
     route."""
     from hgr_tpu_torch.ops import attention as A
 
     rows = []
-    for kernel, b, n, dtype in ROUTE_SWEEP:
+    for kernel, b, n, dtype, h, d in ROUTE_SWEEP:
         dt = getattr(torch, dtype)
+        scale = d**-0.5
         gen = torch.Generator(device="cuda").manual_seed(n * 3 + 1)
-        qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device="cuda",
+        qkv = torch.randn(b, n, 3 * h * d, device="cuda",
                           generator=gen).to(dt)
-        g = torch.randn(b, n, HEADS * HEAD_DIM, device="cuda",
-                        generator=gen).to(dt)
+        g = torch.randn(b, n, h * d, device="cuda", generator=gen).to(dt)
         cot = g if kernel == "bwd" else None
         outs, fns = {}, {}
         for r in (0, 1):
             try:
-                outs[r] = A.launch_on_route(kernel, r, qkv, HEADS, HEAD_DIM,
-                                            SCALE, cot)
+                outs[r] = A.launch_on_route(kernel, r, qkv, h, d, scale, cot)
             except ValueError:  # no whole-sequence route at this n
                 continue
             fns[f"route{r}"] = (lambda r=r: A.launch_on_route(
-                kernel, r, qkv, HEADS, HEAD_DIM, SCALE, cot))
-        rule = A.kernel_route(kernel, n, HEAD_DIM, dt)
-        entry = (A.fused_attention_qkv(qkv, HEADS, HEAD_DIM, SCALE)
+                kernel, r, qkv, h, d, scale, cot))
+        rule = A.kernel_route(kernel, n, d, dt)
+        entry = (A.fused_attention_qkv(qkv, h, d, scale)
                  if kernel == "fwd" else
-                 A.fused_attention_qkv_bwd(qkv, g, HEADS, HEAD_DIM, SCALE))
+                 A.fused_attention_qkv_bwd(qkv, g, h, d, scale))
         row = {"kernel": f"attention_qkv_{kernel}", "dtype": dtype,
-               "shape": [b, n, 3 * HEADS * HEAD_DIM], "rule_route": rule,
+               "shape": [b, n, 3 * h * d], "heads": h, "head_dim": d,
+               "rule_route": rule,
+               **({"body": A.forward_body(n, d, dt)} if kernel == "fwd"
+                  else {}),
                "entry_is_its_route": bool(torch.equal(entry, outs[rule])),
                "same_bits": (bool(torch.equal(outs[0], outs[1]))
                              if 0 in outs else None)}

@@ -146,8 +146,8 @@ __device__ __forceinline__ void stage_rows_by(const bf16* __restrict__ src,
   }
 }
 
-// ---- The staged ring of the bf16 key-chunked bodies (the forward's at
-// Dp = 32, the backward's at Dp <= 64).
+// ---- The staged ring of the bf16 key-chunked bodies (the forward's and
+// the backward's at Dp <= 64).
 // Chunks of the other side pass through kStages buffers in shared memory.
 // One producer warp stages chunk i into buffer i % kStages by cp.async and
 // arrives on that buffer's ``full`` barrier twice a lane: once when its

@@ -61,11 +61,16 @@
 // holds the sequence, where it computes S once and the chunked route
 // twice, and an SM holds two of its blocks. Past one chunk the whole body
 // sweeps twice as well, with one block a head where the chunked route has
-// one per 112 queries (64 at widths other than 32): timed at (64, n, 768)
+// one per 112 queries (64 at Dp = 128 and 256): timed at (64, n, 768)
 // bf16 on an H100 (chip_smoke's route sweep), the whole body took 0.025
 // ms against the ring body's 0.042 at n = 145 and 0.068 against 0.075 at
 // 193, the ring body 0.100 against 0.144 at n = 257 and 0.539 against
-// 1.616 at 785 (PERF.md section 6).
+// 1.616 at 785 (PERF.md section 6). The same sweep at Dp = 16 (16 heads)
+// and 64 (4 heads) puts the crossover at the same place, one register
+// chunk: at Dp = 16 the whole body took 0.040 ms against the ring body's
+// 0.052 at n = 145 (one 160-key chunk) and 0.124 against 0.106 at 193; at
+// Dp = 64 the ring body 0.036 against 0.037 at n = 145 (two 96-key
+// chunks) and 0.048 against 0.060 at 193.
 //
 // bf16 (every train and serve path): Hopper's tensor cores through
 // mma.sync.aligned.m16n8k16 bf16 -> f32 (attention_mma.cuh). The
@@ -91,38 +96,45 @@
 // Dp = 32). A per-element division and expf cost more than the products
 // here, hence the reciprocal and the SFU exp.
 //
-// The key-chunked route at Dp = 32 (the model's width, the 448 px path)
-// is the ring body.
+// The key-chunked route at Dp = 16, 32 (the model's width, the 448 px
+// path) and 64 is the ring body, with constants of its own at each width.
 // Bound at (B=64, N=785, H=8, D=32, bf16): 102.9 MB moved (qkv read once,
 // 77.17 MB; out written once, 25.72 MB), 0.0307 ms at 3.35 TB/s, against
 // 4 N^2 D H B = 4.04e10 FLOP, 0.0408 ms at 989 TFLOP/s: bound by its
 // operations. The function as the Pallas kernel defines it sets a higher
 // floor: P is rounded after it is normalised, so both sweeps compute every
 // score and exponentiate it, 6.3e8 exps at N = 785, ~0.15 ms at the SFU's
-// 16 a clock an SM. What the body does about the rest:
+// 16 a clock an SM. At 16 heads of 16 and 4 of 64 the bound is the same
+// (H D = 256) and the exps scale with the heads: ~0.30 ms at Dp = 16,
+// where the SFU binds, and ~0.076 at Dp = 64, where the four product
+// passes (S three times, P V once) and their ldmatrix reads take most of
+// the time. What the body does about the rest:
 //   - one block per 16 W queries (W consumer warps, a 16-row tile each):
 //     each staged chunk of K and V serves W tiles (7 at N = 785, against 4
 //     before), which cuts the L2 stream of K twice and V once per block
 //     (8 blocks a head at N = 785 against 13: ~0.62 GB a call);
-//   - one producer warp stages the chunks by cp.async into kRingStages
+//   - one producer warp stages the chunks by cp.async into ring_stages(Dp)
 //     buffers, each with a full and an empty mbarrier (attention_mma.cuh,
 //     Ring): no block barrier in the loop, a warp waits only for the chunk
 //     it reads;
-//   - the fold's 160-key register chunk is taken kRingPiece tiles at a
-//     time, its max over every piece and then the exps and their sum with
-//     the scores computed again: 90 registers a thread instead of the
-//     whole chunk's ~168, so an SM holds two blocks of eight warps;
+//   - the fold's register chunk is taken ring_piece tiles at a time, its
+//     max over every piece and then the exps and their sum with the
+//     scores computed again: at Dp = 32, 90 registers a thread instead of
+//     the whole chunk's ~168, so an SM holds two blocks of eight warps; at
+//     Dp = 16, 64 registers and four blocks; at Dp = 64, 125 registers
+//     and two blocks (the earlier kernel's 187 held two blocks of four);
 //   - lane_exps takes the bare MUFU.EX2 where exp2f's subnormal fix-up
 //     does nothing. The pieces are what let it pay: in the earlier
 //     kernel, whose fold holds the whole chunk, it took ptxas from 162
 //     registers to 168 and 40 bytes of spill, and the forward from 0.56
 //     to 0.61 ms at (64, 785, 768) (PERF.md section 6).
 // Each warp takes the key-chunked kernel's steps in the same order, the
-// sums in the same order: the same bits. The other widths keep the
-// earlier key-chunked kernel (64 queries a block, two cp.async buffers,
-// two block barriers a chunk): the ring body was timed at Dp = 32 only.
-// tools/tune_attention.py times the bodies at other chunk, block, piece
-// and ring sizes.
+// sums in the same order: the same bits. At (64, 785, 768) the ring body
+// took 0.69 against the earlier kernel's 0.86 ms at Dp = 16 and 0.48
+// against 0.51 at Dp = 64, in turns (PERF.md section 6). Dp = 128 and 256
+// keep the earlier key-chunked kernel (64 queries a block, two cp.async
+// buffers, two block barriers a chunk). tools/tune_attention.py times the
+// bodies at other chunk, block, piece and ring sizes.
 //
 // f32 (cli.export's f32 eval, --dtype mixed's decoder, the check paths):
 // the same structure, routes and steps on the tensor cores by a three-way
@@ -179,32 +191,65 @@ __host__ __device__ constexpr int chunk_tiles() {
 // batch (B = 64, 512 blocks) runs in one wave; at N = 145 the 10 query
 // tiles go 4, 3, 3 to the warps.
 constexpr int kFwdWarps = 3;
-// Warps (16-row query tiles) per block of the key-chunked route at widths
-// other than Dp = 32.
+// Warps (16-row query tiles) per block of the bf16 key-chunked kernel
+// (widths 128 and 256) and of the f32 one.
 constexpr int kLongWarps = 4;
-// The key-chunked route's ring body (Dp = 32): most consumer warps (16-row
-// query tiles) a block besides its producer warp, buffers of the ring, and
-// the least blocks an SM must hold (ptxas fits the registers to it: blocks
-// of 8 warps, two an SM, leave 128 a thread; 9 would leave 96).
-// tools/tune_attention.py times other values.
-constexpr int kRingWarps = 7;
-constexpr int kRingStages = 4;
-constexpr int kRingBlocks = 2;
-// 8-key C tiles of scores a ring warp holds at a time: a piece of the
-// register chunk (which keeps the fold's 160 keys, chunk_tiles), its
-// scores computed twice in the first sweep (for the max, then the exps);
-// the whole chunk where the piece does not divide it
-constexpr int kRingPiece = 4;
-__host__ __device__ constexpr bool ring_body(int dp) { return dp == 32; }
+// The bf16 key-chunked route's ring body (Dp = 16, 32 and 64), its
+// constants per width, each set fitted by ptxas -v with no spill: most
+// consumer warps (16-row query tiles) a block besides its producer warp,
+// buffers of the ring, the least blocks an SM must hold (ptxas fits the
+// registers to it: blocks of 8 warps leave 128 a thread at two an SM and
+// 64 at four; 9 warps two an SM would leave 96), and the 8-key C tiles of
+// scores a warp holds at a time: a piece of the register chunk (which
+// keeps the fold's 8 chunk_tiles keys), its scores computed twice in the
+// first sweep (for the max, then the exps); the whole chunk where the
+// piece does not divide it. tools/tune_attention.py times other values
+// (PERF.md section 6 has the grids).
+// Dp = 16 (bound by its exps: 2 a score): 160-key chunks of 24-element
+// rows; three buffers (51,504 bytes a block) so that an SM holds four
+// blocks, 28 consumer warps at 64 registers (four buffers and three
+// blocks, 72 registers: 5-7% slower).
+constexpr int kRingWarps16 = 7;
+constexpr int kRingStages16 = 3;
+constexpr int kRingBlocks16 = 4;
+constexpr int kRingPiece16 = 4;
+// Dp = 32 (the model's width): 160-key chunks of 40-element rows.
+constexpr int kRingWarps32 = 7;
+constexpr int kRingStages32 = 4;
+constexpr int kRingBlocks32 = 2;
+constexpr int kRingPiece32 = 4;
+// Dp = 64: 96-key chunks of 72-element rows; three buffers (99,120 bytes
+// a block) so that an SM holds two blocks (four would take 126,784), at
+// 125 registers (8 consumer warps, or 3 blocks of 6, spill).
+constexpr int kRingWarps64 = 7;
+constexpr int kRingStages64 = 3;
+constexpr int kRingBlocks64 = 2;
+constexpr int kRingPiece64 = 4;
+__host__ __device__ constexpr bool ring_body(int dp) {
+  return dp == 16 || dp == 32 || dp == 64;
+}
+__host__ __device__ constexpr int ring_warps(int dp) {
+  return dp == 16 ? kRingWarps16 : dp == 32 ? kRingWarps32 : kRingWarps64;
+}
+__host__ __device__ constexpr int ring_stages(int dp) {
+  return dp == 16 ? kRingStages16 : dp == 32 ? kRingStages32 : kRingStages64;
+}
+__host__ __device__ constexpr int ring_blocks(int dp) {
+  return dp == 16 ? kRingBlocks16 : dp == 32 ? kRingBlocks32 : kRingBlocks64;
+}
 template <int Dp>
 __host__ __device__ constexpr int ring_piece() {
-  return chunk_tiles<Dp>() % kRingPiece == 0 && kRingPiece % 2 == 0
-             ? kRingPiece
+  constexpr int kPiece =
+      Dp == 16 ? kRingPiece16 : Dp == 32 ? kRingPiece32 : kRingPiece64;
+  return chunk_tiles<Dp>() % kPiece == 0 && kPiece % 2 == 0
+             ? kPiece
              : chunk_tiles<Dp>();
 }
 // the ring's barriers (a full and an empty one a buffer) ahead of the
 // staged rows, in whole 16-byte units
-constexpr int kRingHeader = 16 * ((16 * kRingStages + 15) / 16);
+__host__ __device__ constexpr int ring_header(int dp) {
+  return 16 * ((16 * ring_stages(dp) + 15) / 16);
+}
 // Most warps per block of the f32 whole-sequence body (10 query tiles at
 // N = 145 go 3, 3, 2, 2), and the least whole-sequence blocks an SM must
 // hold for that route to run (route()).
@@ -217,6 +262,13 @@ constexpr int kWholeBlocks = 2;
 // than its own rounding. (The backward keeps expf: its dS stays in f32.)
 __device__ __forceinline__ float softmax_exp(float x) {
   return exp2f(x * 1.4426950408889634f);
+}
+
+// 2^x by the SFU's bare MUFU.EX2 (flushes subnormal results to zero)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // exp_scores for the ring body, by lane: where every argument of the lane
@@ -241,7 +293,7 @@ __device__ __forceinline__ void lane_exps(float (&s)[NT][4],
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(s[j][e]) : "f"(s[j][e]));
+        s[j][e] = ex2_ftz(s[j][e]);
       }
     }
   } else {
@@ -488,14 +540,14 @@ attention_fwd_mma_long_kernel(const Operand<tc::bf16> q_op,
   }
 }
 
-// The bf16 key-chunked route at Dp = 32, the ring body: one block per
-// 16 * W queries (W consumer warps, a 16-row tile each, and one producer
-// warp), K and then K and V streamed a register chunk at a time through
-// the kRingStages buffers of attention_mma.cuh's Ring. Each warp takes the
-// key-chunked kernel's steps on its tile in the same order, so it gives
-// the same bits (see the note at the top).
+// The bf16 key-chunked route at Dp = 16, 32 and 64, the ring body: one
+// block per 16 * W queries (W consumer warps, a 16-row tile each, and one
+// producer warp), K and then K and V streamed a register chunk at a time
+// through the ring_stages(Dp) buffers of attention_mma.cuh's Ring. Each
+// warp takes the key-chunked kernel's steps on its tile in the same order,
+// so it gives the same bits (see the note at the top).
 template <int Dp>
-__global__ void __launch_bounds__(32 * (kRingWarps + 1), kRingBlocks)
+__global__ void __launch_bounds__(32 * (ring_warps(Dp) + 1), ring_blocks(Dp))
 attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
                               const Operand<tc::bf16> k_op,
                               const Operand<tc::bf16> v_op,
@@ -506,14 +558,15 @@ attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
   constexpr int kChunk = 8 * NT;
   constexpr int kBuf = 2 * kChunk * kPad;  // K then V of one chunk
   constexpr int PT = ring_piece<Dp>();
+  constexpr int kStages = ring_stages(Dp);
   extern __shared__ uint4 smem_tc[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
-  tc::Ring ring{bars, bars + kRingStages};
+  tc::Ring ring{bars, bars + kStages};
   const int warps = (blockDim.x >> 5) - 1;  // the last warp stages
   const int rows = 16 * warps;
   tc::bf16* qs = reinterpret_cast<tc::bf16*>(
-      reinterpret_cast<char*>(smem_tc) + kRingHeader);  // rows rows
-  tc::bf16* kv = qs + rows * kPad;  // kRingStages buffers of kBuf
+      reinterpret_cast<char*>(smem_tc) + ring_header(Dp));  // rows rows
+  tc::bf16* kv = qs + rows * kPad;  // kStages buffers of kBuf
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -522,7 +575,7 @@ attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
   const int q0 = blockIdx.x * rows;
   const int npad = tc::pad16(n);
   const int tiles = min(warps, (npad - q0) / 16);  // warps with a tile
-  tc::ring_init(ring, kRingStages, tiles);
+  tc::ring_init(ring, kStages, tiles);
   tc::stage_rows<Dp>(q_op.head(b, h, d) + q0 * q_op.row, q_op.row, qs,
                      min(rows, n - q0), rows, d);
   tc::cp_async_wait_all();
@@ -536,7 +589,7 @@ attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
       const bool with_v = i >= chunks;
       const int k0 = (with_v ? i - chunks : i) * kChunk;
       const int cnt = min(kChunk, n - k0);
-      tc::ring_produce(ring, kRingStages, [&](int st) {
+      tc::ring_produce(ring, kStages, [&](int st) {
         tc::bf16* kb = kv + st * kBuf;
         tc::stage_rows_by<Dp>(kh + k0 * k_op.row, k_op.row, kb, cnt, kChunk,
                               d, lane, 32u);
@@ -604,7 +657,7 @@ attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
           m[r] = mc[r];
         }
       }
-      tc::ring_release(ring, kRingStages, lane);
+      tc::ring_release(ring, kStages, lane);
     }
     // P normalised by the rounded reciprocal of the sum
     inv[0] = 1.f / l[0];
@@ -797,9 +850,10 @@ size_t smem_whole(int n, int dtype, int dp) {
 
 size_t smem_long(int dtype, int dp) {
   if (dtype == 1 && ring_body(dp)) {
-    return kRingHeader +
+    return ring_header(dp) +
            sizeof(tc::bf16) * tc::row_pad(dp) *
-               (16 * kRingWarps + kRingStages * 2 * 8 * chunk_tiles_for(dp));
+               (16 * ring_warps(dp) +
+                ring_stages(dp) * 2 * 8 * chunk_tiles_for(dp));
   }
   const int rows = 16 * kLongWarps + 4 * 8 * chunk_tiles_for(dp);
   return dtype == 1 ? sizeof(tc::bf16) * rows * tc::row_pad(dp)
@@ -885,7 +939,7 @@ cudaError_t launch_mma(const Operands3<tc::bf16>& ops, void* out, int batch,
         smem);
     if (err != cudaSuccess) return err;
     const int tiles = tc::pad16(n) / 16;
-    const int warps = tiles < kRingWarps ? tiles : kRingWarps;
+    const int warps = tiles < ring_warps(Dp) ? tiles : ring_warps(Dp);
     attention_fwd_mma_ring_kernel<Dp><<<
         dim3((tiles + warps - 1) / warps, heads, batch), 32 * (warps + 1),
         smem, stream>>>(ops.q, ops.k, ops.v, o, n, heads, d, scale);
@@ -1016,6 +1070,20 @@ int attention_qkv_fwd_smem_bytes(int n, int dtype, int head_dim) {
     return attn_wide::fwd_smem_bytes(dtype);
   }
   return static_cast<int>(smem_bytes(n, dtype, tc::padded_width(head_dim)));
+}
+
+// The kernel that runs at that (n, dtype, head_dim), by its name in this
+// source (tools and tests read which body a shape takes).
+const char* attention_qkv_fwd_body(int n, int dtype, int head_dim) {
+  if (head_dim >= attn_wide::kNarrowest) return "wide_fwd_kernel";
+  const int dp = tc::padded_width(head_dim);
+  if (route(n, dtype, dp) == 0) {
+    return dtype == 1 ? "attention_fwd_mma_kernel"
+                      : "attention_fwd_tf32_kernel";
+  }
+  if (dtype != 1) return "attention_fwd_tf32_long_kernel";
+  return ring_body(dp) ? "attention_fwd_mma_ring_kernel"
+                       : "attention_fwd_mma_long_kernel";
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the

@@ -208,6 +208,8 @@ def _kernel() -> ctypes.CDLL:
     lib.attention_qkv_fwd_on_route.argtypes = [p, p, i, i, i, i,
                                                ctypes.c_float, i, i, p]
     lib.attention_qkv_fwd_on_route.restype = i
+    lib.attention_qkv_fwd_body.argtypes = [i] * 3
+    lib.attention_qkv_fwd_body.restype = ctypes.c_char_p
     return lib
 
 
@@ -263,6 +265,17 @@ def kernel_route(kernel: str, n: int, head_dim: int,
     lib = _kernel() if kernel == "fwd" else _bwd_kernel()
     return getattr(lib, f"attention_qkv_{kernel}_route")(
         n, _DTYPE_CODES[dtype], head_dim)
+
+
+def forward_body(n: int, head_dim: int, dtype: torch.dtype) -> str:
+    """The name of the forward kernel that runs on the card at sequence
+    length ``n`` and ``head_dim`` in ``dtype`` (in
+    ``csrc/attention_qkv_fwd.cu``; ``wide_fwd_kernel`` is route 2's): which
+    body a shape takes, for chip_smoke's rows and the card tests. Builds
+    the kernel library (needs nvcc)."""
+    _check_head_dim(head_dim)
+    return _kernel().attention_qkv_fwd_body(n, _DTYPE_CODES[dtype],
+                                            head_dim).decode()
 
 
 def _bwd_scratch(lib, b: int, n: int, heads: int, head_dim: int,

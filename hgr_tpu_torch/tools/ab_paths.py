@@ -136,9 +136,11 @@ os.chdir(tree)
 import torch
 from hgr_tpu_torch.ops import attention as A
 out, calls = {}, {}
-# (and at head widths 16 and 64, 768 features: the bodies at Dp = 16, 64)
+# (and at head widths 16 and 64, 768 features: the bodies at Dp = 16, 64,
+# the key-chunked ones at (64, 785) and (16, 785) also on split operands)
 for b, n, dh in ((64, 145, 32), (256, 145, 32), (64, 785, 32),
-                 (64, 145, 16), (64, 785, 16), (64, 145, 64), (64, 785, 64)):
+                 (64, 145, 16), (64, 785, 16), (64, 145, 64), (64, 785, 64),
+                 (16, 785, 16), (16, 785, 64)):
     gen = torch.Generator(device="cuda").manual_seed(
         b * 1000 + n + (dh if dh != 32 else 0))
     qkv = torch.randn(b, n, 768, device="cuda", generator=gen).to(
@@ -151,6 +153,10 @@ for b, n, dh in ((64, 145, 32), (256, 145, 32), (64, 785, 32),
     calls[f"bwd_{key}"] = (lambda qkv=qkv, g=g, dh=dh:
                            A.fused_attention_qkv_bwd(qkv, g, 256 // dh, dh,
                                                      dh ** -0.5))
+    if n == 785 and dh != 32:
+        calls[f"split_fwd_{key}"] = (
+            lambda qkv=qkv, dh=dh: A.fused_attention_split(
+                *qkv.chunk(3, dim=-1), 256 // dh, dh, dh ** -0.5))
 # the f32 bodies at the serving and training shapes, and their distance
 # from the float64 plain version of the same inputs
 f64 = {}
@@ -299,10 +305,15 @@ def bits(trees, out_dir: str) -> dict:
                "dist_f64": [runs[0]["dist_f64"][k],
                             runs[1]["dist_f64"][k]]}
            for k in runs[0]["dist_f64"]}
+    # within each checkout: the split forward's bits against the packed's
+    split = {tree: {k: bool(torch.equal(run["out"][k],
+                                        run["out"][k[len("split_"):]]))
+                    for k in run["out"] if k.startswith("split_")}
+             for tree, run in zip(order, runs)}
     return {"same_bits": {k: bool(torch.equal(first[k].float(),
                                               second[k].float()))
                           for k in first}, "f32": f32, "kernel_ms": ms,
-            "bn_pair_ms_per_step": per_step}
+            "split_equals_packed": split, "bn_pair_ms_per_step": per_step}
 
 
 # builds one checkout's attention sources (argv[1] = checkout)

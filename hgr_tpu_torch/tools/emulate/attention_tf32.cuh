@@ -2,7 +2,7 @@
 // product with the low 13 bits of each operand ignored, as the tensor
 // cores do, summed in double.
 #pragma once
-#include "attention_mma.cuh"
+#include "mma_primitives.h"
 
 namespace attn_tf32 {
 inline float tf32(uint32_t w) { return __uint_as_float(w & 0xffffe000u); }

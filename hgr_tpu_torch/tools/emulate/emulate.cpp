@@ -1,14 +1,19 @@
-// Runs csrc/attention_wide.cuh's kernels on the host: one fiber (ucontext)
-// per CUDA thread, scheduled in turns; __syncthreads, __syncwarp and the
-// warp collectives (ldmatrix, mma, shuffles) as barriers over the block or
-// the warp, a collective's operands exchanged through per-warp slots. A
-// block's shared memory starts as NaN, so a read of anything not staged
-// shows. Built and driven by hgr_tpu_torch/tools/emulate_wide.py:
-//   emulate <f32|bf16> B N H D scale <packed|split> <dir>
+// Runs attention kernels on the host: csrc/attention_wide.cuh's, and the
+// bf16 key-chunked forward bodies of csrc/attention_qkv_fwd.cu (the ring
+// body and the two-buffer kernel). One fiber (ucontext) per CUDA thread,
+// scheduled in turns; __syncthreads, __syncwarp and the warp collectives
+// (ldmatrix, mma, shuffles) as barriers over the block or the warp, a
+// collective's operands exchanged through per-warp slots; an mbarrier wait
+// yields until its phase completes (mma_primitives.h). A block's shared
+// memory starts as NaN, so a read of anything not staged shows. Built and
+// driven by hgr_tpu_torch/tools/emulate_wide.py:
+//   emulate <f32|bf16|ring|chunked> B N H D scale <packed|split> <dir>
 // reads dir/qkv.bin (B, N, 3 H D) and dir/g.bin (B, N, H D) as float32,
-// runs the forward and both backward kernels on the packed operands or on
-// three contiguous copies, and writes dir/out_<layout>.bin and
-// dir/dqkv_<layout>.bin as float32.
+// runs the kernels on the packed operands or on three contiguous copies,
+// and writes dir/out_<layout>.bin (and, for the wide bodies, f32 or bf16,
+// whose backward kernels run too, dir/dqkv_<layout>.bin) as float32;
+// ring and chunked run the bf16 forward's ring body or its two-buffer
+// kernel at padded head width 16, 32 or 64.
 #include <ucontext.h>
 
 #include <cstdio>
@@ -33,10 +38,10 @@ struct Fiber {
 std::vector<Fiber> fibers;
 ucontext_t scheduler;
 int current = -1;
-long progress = 0;  // barriers passed and fibers finished
+long progress = 0;  // barriers passed, mbarrier arrivals, fibers finished
 std::function<void()> body;
 
-void yield() { swapcontext(&fibers[current].ctx, &scheduler); }
+void yield_fiber() { swapcontext(&fibers[current].ctx, &scheduler); }
 
 void entry() {
   body();
@@ -61,7 +66,7 @@ void warp_barrier() {
     ++w.gen;
     ++progress;
   } else {
-    while (w.gen == gen) yield();
+    while (w.gen == gen) yield_fiber();
   }
 }
 }  // namespace
@@ -75,7 +80,7 @@ void __syncthreads() {
     ++block_gen;
     ++progress;
   } else {
-    while (block_gen == gen) yield();
+    while (block_gen == gen) yield_fiber();
   }
 }
 
@@ -89,6 +94,8 @@ void post(const uint32_t* v, int n) {
 const uint32_t* slot(int l) { return warps[current / 32].slots[l]; }
 void done() { warp_barrier(); }
 int lane() { return current % 32; }
+void yield() { yield_fiber(); }
+void progressed() { ++progress; }
 }  // namespace emu
 
 float __shfl_xor_sync(unsigned, float v, int mask) {
@@ -99,13 +106,16 @@ float __shfl_xor_sync(unsigned, float v, int mask) {
   return r;
 }
 
-// the bulk copies complete at once; their barriers are no-ops
+// the bulk copies complete at once: the expecting arrival completes the
+// barrier's phase by itself
 namespace attn_wide {
 inline void bulk_copy(void* dst, const void* src, unsigned bytes,
                       uint64_t*) {
   memcpy(dst, src, bytes);
 }
-inline void expect_bytes(uint64_t*, unsigned) {}
+inline void expect_bytes(uint64_t* bar, unsigned) {
+  attn_mma::mbar_arrive(bar);
+}
 }  // namespace attn_wide
 
 #include "attention_wide_dev.cuh"
@@ -114,9 +124,20 @@ namespace attn_wide {
 alignas(16) uint4 wide_smem[232448 / 16];
 }
 
+// the forward's dynamic shared memory (extern __shared__ smem_tc in its
+// kernels), and its bare SFU exp
 namespace {
-void run_block(int threads, const std::function<void()>& fn) {
-  for (auto& u : attn_wide::wide_smem) {
+alignas(16) uint4 smem_tc[232448 / 16];
+inline float ex2_ftz(float x) { return exp2f(x); }
+}  // namespace
+
+#include "attention_qkv_fwd_dev.cuh"
+
+namespace {
+template <size_t kN>
+void run_block(int threads, uint4 (&smem)[kN],
+               const std::function<void()>& fn) {
+  for (auto& u : smem) {
     u = {0x7fc00000u, 0x7fc00000u, 0x7fc00000u, 0x7fc00000u};
   }
   body = fn;
@@ -153,17 +174,23 @@ void run_block(int threads, const std::function<void()>& fn) {
   }
 }
 
-template <typename Fn>
-void grid(int gx, int gy, int gz, Fn fn) {
+template <size_t kN, typename Fn>
+void grid(int gx, int gy, int gz, int threads, uint4 (&smem)[kN], Fn fn) {
   emu_grid_dim = {unsigned(gx), unsigned(gy), unsigned(gz)};
   for (int z = 0; z < gz; ++z) {
     for (int y = 0; y < gy; ++y) {
       for (int x = 0; x < gx; ++x) {
         emu_block_idx = {unsigned(x), unsigned(y), unsigned(z)};
-        run_block(attn_wide::kThreads, fn);
+        run_block(threads, smem, fn);
       }
     }
   }
+}
+
+// the wide kernels' grids (launch_fwd, launch_bwd)
+template <typename Fn>
+void wide_grid(int gx, int gy, int gz, Fn fn) {
+  grid(gx, gy, gz, attn_wide::kThreads, attn_wide::wide_smem, fn);
 }
 
 std::vector<float> read_floats(const std::string& path, size_t n) {
@@ -196,54 +223,76 @@ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 float to_float(float x) { return x; }
 float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// q, k, v of the (B, N, 3 H D) packed rows: views of the packed rows, or
+// three contiguous copies (split); the element strides of an image and a
+// row
+template <typename T>
+struct Layout {
+  std::vector<T> sq, sk, sv;
+  const T *q, *k, *v;
+  int64_t img, row;
+  Layout(const std::vector<T>& qkv, int B, int N, int64_t hd, bool split) {
+    if (split) {
+      sq.resize(size_t(B) * N * hd);
+      sk = sq;
+      sv = sq;
+      for (int64_t r = 0; r < int64_t(B) * N; ++r) {
+        for (int64_t f = 0; f < hd; ++f) {
+          sq[r * hd + f] = qkv[r * 3 * hd + f];
+          sk[r * hd + f] = qkv[r * 3 * hd + hd + f];
+          sv[r * hd + f] = qkv[r * 3 * hd + 2 * hd + f];
+        }
+      }
+      q = sq.data();
+      k = sk.data();
+      v = sv.data();
+      img = N * hd;
+      row = hd;
+    } else {
+      q = qkv.data();
+      k = q + hd;
+      v = q + 2 * hd;
+      img = N * 3 * hd;
+      row = 3 * hd;
+    }
+  }
+};
+
+template <typename T>
+std::vector<T> read_as(const std::string& path, size_t n) {
+  const auto f = read_floats(path, n);
+  std::vector<T> t(n);
+  for (size_t i = 0; i < n; ++i) t[i] = from_float<T>(f[i]);
+  return t;
+}
+
+template <typename T>
+void write_as_floats(const std::string& path, const std::vector<T>& t) {
+  std::vector<float> f(t.size());
+  for (size_t i = 0; i < t.size(); ++i) f[i] = to_float(t[i]);
+  write_floats(path, f);
+}
+
 template <typename T>
 void run(int B, int N, int H, int D, float scale, bool split,
          const std::string& dir) {
   using namespace attn_wide;
   const int64_t hd = int64_t(H) * D;
-  const auto qkvf = read_floats(dir + "/qkv.bin", size_t(B) * N * 3 * hd);
-  const auto gf = read_floats(dir + "/g.bin", size_t(B) * N * hd);
-  std::vector<T> qkv(qkvf.size()), gg(gf.size());
-  for (size_t i = 0; i < qkv.size(); ++i) qkv[i] = from_float<T>(qkvf[i]);
-  for (size_t i = 0; i < gg.size(); ++i) gg[i] = from_float<T>(gf[i]);
-  std::vector<T> sq, sk, sv;
-  const T *q, *k, *v;
-  int64_t img, row;
-  if (split) {
-    sq.resize(size_t(B) * N * hd);
-    sk = sq;
-    sv = sq;
-    for (int64_t r = 0; r < int64_t(B) * N; ++r) {
-      for (int64_t f = 0; f < hd; ++f) {
-        sq[r * hd + f] = qkv[r * 3 * hd + f];
-        sk[r * hd + f] = qkv[r * 3 * hd + hd + f];
-        sv[r * hd + f] = qkv[r * 3 * hd + 2 * hd + f];
-      }
-    }
-    q = sq.data();
-    k = sk.data();
-    v = sv.data();
-    img = N * hd;
-    row = hd;
-  } else {
-    q = qkv.data();
-    k = q + hd;
-    v = q + 2 * hd;
-    img = N * 3 * hd;
-    row = 3 * hd;
-  }
+  const auto qkv = read_as<T>(dir + "/qkv.bin", size_t(B) * N * 3 * hd);
+  const auto gg = read_as<T>(dir + "/g.bin", size_t(B) * N * hd);
+  const Layout<T> ops(qkv, B, N, hd, split);
+  const int64_t img = ops.img, row = ops.row;
   const std::string tag = split ? "split" : "packed";
   const int groups = cdiv(pad_width(D), kOut);
   // the launches' grids (launch_fwd, launch_bwd)
   std::vector<T> out(size_t(B) * N * hd, from_float<T>(NAN));
-  const Rows<const T> rq{q, img, row}, rk{k, img, row}, rv{v, img, row};
+  const Rows<const T> rq{ops.q, img, row}, rk{ops.k, img, row},
+      rv{ops.v, img, row};
   const Rows<T> ro{out.data(), N * hd, hd};
   const int f_tiles = cdiv(N, Kind<T>::kFwdRows);
-  grid(f_tiles * groups, H, B,
-       [&] { wide_fwd_kernel<T>(rq, rk, rv, ro, N, D, scale, f_tiles); });
-  std::vector<float> outf(out.size());
-  for (size_t i = 0; i < out.size(); ++i) outf[i] = to_float(out[i]);
-  write_floats(dir + "/out_" + tag + ".bin", outf);
+  wide_grid(f_tiles * groups, H, B,
+            [&] { wide_fwd_kernel<T>(rq, rk, rv, ro, N, D, scale, f_tiles); });
+  write_as_floats(dir + "/out_" + tag + ".bin", out);
 
   std::vector<T> dq(size_t(B) * N * hd, from_float<T>(NAN)), dk = dq,
                                                              dv = dq;
@@ -253,11 +302,11 @@ void run(int B, int N, int H, int D, float scale, bool split,
   std::vector<float> stats(size_t(B) * H * 3 * pad16(N), NAN);
   const int q_tiles = cdiv(N, Kind<T>::kRows);
   const int k_tiles = cdiv(N, Kind<T>::kKeys);
-  grid(q_tiles * groups, H, B, [&] {
+  wide_grid(q_tiles * groups, H, B, [&] {
     wide_bwd_q_kernel<T>(rq, rk, rv, rg, rdq, stats.data(), N, H, D, scale,
                          q_tiles);
   });
-  grid(k_tiles * groups, H, B, [&] {
+  wide_grid(k_tiles * groups, H, B, [&] {
     wide_bwd_k_kernel<T>(rq, rk, rv, rg, rdk, rdv, stats.data(), N, H, D,
                          scale, k_tiles);
   });
@@ -271,23 +320,68 @@ void run(int B, int N, int H, int D, float scale, bool split,
   }
   write_floats(dir + "/dqkv_" + tag + ".bin", dqkv);
 }
+
+// The bf16 key-chunked forward at padded width Dp on the grid its launch
+// gives (attention_qkv_fwd.cu, launch_mma): the ring body, or the
+// two-buffer kernel.
+template <int Dp>
+void run_chunked(bool ring, int B, int N, int H, int D, float scale,
+                 bool split, const std::string& dir) {
+  using bf16 = __nv_bfloat16;
+  const int64_t hd = int64_t(H) * D;
+  const auto qkv = read_as<bf16>(dir + "/qkv.bin", size_t(B) * N * 3 * hd);
+  const Layout<bf16> ops(qkv, B, N, hd, split);
+  const Operand<bf16> q{ops.q, ops.img, ops.row}, k{ops.k, ops.img, ops.row},
+      v{ops.v, ops.img, ops.row};
+  std::vector<bf16> out(size_t(B) * N * hd, from_float<bf16>(NAN));
+  const int tiles = attn_mma::pad16(N) / 16;
+  if (ring) {
+    const int warps = tiles < ring_warps(Dp) ? tiles : ring_warps(Dp);
+    grid((tiles + warps - 1) / warps, H, B, 32 * (warps + 1), smem_tc, [&] {
+      attention_fwd_mma_ring_kernel<Dp>(q, k, v, out.data(), N, H, D, scale);
+    });
+  } else {
+    grid((tiles + kLongWarps - 1) / kLongWarps, H, B, 32 * kLongWarps,
+         smem_tc, [&] {
+           attention_fwd_mma_long_kernel<Dp>(q, k, v, out.data(), N, H, D,
+                                             scale);
+         });
+  }
+  write_as_floats(dir + "/out_" + std::string(split ? "split" : "packed") +
+                      ".bin",
+                  out);
+}
 }  // namespace
 
 int main(int argc, char** argv) {
   if (argc != 9) {
     fprintf(stderr,
-            "usage: emulate <f32|bf16> B N H D scale <packed|split> dir\n");
+            "usage: emulate <f32|bf16|ring|chunked> B N H D scale "
+            "<packed|split> dir\n");
     return 2;
   }
-  const std::string dtype = argv[1];
+  const std::string body = argv[1];
   const int B = atoi(argv[2]), N = atoi(argv[3]), H = atoi(argv[4]),
             D = atoi(argv[5]);
   const float scale = strtof(argv[6], nullptr);
   const bool split = std::string(argv[7]) == "split";
-  if (dtype == "f32") {
+  if (body == "f32") {
     run<float>(B, N, H, D, scale, split, argv[8]);
-  } else {
+  } else if (body == "bf16") {
     run<__nv_bfloat16>(B, N, H, D, scale, split, argv[8]);
+  } else {
+    const bool ring = body == "ring";
+    switch (attn_mma::padded_width(D)) {
+      case 16: run_chunked<16>(ring, B, N, H, D, scale, split, argv[8]);
+        break;
+      case 32: run_chunked<32>(ring, B, N, H, D, scale, split, argv[8]);
+        break;
+      case 64: run_chunked<64>(ring, B, N, H, D, scale, split, argv[8]);
+        break;
+      default:
+        fprintf(stderr, "the ring body takes head widths up to 64\n");
+        return 2;
+    }
   }
   return 0;
 }

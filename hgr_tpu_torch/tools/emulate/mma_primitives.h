@@ -1,11 +1,18 @@
-// Host stand-in for csrc/attention_mma.cuh's primitives, with the same
-// names and fragment layouts (the real header's comment lists them): each
-// warp collective posts its lane's operands through emulate.cpp's per-warp
-// slots and reads the others'. mma sums in double, so the products are
-// exact where the tensor cores' f32 accumulation rounds; copies are
-// immediate, barriers of the copies are no-ops.
+// Host stand-ins for the PTX primitives of csrc/attention_mma.cuh
+// (cp.async, the mbarriers, ldmatrix and mma), with the same names and
+// fragment layouts (the real header's comment lists them).
+// hgr_tpu_torch/tools/emulate_wide.py cuts the real ones out of a copy of
+// that header and puts these ahead of the rest of it, so every other
+// helper of the header (staging, fragment loads, the ring, the row
+// reductions, the stores) runs as written. Each warp collective posts its
+// lane's operands through emulate.cpp's per-warp slots and reads the
+// others'. mma sums in double, so the products are exact where the tensor
+// cores' f32 accumulation rounds; copies are immediate; an mbarrier counts
+// its arrivals and completes its phase as the hardware's does, and a wait
+// yields the fiber until the phase it waits for has completed.
 #pragma once
 #include <cstdint>
+#include <cstring>
 
 #include "cuda_bf16.h"
 
@@ -16,22 +23,46 @@ void post(const uint32_t* w, int n);
 const uint32_t* slot(int lane);
 void done();
 int lane();
+// lets the other fibers run while a wait is not met
+void yield();
+// an arrival on an mbarrier: progress for the scheduler's deadlock check
+void progressed();
 }  // namespace emu
 
 namespace attn_mma {
 using bf16 = __nv_bfloat16;
-constexpr unsigned kFull = 0xffffffffu;
-inline int pad16(int n) { return (n + 15) & ~15; }
 inline uint32_t smem_addr(const void*) { return 0; }
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async_wait_all() {}
 inline void cp_async_commit() {}
-template <int N>
+template <int kPending>
 inline void cp_async_wait() {}
-inline void mbar_init(uint64_t*, unsigned) {}
+
+// An mbarrier's word: bits 0-19 the arrivals a phase takes, bits 20-39
+// those the current phase still waits for, bit 63 the current phase's
+// parity.
+inline void mbar_init(uint64_t* bar, unsigned count) {
+  *bar = uint64_t(count) | (uint64_t(count) << 20);
+}
 inline void mbar_fence_init() {}
-inline void mbar_arrive(uint64_t*) {}
-inline void mbar_wait(uint64_t*, unsigned) {}
+inline void mbar_arrive(uint64_t* bar) {
+  const uint64_t count = *bar & 0xfffffu;
+  uint64_t pending = ((*bar >> 20) & 0xfffffu) - 1;
+  uint64_t parity = *bar >> 63;
+  if (pending == 0) {  // the phase completes, the next one starts
+    pending = count;
+    parity ^= 1u;
+  }
+  *bar = count | (pending << 20) | (parity << 63);
+  emu::progressed();
+}
+// the copies have landed at once: the arrival happens now
+inline void mbar_arrive_copies(uint64_t* bar) { mbar_arrive(bar); }
+// returns once the phase of parity ``parity`` has completed, that is while
+// the current phase has the other parity
+inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  while ((*bar >> 63) == parity) emu::yield();
+}
 
 // ldmatrix: lanes 8i..8i+7 address the rows of matrix i; lane l receives
 // (row l / 4, columns 2 (l % 4), + 1), or with .trans (rows 2 (l % 4) and
@@ -93,30 +124,5 @@ inline void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
   }
   emu::done();
   for (int e = 0; e < 4; ++e) d[e] = out[e];
-}
-
-inline uint32_t pack(float x0, float x1) {
-  return uint32_t(__float2bfloat16(x0).x) |
-         (uint32_t(__float2bfloat16(x1).x) << 16);
-}
-
-template <int K>
-inline void pack_split(float x0, float x1, uint32_t (&part)[K]) {
-  for (int k = 0; k < K; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-    const float2 hf = __bfloat1622float2(h);
-    part[k] = uint32_t(h.x.x) | (uint32_t(h.y.x) << 16);
-    x0 -= hf.x;
-    x1 -= hf.y;
-  }
-}
-
-inline float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-inline float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
 }
 }  // namespace attn_mma

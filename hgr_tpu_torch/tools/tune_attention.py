@@ -5,7 +5,7 @@ compile-time sizes of a tensor-core body is changed (bf16: the chunk of
 keys a forward warp holds in registers, the warps per block, the rows a
 backward warp sweeps at a time, the bf16 terms that carry dS; the
 key-chunked ring bodies' consumer warps, buffers, least blocks an SM and
-backward step width; f32: the
+backward step width, the forward's per padded head width; f32: the
 warps per block of the whole-sequence bodies, the tiles a backward step
 takes; or ``{fwd,bwd}_f32_small=int``: the small TF32 part rounded by the
 integer add and mask instead of cvt.rna, csrc/attention_tf32.cuh), and
@@ -13,8 +13,8 @@ times each against the source as it is on the same inputs, in turns,
 with its worst error against the plain version:
 
     python -m hgr_tpu_torch.tools.tune_attention [--batch 64 256]
-        [--n 785] [--dtype float32] [--grid ring]
-        [--variants knob=value ...]
+        [--n 785] [--heads 16 --head_dim 16] [--dtype float32]
+        [--grid ring] [--variants knob=value ...]
 
 Needs the card and nvcc. Prints one JSON line per (variant, batch) and,
 first, one per build (registers, spills).
@@ -35,10 +35,6 @@ KNOBS = {
     "bwd_tiles": ("attention_qkv_bwd", "constexpr int kBwdTiles = "),
     "bwd_warps": ("attention_qkv_bwd", "constexpr int kBwdWarps = "),
     "bwd_split": ("attention_qkv_bwd", "constexpr int kSplit = "),
-    "fwd_ring_warps": ("attention_qkv_fwd", "constexpr int kRingWarps = "),
-    "fwd_ring_stages": ("attention_qkv_fwd", "constexpr int kRingStages = "),
-    "fwd_ring_blocks": ("attention_qkv_fwd", "constexpr int kRingBlocks = "),
-    "fwd_ring_piece": ("attention_qkv_fwd", "constexpr int kRingPiece = "),
     "bwd_ring_warps": ("attention_qkv_bwd", "constexpr int kRingWarps = "),
     "bwd_ring_stages": ("attention_qkv_bwd", "constexpr int kRingStages = "),
     "bwd_ring_blocks": ("attention_qkv_bwd", "constexpr int kRingBlocks = "),
@@ -46,6 +42,12 @@ KNOBS = {
     "f32_fwd_warps": ("attention_qkv_fwd", "constexpr int kF32Warps = "),
     "f32_bwd_warps": ("attention_qkv_bwd", "constexpr int kF32Warps = "),
     "f32_tiles": ("attention_qkv_bwd", "constexpr int kF32Tiles = "),
+    # the forward's ring body, per padded head width (fwd_ring_warps16 ...)
+    **{f"fwd_ring_{knob}{dp}": ("attention_qkv_fwd",
+                                f"constexpr int kRing{name}{dp} = ")
+       for dp in (16, 32, 64)
+       for knob, name in (("warps", "Warps"), ("stages", "Stages"),
+                          ("blocks", "Blocks"), ("piece", "Piece"))},
 }
 # knob -> (source, header, the text it replaces); value "int" only: the
 # small TF32 part by the integer form of cvt.rna (which turns a NaN of x
@@ -62,13 +64,21 @@ DEFAULT_GRID = {
     "bfloat16": ["fwd_chunk_tiles=10", "fwd_warps=2", "fwd_warps=4",
                  "fwd_warps=8", "bwd_tiles=4", "bwd_warps=8", "bwd_split=2"],
     # the key-chunked route's ring bodies (run with --n 785)
-    "ring": ["fwd_ring_warps=8", "fwd_ring_stages=3", "fwd_ring_piece=2",
-             "bwd_ring_warps=8", "bwd_ring_stages=4", "bwd_ring_tiles=2",
-             "bwd_ring_blocks=1"],
+    "ring": ["fwd_ring_warps32=8", "fwd_ring_stages32=3",
+             "fwd_ring_piece32=2", "bwd_ring_warps=8", "bwd_ring_stages=4",
+             "bwd_ring_tiles=2", "bwd_ring_blocks=1"],
+    # the forward's ring body at head widths 16 and 64 (run with --n 785
+    # --heads 16 --head_dim 16, or --heads 4 --head_dim 64)
+    "ring16": ["fwd_ring_stages16=4,fwd_ring_blocks16=3",
+               "fwd_ring_blocks16=3", "fwd_ring_warps16=8",
+               "fwd_ring_piece16=2", "fwd_ring_stages16=2",
+               "fwd_ring_warps16=3,fwd_ring_stages16=2,fwd_ring_blocks16=6"],
+    "ring64": ["fwd_ring_stages64=2", "fwd_ring_piece64=2",
+               "fwd_ring_warps64=6", "fwd_ring_warps64=8",
+               "fwd_ring_warps64=5,fwd_ring_stages64=2,fwd_ring_blocks64=3"],
     "float32": ["f32_fwd_warps=8", "f32_bwd_warps=4", "f32_tiles=2",
                 "fwd_f32_small=int", "bwd_f32_small=int"],
 }
-SCALE = 32 ** -0.5
 
 
 def _variant_source(spec: str) -> tuple:
@@ -157,7 +167,7 @@ def _code(t) -> int:
     return 0 if t.dtype == torch.float32 else 1
 
 
-def _scratch(lib, b: int, n: int, heads: int, qkv):
+def _scratch(lib, b: int, n: int, heads: int, head_dim: int, qkv):
     """The backward's statistics scratch at lengths past the
     whole-sequence route (None below)."""
     import torch
@@ -165,29 +175,30 @@ def _scratch(lib, b: int, n: int, heads: int, qkv):
     fn = lib.attention_qkv_bwd_scratch_floats
     fn.argtypes = [ctypes.c_int] * 5
     fn.restype = ctypes.c_longlong
-    count = fn(b, n, heads, 32, _code(qkv))
+    count = fn(b, n, heads, head_dim, _code(qkv))
     return (torch.empty(count, dtype=torch.float32, device=qkv.device)
             if count else None)
 
 
-def _call(name: str, lib, qkv, g, out, stream) -> None:
-    b, n, f = qkv.shape
-    heads = f // 96
+def _call(name: str, lib, qkv, g, out, heads: int, head_dim: int,
+          stream) -> None:
+    b, n, _ = qkv.shape
+    scale = head_dim ** -0.5
     c = ctypes
     if name == "attention_qkv_fwd":
         fn = lib.attention_qkv_fwd
         fn.argtypes = [c.c_void_p, c.c_void_p] + [c.c_int] * 4 + [
             c.c_float, c.c_int, c.c_void_p]
-        rc = fn(qkv.data_ptr(), out.data_ptr(), b, n, heads, 32, SCALE,
-                _code(qkv), stream)
+        rc = fn(qkv.data_ptr(), out.data_ptr(), b, n, heads, head_dim,
+                scale, _code(qkv), stream)
     else:
         fn = lib.attention_qkv_bwd
         fn.argtypes = [c.c_void_p] * 4 + [c.c_int] * 4 + [
             c.c_float, c.c_int, c.c_void_p]
-        scratch = _scratch(lib, b, n, heads, qkv)
+        scratch = _scratch(lib, b, n, heads, head_dim, qkv)
         rc = fn(qkv.data_ptr(), g.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), b, n, heads,
-                32, SCALE, _code(qkv), stream)
+                head_dim, scale, _code(qkv), stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed ({rc})")
 
@@ -214,6 +225,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[64, 256])
     ap.add_argument("--n", type=int, default=145)
+    ap.add_argument("--heads", type=int, default=8)
+    ap.add_argument("--head_dim", type=int, default=32)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
     ap.add_argument("--variants", nargs="+", default=None,
@@ -222,7 +235,8 @@ def main(argv=None) -> int:
                     "dtype's grid)")
     ap.add_argument("--grid", choices=sorted(DEFAULT_GRID), default=None,
                     help="a default grid of variants (default: the "
-                    "dtype's; 'ring': the key-chunked ring bodies)")
+                    "dtype's; 'ring': the key-chunked ring bodies; 'ring16', "
+                    "'ring64': the forward's ring body at those widths)")
     args = ap.parse_args(argv)
     variants = args.variants or DEFAULT_GRID[args.grid or args.dtype]
     if not torch.cuda.is_available():
@@ -234,14 +248,16 @@ def main(argv=None) -> int:
         print(json.dumps({"build": spec, "ptxas": ptxas}), flush=True)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(0)
+    h, d = args.heads, args.head_dim
     for b in args.batch:
         dt = getattr(torch, args.dtype)
-        qkv = torch.randn(b, args.n, 768, device="cuda", generator=gen).to(dt)
-        g = torch.randn(b, args.n, 256, device="cuda", generator=gen).to(dt)
+        qkv = torch.randn(b, args.n, 3 * h * d, device="cuda",
+                          generator=gen).to(dt)
+        g = torch.randn(b, args.n, h * d, device="cuda", generator=gen).to(dt)
         refs = {"attention_qkv_fwd": A.attention_qkv_reference(
-                    qkv, 8, 32, SCALE),
+                    qkv, h, d, d ** -0.5),
                 "attention_qkv_bwd": A.attention_qkv_bwd_reference(
-                    qkv, g, 8, 32, SCALE)}
+                    qkv, g, h, d, d ** -0.5)}
         rows = {}
         # in turns: every variant, then every variant again in reverse
         for spec in specs + specs[::-1]:
@@ -249,12 +265,13 @@ def main(argv=None) -> int:
             out = torch.empty_like(refs[name])
 
             def fn():
-                _call(name, lib, qkv, g, out, stream)
+                _call(name, lib, qkv, g, out, h, d, stream)
 
             ms = _time_ms(torch, fn, 50 if name.endswith("fwd") else 20)
             row = rows.setdefault(spec, {"variant": spec, "kernel": name,
                                          "dtype": args.dtype, "batch": b,
-                                         "runs_ms": []})
+                                         "n": args.n, "heads": h,
+                                         "head_dim": d, "runs_ms": []})
             row["runs_ms"].append(ms)
             row["max_abs_err"] = (out.float() - refs[name].float()).abs(
             ).max().item()

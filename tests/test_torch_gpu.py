@@ -552,11 +552,11 @@ def test_bf16_views_never_read_past_row_n(n):
         assert torch.equal(got, want)
 
 
-def _last_whole(kernel, dtype):
+def _last_whole(kernel, dtype, head_dim=D):
     """The largest n the whole-sequence route of ``kernel`` takes at
-    head_dim 32 in ``dtype``."""
+    ``head_dim`` (32: the model's) in ``dtype``."""
     n = 1
-    while A.kernel_route(kernel, n + 1, D, dtype) == 0:
+    while A.kernel_route(kernel, n + 1, head_dim, dtype) == 0:
         n += 1
     return n
 
@@ -737,6 +737,128 @@ def test_split_equals_packed_at_the_448_px_shape(dtype):
                        A.fused_attention_qkv(x, H, D, SCALE))
     d = A.fused_attention_qkv_bwd(x, g, H, D, SCALE)
     for got, want in zip(A.fused_attention_split_bwd(*ops, g, H, D, SCALE),
+                         d.chunk(3, dim=-1)):
+        assert torch.equal(got, want)
+
+
+# the ring forward at padded head widths 16 and 64, at lengths on the
+# edges of its chunks of keys (96 at Dp = 64: one chunk, a key past it,
+# two chunks and a key; 160 at Dp = 16: one, a key past it, two and a
+# key) and the 448 px path's 785 (5 and 9 chunks: every ring buffer
+# reused, a last block of one query row)
+RING_WIDTH_EDGES = [(64, n) for n in (95, 96, 97, 193, 785)] + [
+    (16, n) for n in (160, 161, 321, 785)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,n", RING_WIDTH_EDGES)
+def test_ring_forward_at_head_widths_16_and_64(head_dim, n):
+    """The bf16 key-chunked route at padded head widths 16 and 64 is the
+    ring body. On that route (``launch_on_route``, also at lengths where
+    the entry point takes the whole-sequence body) it matches the plain
+    version; the whole-sequence route, where one exists, gives its bits;
+    the entry point gives them, and so do the split operands."""
+    _cuda_or_skip()
+    heads, scale, bf = 2, head_dim**-0.5, torch.bfloat16
+    rng = np.random.RandomState(n * 5 + head_dim)
+    qkv = torch.from_numpy(rng.randn(2, n, 3 * heads * head_dim).astype(
+        np.float32)).to("cuda", bf)
+    route = A.kernel_route("fwd", n, head_dim, bf)
+    assert A.forward_body(n, head_dim, bf) == (
+        "attention_fwd_mma_ring_kernel" if route == 1
+        else "attention_fwd_mma_kernel")
+    before = A.fused_attention_qkv.launches
+    ring = A.launch_on_route("fwd", 1, qkv, heads, head_dim, scale)
+    torch.cuda.synchronize()
+    assert A.fused_attention_qkv.launches == before + 1
+    np.testing.assert_allclose(
+        ring.float().cpu().numpy(),
+        A.attention_qkv_reference(qkv, heads, head_dim, scale).float().cpu()
+        .numpy(), **TOL["bfloat16"])
+    try:
+        whole = A.launch_on_route("fwd", 0, qkv, heads, head_dim, scale)
+    except ValueError:  # the head does not fit one block
+        whole = ring
+    assert torch.equal(whole, ring)
+    entry = A.fused_attention_qkv(qkv, heads, head_dim, scale)
+    assert torch.equal(entry, ring)
+    assert torch.equal(A.fused_attention_split(*qkv.chunk(3, dim=-1), heads,
+                                               head_dim, scale), entry)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,last", [(16, 160), (64, 96)])
+def test_forward_crossover_at_head_widths_16_and_64(head_dim, last):
+    """chip_smoke's route sweep at 16 heads of 16 and 4 of 64 put the
+    forward's crossover where the rule takes it: the whole-sequence body
+    while one register chunk of keys (160 at padded width 16, 96 at 64)
+    holds the sequence, the ring body from one key past it. At the last
+    whole length and one past it both routes give the same bits and the
+    entry point those of its route."""
+    _cuda_or_skip()
+    bf, scale = torch.bfloat16, head_dim**-0.5
+    assert _last_whole("fwd", bf, head_dim) == last
+    for n in (last, last + 1):
+        x = torch.from_numpy(np.random.RandomState(n).randn(
+            1, n, 3 * head_dim).astype(np.float32)).to("cuda", bf)
+        routes = [A.launch_on_route("fwd", r, x, 1, head_dim, scale)
+                  for r in (0, 1)]
+        assert torch.equal(routes[0], routes[1])
+        route = A.kernel_route("fwd", n, head_dim, bf)
+        assert route == (0 if n == last else 1)
+        assert torch.equal(A.fused_attention_qkv(x, 1, head_dim, scale),
+                           routes[route])
+        assert A.forward_body(n, head_dim, bf) == (
+            "attention_fwd_mma_kernel" if n == last
+            else "attention_fwd_mma_ring_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,body", [
+    (16, "attention_fwd_mma_ring_kernel"),
+    (32, "attention_fwd_mma_ring_kernel"),
+    (48, "attention_fwd_mma_ring_kernel"),
+    (64, "attention_fwd_mma_ring_kernel"),
+    (128, "attention_fwd_mma_long_kernel"),
+    (256, "attention_fwd_mma_long_kernel"), (320, "wide_fwd_kernel")])
+def test_forward_body_at_the_448_px_length(head_dim, body):
+    """At N = 785 the bf16 forward runs the ring body at padded widths 16,
+    32 and 64, the two-buffer key-chunked kernel at 128 and 256, and route
+    2 above; f32 takes its key-chunked kernel below 257."""
+    _cuda_or_skip()
+    assert A.forward_body(785, head_dim, torch.bfloat16) == body
+    if head_dim <= 256:
+        assert A.forward_body(785, head_dim, torch.float32) == (
+            "attention_fwd_tf32_long_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [64, 16])
+@pytest.mark.parametrize("heads,head_dim", [(16, 16), (4, 64)])
+def test_split_equals_packed_at_the_448_px_length_at_widths_16_and_64(
+        b, heads, head_dim):
+    """At (64, 785) and (16, 785) with 16 heads of 16 and 4 of 64 (the ring
+    forward, the ring backward pair), the split kernels on the chunk views
+    give the packed kernels' bits, forward and backward, and the forward
+    matches the plain version."""
+    _cuda_or_skip()
+    scale = head_dim**-0.5
+    rng = np.random.RandomState(b + heads)
+    x = torch.from_numpy(rng.randn(b, 785, 3 * heads * head_dim).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    g = torch.from_numpy(rng.randn(b, 785, heads * head_dim).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    ops = x.chunk(3, dim=-1)
+    out = A.fused_attention_qkv(x, heads, head_dim, scale)
+    assert torch.equal(A.fused_attention_split(*ops, heads, head_dim, scale),
+                       out)
+    np.testing.assert_allclose(
+        out.float().cpu().numpy(),
+        A.attention_qkv_reference(x, heads, head_dim, scale).float().cpu()
+        .numpy(), **TOL["bfloat16"])
+    d = A.fused_attention_qkv_bwd(x, g, heads, head_dim, scale)
+    for got, want in zip(A.fused_attention_split_bwd(*ops, g, heads,
+                                                     head_dim, scale),
                          d.chunk(3, dim=-1)):
         assert torch.equal(got, want)
 
