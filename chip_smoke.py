@@ -171,10 +171,18 @@ ROUTE_SWEEP = [(kernel, 64, n, "bfloat16", HEADS, HEAD_DIM)
     (kernel, TRAIN_BATCH, 145, "float32", HEADS, HEAD_DIM)
     for kernel in ("fwd", "bwd")] + [
     ("fwd", 64, n, "bfloat16", h, d) for h, d in ((16, 16), (4, 64))
-    for n in ROUTE_FWD_LENGTHS]
-# the padded head widths whose bf16 key-chunked forward is the ring body
-# (csrc/attention_qkv_fwd.cu, ring_body)
-RING_WIDTHS = (16, 32, 64)
+    for n in ROUTE_FWD_LENGTHS] + [
+    # 2 heads of 128: the whole-sequence route to 48 keys (one register
+    # chunk), and wherever one block holds the head on launch_on_route
+    ("fwd", 64, n, "bfloat16", 2, 128) for n in (48, 49, 145, 193, 257,
+                                                 785)]
+# the padded head widths whose bf16 key-chunked forward and backward are
+# the ring bodies (csrc/attention_qkv_{fwd,bwd}.cu): every width to 256
+RING_WIDTHS = (16, 32, 64, 128, 256)
+# the ring entry functions of each source, by their names in the source
+RING_ENTRIES = {"attention_qkv_fwd": ("attention_fwd_mma_ring_kernel",),
+                "attention_qkv_bwd": ("attention_bwd_mma_ring_q_kernel",
+                                      "attention_bwd_mma_ring_k_kernel")}
 # the SFU's exp rate an SM a clock (MUFU.EX2, 4 a sub-partition): the
 # bf16 forward's exps set a floor of their own (sfu_floor_ms)
 SFU_PER_SM_CLOCK = 16
@@ -381,16 +389,18 @@ def build_phase():
         for n in (145, 785) for d in (16, HEAD_DIM, 64, 256, 512)}
         for name in ("attention_qkv_fwd", "attention_qkv_bwd")}
     mma = _tensor_core_entries(built)
-    # the forward's ring body at each padded head width it serves: its
-    # registers, fitted per width by ptxas, and no spill
-    ring = {dp: [line for line in _ptxas_lines(
-        built["attention_qkv_fwd"].ptxas_log)
-        if f"attention_fwd_mma_ring_kernelILi{dp}E" in line.split(":")[0]]
+    # the ring bodies, forward and backward, at each padded head width
+    # they serve: their registers, fitted per width by ptxas, and no spill
+    ring = {f"{entry}<{dp}>": [line for line in _ptxas_lines(
+        built[name].ptxas_log)
+        if f"{entry}ILi{dp}E" in line.split(":")[0]]
+        for name, entries in RING_ENTRIES.items() for entry in entries
         for dp in RING_WIDTHS}
     check(all(len(lines) == 1 and "0 bytes spill stores, 0 bytes spill "
               "loads" in lines[0] for lines in ring.values()),
-          f"the forward's ring bodies: missing or spilling {ring}")
-    emit({"ring_ptxas": {str(dp): lines[0] for dp, lines in ring.items()}})
+          f"the ring bodies: missing or spilling {ring}")
+    emit({"ring_ptxas": {k: lines[0] if len(lines) == 1 else lines
+                         for k, lines in ring.items()}})
     for name in SOURCES:
         b = built[name]
         emit({"build": {
@@ -879,6 +889,7 @@ def c2_kernel_phase(torch) -> list:
                         4 * b * h * n * n * d, dtype)}
         bwd = {**base, "kernel": "attention_qkv_bwd",
                "route": A.kernel_route("bwd", n, d, dt),
+               "body": A.backward_body(n, d, dt),
                "max_abs_err": diff.max().item(), "atol": atol, "rtol": rtol,
                **_alternate(torch, {
                    "plain": lambda: A.attention_qkv_bwd_reference(

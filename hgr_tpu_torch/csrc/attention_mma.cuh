@@ -147,7 +147,7 @@ __device__ __forceinline__ void stage_rows_by(const bf16* __restrict__ src,
 }
 
 // ---- The staged ring of the bf16 key-chunked bodies (the forward's and
-// the backward's at Dp <= 64).
+// the backward's, at every padded width).
 // Chunks of the other side pass through kStages buffers in shared memory.
 // One producer warp stages chunk i into buffer i % kStages by cp.async and
 // arrives on that buffer's ``full`` barrier twice a lane: once when its
@@ -214,10 +214,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 // Thread 0 initialises the ring's barriers (``consumers`` warps release a
 // buffer); the caller synchronises the block before their first use.
 __device__ __forceinline__ void ring_init(const Ring& ring, int stages,
-                                          int consumers) {
+                                          int consumers,
+                                          unsigned full = kRingFullCount) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(ring.full + s, kRingFullCount);
+      mbar_init(ring.full + s, full);
       mbar_init(ring.empty + s, static_cast<unsigned>(consumers));
     }
     mbar_fence_init();
@@ -246,6 +247,97 @@ __device__ __forceinline__ void ring_release(Ring& ring, int stages,
                                              int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(ring.empty + ring.stage);
+  ring.advance(stages);
+}
+
+// ---- Bulk staging of the ring at Dp >= 128. There a chunk's rows are
+// long (256 or 512 bytes) and one producer warp issuing a 16-byte
+// cp.async per lane for each of them falls behind the consumers; Hopper's
+// bulk copy (the TMA engine) moves a whole row per instruction. The
+// producer's lane 0 arrives on the buffer's ``full`` barrier expecting
+// the chunk's bytes, every lane issues its rows' copies (which complete
+// their bytes on that barrier) and its zero stores, then arrives (a
+// release): kRingBulkCount arrivals a phase. The copies write columns
+// 0..d-1 only: columns d..Dp-1 of every buffer are zeroed once, before
+// the ring starts (ring_zero_columns).
+constexpr unsigned kRingBulkCount = 33;
+
+// whether rows at ``src`` (row stride ``row`` elements, d features) allow
+// 16-byte copies: the cp.async and bulk paths' condition
+__device__ __forceinline__ bool rows_16b(const bf16* src, int64_t row,
+                                         int d) {
+  return reinterpret_cast<uintptr_t>(src) % 16 == 0 && row % 8 == 0 &&
+         d % 8 == 0;
+}
+
+__device__ __forceinline__ void bulk_row(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// arrives on ``bar`` expecting ``bytes`` of bulk copies on it
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Zero columns d..Dp-1 of ``rows`` staged rows from ``dst`` (thread tid
+// of ``threads``); the caller synchronises the block before the ring runs.
+template <int Dp>
+__device__ __forceinline__ void ring_zero_columns(bf16* dst, int rows, int d,
+                                                  unsigned tid,
+                                                  unsigned threads) {
+  constexpr int kChunks = Dp / 8;
+  const int dc = d >> 3, cols = kChunks - dc;
+  for (int idx = tid; idx < rows * cols; idx += threads) {
+    const int j = idx / cols;
+    *reinterpret_cast<uint4*>(dst + j * row_pad(Dp) +
+                              (dc + idx - j * cols) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The producer lane's part of one chunk on the bulk path: rows 0..n-1 of
+// ``src`` into ``dst`` (a row a copy, completing on ``bar``), rows
+// n..npad-1 zeroed whole.
+template <int Dp>
+__device__ __forceinline__ void bulk_rows(const bf16* __restrict__ src,
+                                          int64_t row, bf16* dst, int n,
+                                          int npad, int d, uint64_t* bar,
+                                          int lane) {
+  constexpr int kChunks = Dp / 8;
+  for (int j = lane; j < n; j += 32) {
+    bulk_row(dst + j * row_pad(Dp), src + j * row,
+             static_cast<unsigned>(d) * 2u, bar);
+  }
+  for (int idx = lane; idx < (npad - n) * kChunks; idx += 32) {
+    const int j = n + idx / kChunks;
+    *reinterpret_cast<uint4*>(dst + j * row_pad(Dp) + (idx % kChunks) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The producer warp's side of one chunk on the bulk path: wait until the
+// buffer is free, lane 0 arrives expecting ``bytes``, ``stage(buffer,
+// bar)`` issues the lane's copies and zero stores, then every lane
+// arrives.
+template <typename F>
+__device__ __forceinline__ void ring_produce_bulk(Ring& ring, int stages,
+                                                  unsigned bytes, int lane,
+                                                  F&& stage) {
+  mbar_wait(ring.empty + ring.stage, ring.phase ^ 1u);
+  uint64_t* bar = ring.full + ring.stage;
+  if (lane == 0) mbar_arrive_expect(bar, bytes);
+  __syncwarp();
+  stage(ring.stage, bar);
+  mbar_arrive(bar);
   ring.advance(stages);
 }
 
@@ -473,6 +565,27 @@ __device__ __forceinline__ void step_scores(float (&s)[NT][4],
     }
   } else {
     masked_scores<Dp>(s, qa, ks, key0, n, npad, scale, lane);
+  }
+}
+
+// step_scores with the query tile read from the staged rows ``q_rows``
+// (tile rows q0..q0+15; products_smem), for the ring bodies at the widths
+// whose Q fragments stay in shared memory: the same values.
+template <int Dp, int NT>
+__device__ __forceinline__ void step_scores_smem(float (&s)[NT][4],
+                                                 const bf16* q_rows, int q0,
+                                                 const bf16* ks, int key0,
+                                                 int n, int npad, float scale,
+                                                 int lane) {
+  if (key0 + 8 * NT <= n && key0 + 8 * NT <= npad) {
+    products_smem<Dp>(s, q_rows, q0, ks, key0, npad, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+    }
+  } else {
+    masked_scores_smem<Dp>(s, q_rows, q0, ks, key0, n, npad, scale, lane);
   }
 }
 

@@ -107,30 +107,48 @@
 // key-chunked kernels take the same 16-row steps in the same order, so
 // they compute the same bits as the whole-sequence body would.
 //
-// The key-chunked route at Dp <= 64 (the 448 px path) is the pair of ring
-// bodies. Bound at (B=64, N=785, H=8, D=32, bf16): 180.1 MB moved (qkv
-// and g read, dqkv written once), 0.0537 ms at 3.35 TB/s, against
-// 10 N^2 D H B = 1.01e11 FLOP, 0.102 ms at 989 TFLOP/s: bound by its
-// operations. The bits ask for more work than that: S and dA twice in
-// phase 1 and once in phase 2, dS into dq and dk as kSplit bf16 terms,
-// 13 products of 2 N^2 D a head (2.62e11 FLOP, 0.27 ms even at the peak),
-// and three expf a score (~0.23 ms at the SFU's 16 a clock an SM). What
-// the bodies do about the rest:
-//   - one block per 16 W rows (W = kRingWarps consumer warps, fewer for
-//     a shorter head), the other side streamed through attention_mma.cuh's
-//     Ring (one producer warp, kRingStages buffers of kLongRows rows with a
-//     full and an empty mbarrier each): no block barrier in the loop, and
-//     each staged chunk serves 7 tiles where the earlier kernels' served
-//     4 (8 blocks a head at N = 785 against 13: ~1.3 GB through L2 a call
-//     against ~2.1);
+// The key-chunked route is the pair of ring bodies at every padded width
+// (Dp = 32: the 448 px path). Bound at (B=64, N=785, H=8, D=32, bf16):
+// 180.1 MB moved (qkv and g read, dqkv written once), 0.0537 ms at 3.35
+// TB/s, against 10 N^2 D H B = 1.01e11 FLOP, 0.102 ms at 989 TFLOP/s:
+// bound by its operations. The bits ask for more work than that: S and dA
+// twice in phase 1 and once in phase 2, dS into dq and dk as kSplit bf16
+// terms, 13 products of 2 N^2 D a head (2.62e11 FLOP, 0.27 ms even at the
+// peak), and three expf a score (~0.23 ms at the SFU's 16 a clock an SM).
+// What the bodies do about the rest:
+//   - one block per 16 W rows (W = ring_warps(Dp) consumer warps, fewer
+//     for a shorter head), the other side streamed through
+//     attention_mma.cuh's Ring (one producer warp, ring_stages(Dp) buffers
+//     of ring_rows(Dp) rows with a full and an empty mbarrier each): no
+//     block barrier in the loop, and each staged chunk serves 7 tiles
+//     where the earlier kernels' served 4 (8 blocks a head at N = 785
+//     against 13: ~1.3 GB through L2 a call against ~2.1);
 //   - each warp step spans 8 * ring_tiles() keys (phase 1) or queries
 //     (phase 2) instead of 16: the products, maxima, exps and shuffles of
 //     its 16-row sub-steps are issued side by side, then folded
 //     (fold_steps) and accumulated (accumulate_steps,
 //     key_accumulate_steps) in the 16-row order, so that m, l, rd, dq, dk
 //     and dv keep their bits.
-// Dp >= 128 keeps the earlier key-chunked kernels (64 rows a block, two
-// cp.async buffers, two block barriers a chunk, 16-row steps).
+// At Dp = 128 and 256 (head widths 65 to 256) the bound at (B=16, N=785,
+// H=2) is 2.52e10 FLOP, 0.0255 ms, at D = 128 (45.0 MB, 0.0134 ms by
+// bytes) and 5.05e10, 0.0510 ms, at 256 (90.0 MB, 0.0269 ms); the bits'
+// 13 products a head 0.033 and 0.133 ms at the peak. The earlier pair
+// there (two cp.async buffers, two block barriers a chunk, 16-row steps;
+// the CPU emulator keeps it as the ring pair's bit reference,
+// tools/emulate/chunked_bwd.cuh) ran its query kernel at Dp = 256 one
+// block of 4 warps an SM. The ring pair there:
+//   - stages the other side a row per bulk copy (attention_mma.cuh,
+//     bulk_rows), its columns d..Dp-1 zeroed once;
+//   - reads the A tiles from shared memory (products_smem) beside the
+//     Dp / 2 accumulators of dq (or dk, dv);
+//   - at Dp = 256 takes 4-tile steps (a whole 32-row chunk: each A
+//     fragment read once for 32 rows) with 7 working warps an SM, and
+//     gives each key tile two warps, one for dk and one for dv;
+//   - at Dp = 128 runs two query blocks of 8 warps an SM and one key
+//     block of 7 tiles, each warp summing dk and dv of its tile.
+// In turns at (16, 785, 2 x D) against the earlier pair on an H100
+// (PERF.md section 6): 0.557 -> 0.343 ms at D = 128, 1.540 ->
+// 0.627 at 256.
 //
 // f32 (--dtype mixed's decoder, the check paths; gradients held at 1e-4):
 // the bf16 body's phases, routes and order on the tensor cores by a
@@ -209,12 +227,13 @@ constexpr int kF32Warps = 8;
 constexpr int kBwdWarps = 4;
 // bf16 parts that carry dS into the tensor cores (3: all of f32's bits)
 constexpr int kSplit = 3;
-// Key-chunked route: 16-row tiles (warps) per block, and rows of the other
-// side per staged chunk.
+// Key-chunked route: 16-row tiles (warps) per block of the f32 kernels,
+// and rows of the other side per staged chunk (the f32 kernels', and the
+// bf16 ring bodies' at Dp <= 64).
 constexpr int kLongWarps = 4;
 constexpr int kLongRows = 64;
-// Warps per key tile in the key-chunked route's key kernel: two at Dp =
-// 256 (dk and dv each in a warp of its own), else one (both).
+// Warps per key tile in the f32 key-chunked route's key kernel: two at
+// Dp = 256 (dk and dv each in a warp of its own), else one (both).
 __host__ __device__ constexpr int key_roles(int dp) {
   return tc::a_in_smem(dp) ? 2 : 1;
 }
@@ -233,26 +252,88 @@ __host__ __device__ constexpr int f32_long_rows(int dp) {
 // sweep: the ring pair won from n = 161 on). Other widths keep 2.
 constexpr int kWholeBlocks = 2;
 constexpr int kWholeBlocksRing = 4;
-// The key-chunked route's ring bodies (Dp <= 64): most consumer warps
-// (16-row tiles) a block besides the producer warp, buffers of the ring
-// (kLongRows rows of the other side each), the least blocks an SM must
-// hold (ptxas fits the registers to it: blocks of 8 warps, two an SM,
-// leave 128 a thread; 9 would leave 96 and spill), and the 8-row C tiles
-// of S and dA a warp takes a step at Dp <= 32 (half as many at 64).
+// The key-chunked route's ring bodies, their constants per padded width:
+// most consumer warps (16-row tiles) a block of the query kernel besides
+// the producer warp, buffers of the ring (ring_rows(Dp) rows of the other
+// side each), the least blocks an SM must hold (ptxas fits the registers
+// to it: blocks of 8 warps, two an SM, leave 128 a thread; 9 would leave
+// 96 and spill), and the 8-row C tiles of S and dA a warp takes a step.
+// Dp <= 64: 64-row chunks, 4 tiles a step at Dp <= 32 (2 at 64); the key
+// kernel's blocks are the query kernel's.
 // tools/tune_attention.py times other values.
 constexpr int kRingWarps = 7;
 constexpr int kRingStages = 3;
 constexpr int kRingBlocks = 2;
 constexpr int kRingTiles = 4;
-__host__ __device__ constexpr bool ring_body(int dp) { return dp <= 64; }
+// Dp = 128 and 256 stage the other side by bulk copies (attention_mma.cuh) and
+// read the A tiles (Q and G, K and V) from shared memory (products_smem). Times
+// below: (16, 785, 2 heads) on an H100, tools/tune_attention.py --grid ring128
+// / ring256 (PERF.md section 6). Dp = 128: 32-row chunks of 136-element rows,
+// three buffers (114,352 bytes a block): the query kernel two blocks an SM of 8
+// warps at 128 registers (dq's 64 accumulators); the key kernel one block of 7
+// key tiles at 210 registers, one warp summing both dk and dv of a tile
+// (kRingRoles128 = 1: 128 accumulators; two warps a tile, dk and dv apart, at
+// two blocks of 3 tiles took 1.24x as long; 4-tile steps with the query kernel
+// at one block 1.10x).
+constexpr int kRingWarps128 = 7;
+constexpr int kRingKeyTiles128 = 7;
+constexpr int kRingRoles128 = 1;
+constexpr int kRingStages128 = 3;
+constexpr int kRingRows128 = 32;
+constexpr int kRingTiles128 = 2;
+constexpr int kRingBlocks128 = 2;
+constexpr int kRingKeyBlocks128 = 1;
+// Dp = 256: 32-row chunks of 264-element rows, three buffers (220,848 bytes;
+// 0.6225 ms against two buffers' 0.6462): one block an SM. dq, dk and dv take
+// 128 accumulators each, so the key kernel always gives a key tile two warps
+// (dk, dv): 3 tiles, 7 warps, 235 registers (4 tiles make 9 warps, which cap
+// ptxas at 168 and spilled). 4-tile steps (a whole chunk) read each A fragment
+// once for 32 rows: 0.65 ms against 0.97 with 2-tile steps at (16, 785, 2 x
+// 256).
+constexpr int kRingWarps256 = 7;
+constexpr int kRingKeyTiles256 = 3;
+constexpr int kRingStages256 = 3;
+constexpr int kRingRows256 = 32;
+constexpr int kRingTiles256 = 4;
+__host__ __device__ constexpr int ring_warps(int dp) {
+  return dp <= 64 ? kRingWarps : dp == 128 ? kRingWarps128 : kRingWarps256;
+}
+__host__ __device__ constexpr int ring_key_tiles(int dp) {
+  return dp <= 64 ? kRingWarps
+                  : dp == 128 ? kRingKeyTiles128 : kRingKeyTiles256;
+}
+// warps a key tile of the key kernel: one sums dk and dv, or two (dk, dv)
+__host__ __device__ constexpr int ring_roles(int dp) {
+  return dp <= 64 ? 1 : dp == 128 ? kRingRoles128 : 2;
+}
+__host__ __device__ constexpr int ring_stages(int dp) {
+  return dp <= 64 ? kRingStages : dp == 128 ? kRingStages128 : kRingStages256;
+}
+__host__ __device__ constexpr int ring_rows(int dp) {
+  return dp <= 64 ? kLongRows : dp == 128 ? kRingRows128 : kRingRows256;
+}
+__host__ __device__ constexpr int ring_blocks(int dp) {
+  return dp <= 64 ? kRingBlocks : dp == 128 ? kRingBlocks128 : 1;
+}
+__host__ __device__ constexpr int ring_key_blocks(int dp) {
+  return dp <= 64 ? kRingBlocks : dp == 128 ? kRingKeyBlocks128 : 1;
+}
 template <int Dp>
 __host__ __device__ constexpr int ring_tiles() {
-  return Dp <= 32 || kRingTiles <= 2 ? kRingTiles : kRingTiles / 2;
+  return Dp == 128  ? kRingTiles128
+         : Dp == 256 ? kRingTiles256
+         : Dp <= 32 || kRingTiles <= 2 ? kRingTiles : kRingTiles / 2;
 }
 static_assert(kLongRows % (8 * kRingTiles) == 0, "whole steps a chunk");
+static_assert(kRingRows128 % (8 * kRingTiles128) == 0 &&
+                  kRingRows256 % (8 * kRingTiles256) == 0 &&
+                  kRingTiles128 % 2 == 0 && kRingTiles256 % 2 == 0,
+              "whole 16-row steps a chunk");
 // the ring's barriers (a full and an empty one a buffer) ahead of the
 // staged rows, in whole 16-byte units
-constexpr int kRingHeader = 16 * ((16 * kRingStages + 15) / 16);
+__host__ __device__ constexpr int ring_header(int dp) {
+  return 16 * ((16 * ring_stages(dp) + 15) / 16);
+}
 
 // dS from P, dA and the row's sum rd, in the same instructions in both
 // phases
@@ -367,28 +448,6 @@ __device__ __forceinline__ void key_pds(float (&s)[NT][4],
   }
 }
 
-// Phase 2, one step: dk += dS^T Q and dv += round(P^T) G over the staged
-// query rows q0..q0+15 (P^T rounded to bf16, as the forward multiplied V
-// by it); 16-row steps at or past npad skipped.
-template <int Dp>
-__device__ __forceinline__ void key_accumulate(
-    float (&dk)[Dp / 8][4], float (&dv)[Dp / 8][4],
-    const float (&s)[kBwdTiles][4], const float (&da)[kBwdTiles][4],
-    const tc::bf16* qs, const tc::bf16* gs, int q0, int npad, int lane) {
-#pragma unroll
-  for (int p = 0; p < kBwdTiles / 2; ++p) {
-    const int k0 = q0 + 16 * p;
-    if (k0 >= npad) continue;
-    accumulate_split<Dp>(dk, da[2 * p], da[2 * p + 1], qs, k0, lane);
-    const uint32_t pa[1][4] = {{
-        tc::pack(s[2 * p][0], s[2 * p][1]),
-        tc::pack(s[2 * p][2], s[2 * p][3]),
-        tc::pack(s[2 * p + 1][0], s[2 * p + 1][1]),
-        tc::pack(s[2 * p + 1][2], s[2 * p + 1][3])}};
-    tc::accumulate<Dp, 1>(dv, pa, gs, k0, lane);
-  }
-}
-
 // Phase 1, a step of NT / 2 16-key sub-steps: fold each into the running
 // max m, sum l and rd of rows g and g + 8 as fold_step folds one, in the
 // same order, with the same values: the sub-steps' maxima, exps and sums
@@ -482,8 +541,10 @@ __device__ __forceinline__ void accumulate_steps(float (&acc)[Dp / 8][4],
   }
 }
 
-// Phase 2, a step: key_accumulate over its 16-query sub-steps from q0 on,
-// in order; sub-steps from ``live`` on are left out (as accumulate_steps).
+// Phase 2, a step: dk += dS^T Q and dv += round(P^T) G over its 16-query
+// sub-steps from q0 on (P^T rounded to bf16, as the forward multiplied V
+// by it), in order; sub-steps from ``live`` on are left out (as
+// accumulate_steps).
 template <int Dp, int NT>
 __device__ __forceinline__ void key_accumulate_steps(
     float (&dk)[Dp / 8][4], float (&dv)[Dp / 8][4], const float (&s)[NT][4],
@@ -669,288 +730,33 @@ attention_bwd_mma_kernel(const Operands<tc::bf16> ops, int n, int d_arg,
   }
 }
 
-// bf16 key-chunked route at Dp >= 128, phase 1: one block per 16 *
-// kLongWarps query rows, K and V kLongRows rows at a time (double-buffered
-// cp.async groups) -> dq and the rows' max, 1 / sum and rd in ``stats``.
+// bf16 key-chunked route, phase 1, the ring body: one block per 16 * W
+// query rows (W = ring_warps(Dp) consumer warps, a 16-row tile each, and
+// one producer warp), K and V streamed ring_rows(Dp) rows at a time
+// through the ring_stages(Dp) buffers of attention_mma.cuh's Ring, twice
+// (sweep 0 takes m, l and rd; sweep 1 dq), 8 * ring_tiles() keys a warp
+// step -> dq and the rows' max, 1 / sum and rd in ``stats``. The 16-key
+// sub-steps keep the whole-sequence body's order: the same bits.
 template <int Dp>
-__global__ void __launch_bounds__(kLongWarps * 32)
-attention_bwd_mma_q_kernel(const Operands<tc::bf16> ops,
-                           float* __restrict__ stats, int n, int heads, int d,
-                           float scale) {
-  using tc::bf16;
-  constexpr int kPad = tc::row_pad(Dp);
-  constexpr int kRows = 16 * kLongWarps;
-  extern __shared__ uint4 smem_tc[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // kRows rows each
-  bf16* gs = qs + kRows * kPad;
-  bf16* kv = gs + kRows * kPad;  // 2 buffers of K then V, kLongRows rows
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int npad = tc::pad16(n);
-  const int q0 = blockIdx.x * kRows;
-  const int r0 = q0 + 16 * warp;  // this warp's query tile
-  const bool active = r0 < npad;
-  const bf16* kh = ops.k.head(b, h, d);
-  const bf16* vh = ops.v.head(b, h, d);
-  const int rows = min(kRows, n - q0);
-
-  tc::stage_rows<Dp>(ops.q.head(b, h, d) + q0 * ops.q.row, ops.q.row, qs,
-                     rows, kRows, d);
-  tc::stage_rows<Dp>(ops.g.head(b, h, d) + q0 * ops.g.row, ops.g.row, gs,
-                     rows, kRows, d);
-  tc::cp_async_wait_all();
-  __syncthreads();
-  constexpr bool kASmem = tc::a_in_smem(Dp);  // Q's, G's fragments per step
-  uint32_t qa[kASmem ? 1 : Dp / 16][4], ga[kASmem ? 1 : Dp / 16][4];
-  if constexpr (!kASmem) {
-    if (active) {
-      tc::load_a<Dp>(qa, qs, 16 * warp, lane);
-      tc::load_a<Dp>(ga, gs, 16 * warp, lane);
-    }
-  }
-
-  const int chunks = (n + kLongRows - 1) / kLongRows;
-  auto stage = [&](int c) {
-    bf16* kb = kv + (c & 1) * 2 * kLongRows * kPad;
-    const int k0 = c * kLongRows;
-    const int cnt = min(kLongRows, n - k0);
-    tc::stage_rows<Dp>(kh + k0 * ops.k.row, ops.k.row, kb, cnt, kLongRows, d);
-    tc::stage_rows<Dp>(vh + k0 * ops.v.row, ops.v.row, kb + kLongRows * kPad,
-                       cnt, kLongRows, d);
-    tc::cp_async_commit();
-  };
-
-  float s[kBwdTiles][4], da[kBwdTiles][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
-  float inv[2] = {0.f, 0.f};
-  float dq[Dp / 8][4] = {};
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    stage(0);
-    for (int c = 0; c < chunks; ++c) {
-      if (c + 1 < chunks) {
-        stage(c + 1);
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (active) {
-        const bf16* kb = kv + (c & 1) * 2 * kLongRows * kPad;
-        const bf16* vb = kb + kLongRows * kPad;
-        const int left = n - c * kLongRows;  // keys from the chunk's first
-        // the whole-sequence body's 16-key steps, those below n
-        for (int key0 = 0; key0 < kLongRows && key0 < left; key0 += kStep) {
-          if constexpr (kASmem) {
-            tc::masked_scores_smem<Dp>(s, qs, 16 * warp, kb, key0, left,
-                                       kLongRows, scale, lane);
-            tc::products_smem<Dp>(da, gs, 16 * warp, vb, key0, kLongRows,
-                                  lane);
-          } else {
-            tc::masked_scores<Dp>(s, qa, kb, key0, left, kLongRows, scale,
-                                  lane);
-            tc::products<Dp>(da, ga, vb, key0, kLongRows, lane);
-          }
-          if (sweep == 0) {
-            fold_step(s, da, m, l, rd);
-          } else {
-            query_dscores(s, da, m, inv, rd, scale);
-#pragma unroll
-            for (int p = 0; p < kBwdTiles / 2; ++p) {
-              accumulate_split<Dp>(dq, s[2 * p], s[2 * p + 1], kb,
-                                   key0 + 16 * p, lane);
-            }
-          }
-        }
-      }
-      __syncthreads();  // buffer c % 2 is free for chunk c + 2
-    }
-    if (sweep == 0) {
-      inv[0] = 1.f / l[0];
-      inv[1] = 1.f / l[1];
-      rd[0] *= inv[0];
-      rd[1] *= inv[1];
-    }
-  }
-  if (active) {
-    tc::store_rows<Dp>(dq, ops.dq.head(b, h, d), ops.dq.row, r0, n, d, lane);
-    if (t == 0) {
-      float* st = stats_of(stats, b, h, heads, npad);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        st[r0 + g + 8 * r] = m[r];
-        st[npad + r0 + g + 8 * r] = inv[r];
-        st[2 * npad + r0 + g + 8 * r] = rd[r];
-      }
-    }
-  }
-}
-
-// bf16 key-chunked route at Dp >= 128, phase 2: one block per 16 *
-// kLongWarps key rows, Q, G and the rows' statistics kLongRows rows at a
-// time -> dk, dv.
-template <int Dp>
-__global__ void __launch_bounds__(kLongWarps * 32 * key_roles(Dp))
-attention_bwd_mma_k_kernel(const Operands<tc::bf16> ops,
-                           const float* __restrict__ stats, int n, int heads,
-                           int d, float scale) {
-  using tc::bf16;
-  constexpr int kPad = tc::row_pad(Dp);
-  constexpr int kRows = 16 * kLongWarps;
-  constexpr int kBuf = 2 * kLongRows * kPad;  // Q then G of one chunk
-  constexpr int kRoles = key_roles(Dp);
-  extern __shared__ uint4 smem_tc[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_tc);  // kRows rows each
-  bf16* vs = ks + kRows * kPad;
-  bf16* qg = vs + kRows * kPad;                  // 2 buffers of kBuf
-  float* sts = reinterpret_cast<float*>(qg + 2 * kBuf);  // 2 x 3 kLongRows
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  // the warp's key tile, and with two roles whether it sums dk (0) or dv
-  const int warp = kRoles == 1 ? threadIdx.x >> 5
-                               : (threadIdx.x >> 5) % kLongWarps;
-  const int role = kRoles == 1 ? 0 : (threadIdx.x >> 5) / kLongWarps;
-  const int npad = tc::pad16(n);
-  const int k0 = blockIdx.x * kRows;
-  const int c0 = k0 + 16 * warp;  // this warp's key tile
-  const bool active = c0 < npad;
-  const bf16* qh = ops.q.head(b, h, d);
-  const bf16* gh = ops.g.head(b, h, d);
-  const float* sh = stats + (static_cast<int64_t>(b) * heads + h) * 3 * npad;
-  const int rows = min(kRows, n - k0);
-
-  tc::stage_rows<Dp>(ops.k.head(b, h, d) + k0 * ops.k.row, ops.k.row, ks,
-                     rows, kRows, d);
-  tc::stage_rows<Dp>(ops.v.head(b, h, d) + k0 * ops.v.row, ops.v.row, vs,
-                     rows, kRows, d);
-  tc::cp_async_wait_all();
-  __syncthreads();
-  uint32_t ka[kRoles == 1 ? Dp / 16 : 1][4], va[kRoles == 1 ? Dp / 16 : 1][4];
-  if constexpr (kRoles == 1) {
-    if (active) {
-      tc::load_a<Dp>(ka, ks, 16 * warp, lane);
-      tc::load_a<Dp>(va, vs, 16 * warp, lane);
-    }
-  }
-
-  const int chunks = (n + kLongRows - 1) / kLongRows;
-  auto stage = [&](int c) {
-    bf16* qb = qg + (c & 1) * kBuf;
-    float* st = sts + (c & 1) * 3 * kLongRows;
-    const int q0 = c * kLongRows;
-    const int cnt = min(kLongRows, n - q0);
-    tc::stage_rows<Dp>(qh + q0 * ops.q.row, ops.q.row, qb, cnt, kLongRows, d);
-    tc::stage_rows<Dp>(gh + q0 * ops.g.row, ops.g.row, qb + kLongRows * kPad,
-                       cnt, kLongRows, d);
-    tc::cp_async_commit();
-    for (int idx = threadIdx.x; idx < 3 * kLongRows; idx += blockDim.x) {
-      const int w = idx / kLongRows, i = idx - w * kLongRows;
-      st[idx] = q0 + i < npad ? sh[w * npad + q0 + i] : 0.f;
-    }
-  };
-
-  float s[kBwdTiles][4], da[kBwdTiles][4];
-  // with two roles dk holds the warp's one gradient, dk or dv
-  float dk[Dp / 8][4] = {}, dv[kRoles == 1 ? Dp / 8 : 1][4] = {};
-  stage(0);
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      stage(c + 1);
-      tc::cp_async_wait<1>();
-    } else {
-      tc::cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      const bf16* qb = qg + (c & 1) * kBuf;
-      const bf16* gb = qb + kLongRows * kPad;
-      const float* st = sts + (c & 1) * 3 * kLongRows;
-      const int left = n - c * kLongRows;  // queries from the chunk's first
-      for (int q0 = 0; q0 < kLongRows && q0 < left; q0 += kStep) {
-        if constexpr (kRoles == 1) {
-          tc::products<Dp>(s, ka, qb, q0, kLongRows, lane);   // S^T
-          tc::products<Dp>(da, va, gb, q0, kLongRows, lane);  // dA^T
-          key_pds(s, da, q0, left, st, st + kLongRows, st + 2 * kLongRows,
-                  scale, lane);
-          key_accumulate<Dp>(dk, dv, s, da, qb, gb, q0, kLongRows, lane);
-        } else {
-          tc::products_smem<Dp>(s, ks, 16 * warp, qb, q0, kLongRows,
-                                lane);  // S^T
-          if (role == 0) {
-            tc::products_smem<Dp>(da, vs, 16 * warp, gb, q0, kLongRows,
-                                  lane);  // dA^T
-          } else {
-#pragma unroll
-            for (int j = 0; j < kBwdTiles; ++j) {
-              da[j][0] = da[j][1] = da[j][2] = da[j][3] = 0.f;
-            }
-          }
-          key_pds(s, da, q0, left, st, st + kLongRows, st + 2 * kLongRows,
-                  scale, lane);
-#pragma unroll
-          for (int p = 0; p < kBwdTiles / 2; ++p) {
-            const int k0q = q0 + 16 * p;
-            if (k0q >= kLongRows) continue;
-            if (role == 0) {
-              accumulate_split<Dp>(dk, da[2 * p], da[2 * p + 1], qb, k0q,
-                                   lane);
-            } else {  // P^T rounded to bf16, as the forward multiplied V
-              const uint32_t pa[1][4] = {{
-                  tc::pack(s[2 * p][0], s[2 * p][1]),
-                  tc::pack(s[2 * p][2], s[2 * p][3]),
-                  tc::pack(s[2 * p + 1][0], s[2 * p + 1][1]),
-                  tc::pack(s[2 * p + 1][2], s[2 * p + 1][3])}};
-              tc::accumulate<Dp, 1>(dk, pa, gb, k0q, lane);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // buffer c % 2 is free for chunk c + 2
-  }
-  if (active) {
-    if constexpr (kRoles == 1) {
-      tc::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d,
-                         lane);
-      tc::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d,
-                         lane);
-    } else {
-      const Operand<bf16>& o = role == 0 ? ops.dk : ops.dv;
-      tc::store_rows<Dp>(dk, o.head(b, h, d), o.row, c0, n, d, lane);
-    }
-  }
-}
-
-// bf16 key-chunked route at Dp <= 64, phase 1, the ring body: one block
-// per 16 * W query rows (W consumer warps, a 16-row tile each, and one
-// producer warp), K and V streamed kLongRows rows at a time through the
-// kRingStages buffers of attention_mma.cuh's Ring, twice (sweep 0 takes m,
-// l and rd; sweep 1 dq), 8 * ring_tiles() keys a warp step -> dq and the
-// rows' max, 1 / sum and rd in ``stats``. The 16-key sub-steps keep the
-// whole-sequence body's order: the same bits.
-template <int Dp>
-__global__ void __launch_bounds__(32 * (kRingWarps + 1), kRingBlocks)
+__global__ void __launch_bounds__(32 * (ring_warps(Dp) + 1), ring_blocks(Dp))
 attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
                                 float* __restrict__ stats, int n, int heads,
                                 int d, float scale) {
   using tc::bf16;
   constexpr int kPad = tc::row_pad(Dp);
   constexpr int NT = ring_tiles<Dp>();
-  constexpr int kBuf = 2 * kLongRows * kPad;  // K then V of one chunk
+  constexpr int kRows = ring_rows(Dp);
+  constexpr int kStages = ring_stages(Dp);
+  constexpr int kBuf = 2 * kRows * kPad;  // K then V of one chunk
   extern __shared__ uint4 smem_tc[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
-  tc::Ring ring{bars, bars + kRingStages};
+  tc::Ring ring{bars, bars + kStages};
   const int warps = (blockDim.x >> 5) - 1;  // the last warp stages
   const int rows = 16 * warps;
   bf16* qs = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem_tc) +
-                                     kRingHeader);  // rows rows each
+                                     ring_header(Dp));  // rows rows each
   bf16* gs = qs + rows * kPad;
-  bf16* kv = gs + rows * kPad;  // kRingStages buffers of kBuf
+  bf16* kv = gs + rows * kPad;  // kStages buffers of kBuf
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -960,7 +766,22 @@ attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
   const int npad = tc::pad16(n);
   const int q0 = blockIdx.x * rows;
   const int tiles = min(warps, (npad - q0) / 16);  // warps with a tile
-  tc::ring_init(ring, kRingStages, tiles);
+  // Dp >= 128: K and V staged by bulk copies where their rows allow it
+  // (attention_mma.cuh), their columns d..Dp-1 zeroed once here
+  constexpr bool kBulkWidth = Dp >= 128;
+  bool bulk = false;
+  if constexpr (kBulkWidth) {
+    bulk = tc::rows_16b(ops.k.head(b, h, d), ops.k.row, d) &&
+           tc::rows_16b(ops.v.head(b, h, d), ops.v.row, d);
+    tc::ring_init(ring, kStages, tiles,
+                  bulk ? tc::kRingBulkCount : tc::kRingFullCount);
+    if (bulk && d < Dp) {
+      tc::ring_zero_columns<Dp>(kv, kStages * 2 * kRows, d, threadIdx.x,
+                                blockDim.x);
+    }
+  } else {
+    tc::ring_init(ring, kStages, tiles);
+  }
   const int cnt = min(rows, n - q0);
   tc::stage_rows<Dp>(ops.q.head(b, h, d) + q0 * ops.q.row, ops.q.row, qs,
                      cnt, rows, d);
@@ -969,20 +790,32 @@ attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
   tc::cp_async_wait_all();
   __syncthreads();
 
-  const int chunks = (n + kLongRows - 1) / kLongRows;
+  const int chunks = (n + kRows - 1) / kRows;
   if (warp == warps) {  // K and V chunk by chunk, once a sweep
     const bf16* kh = ops.k.head(b, h, d);
     const bf16* vh = ops.v.head(b, h, d);
     for (int i = 0; i < 2 * chunks; ++i) {
-      const int k0 = (i < chunks ? i : i - chunks) * kLongRows;
-      const int kc = min(kLongRows, n - k0);
-      tc::ring_produce(ring, kRingStages, [&](int st) {
+      const int k0 = (i < chunks ? i : i - chunks) * kRows;
+      const int kc = min(kRows, n - k0);
+      if constexpr (kBulkWidth) {
+        if (bulk) {
+          tc::ring_produce_bulk(
+              ring, kStages, 4u * kc * d, lane, [&](int st, uint64_t* bar) {
+                bf16* kb = kv + st * kBuf;
+                tc::bulk_rows<Dp>(kh + k0 * ops.k.row, ops.k.row, kb, kc,
+                                  kRows, d, bar, lane);
+                tc::bulk_rows<Dp>(vh + k0 * ops.v.row, ops.v.row,
+                                  kb + kRows * kPad, kc, kRows, d, bar, lane);
+              });
+          continue;
+        }
+      }
+      tc::ring_produce(ring, kStages, [&](int st) {
         bf16* kb = kv + st * kBuf;
-        tc::stage_rows_by<Dp>(kh + k0 * ops.k.row, ops.k.row, kb, kc,
-                              kLongRows, d, lane, 32u);
+        tc::stage_rows_by<Dp>(kh + k0 * ops.k.row, ops.k.row, kb, kc, kRows,
+                              d, lane, 32u);
         tc::stage_rows_by<Dp>(vh + k0 * ops.v.row, ops.v.row,
-                              kb + kLongRows * kPad, kc, kLongRows, d, lane,
-                              32u);
+                              kb + kRows * kPad, kc, kRows, d, lane, 32u);
       });
     }
     tc::cp_async_wait_all();
@@ -991,9 +824,15 @@ attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
   if (warp >= tiles) return;
 
   const int r0 = q0 + 16 * warp;  // this warp's query tile
-  uint32_t qa[Dp / 16][4], ga[Dp / 16][4];
-  tc::load_a<Dp>(qa, qs, 16 * warp, lane);
-  tc::load_a<Dp>(ga, gs, 16 * warp, lane);
+  // Q's and G's A fragments in registers at Dp <= 64, else read from the
+  // staged rows at each step in the same mma order (products_smem): beside
+  // dq's Dp / 2 accumulators they would not fit the registers
+  constexpr bool kASmem = Dp >= 128;
+  uint32_t qa[kASmem ? 1 : Dp / 16][4], ga[kASmem ? 1 : Dp / 16][4];
+  if constexpr (!kASmem) {
+    tc::load_a<Dp>(qa, qs, 16 * warp, lane);
+    tc::load_a<Dp>(ga, gs, 16 * warp, lane);
+  }
   float s[NT][4], da[NT][4];
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
   float inv[2] = {0.f, 0.f};
@@ -1002,13 +841,19 @@ attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
     for (int c = 0; c < chunks; ++c) {
       tc::ring_acquire(ring);
       const bf16* kb = kv + ring.stage * kBuf;
-      const bf16* vb = kb + kLongRows * kPad;
-      const int left = n - c * kLongRows;  // keys from the chunk's first
-      for (int key0 = 0; key0 < kLongRows && key0 < left; key0 += 8 * NT) {
+      const bf16* vb = kb + kRows * kPad;
+      const int left = n - c * kRows;  // keys from the chunk's first
+      for (int key0 = 0; key0 < kRows && key0 < left; key0 += 8 * NT) {
         // the step's 16-key sub-steps that hold a key below n
         const int live = min(NT / 2, (left - key0 + 15) / 16);
-        tc::step_scores<Dp>(s, qa, kb, key0, left, kLongRows, scale, lane);
-        tc::products<Dp>(da, ga, vb, key0, kLongRows, lane);
+        if constexpr (kASmem) {
+          tc::step_scores_smem<Dp>(s, qs, 16 * warp, kb, key0, left, kRows,
+                                   scale, lane);
+          tc::products_smem<Dp>(da, gs, 16 * warp, vb, key0, kRows, lane);
+        } else {
+          tc::step_scores<Dp>(s, qa, kb, key0, left, kRows, scale, lane);
+          tc::products<Dp>(da, ga, vb, key0, kRows, lane);
+        }
         if (sweep == 0) {
           fold_steps(s, da, m, l, rd, live);
         } else {
@@ -1016,7 +861,7 @@ attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
           accumulate_steps<Dp>(dq, s, kb, key0, live, lane);
         }
       }
-      tc::ring_release(ring, kRingStages, lane);
+      tc::ring_release(ring, kStages, lane);
     }
     if (sweep == 0) {
       inv[0] = 1.f / l[0];
@@ -1037,29 +882,59 @@ attention_bwd_mma_ring_q_kernel(const Operands<tc::bf16> ops,
   }
 }
 
-// bf16 key-chunked route at Dp <= 64, phase 2, the ring body: one block
-// per 16 * W key rows (as phase 1), Q, G and the rows' statistics streamed
-// kLongRows rows at a time through the ring, 8 * ring_tiles() queries a
-// warp step -> dk, dv, in the whole-sequence body's 16-query order.
+// Phase 2, a step of the dv warp of a key tile with two warps: dv +=
+// round(P^T) G over its 16-query sub-steps from q0 on, in order, as
+// key_accumulate_steps sums dv; sub-steps from ``live`` on are left out.
+template <int Dp, int NT>
+__device__ __forceinline__ void key_dv_steps(float (&dv)[Dp / 8][4],
+                                             const float (&s)[NT][4],
+                                             const tc::bf16* gs, int q0,
+                                             int live, int lane) {
+#pragma unroll
+  for (int p = 0; p < NT / 2; ++p) {
+    if (p < live) {
+      // P^T rounded to bf16, as the forward multiplied V by it
+      const uint32_t pa[1][4] = {{
+          tc::pack(s[2 * p][0], s[2 * p][1]),
+          tc::pack(s[2 * p][2], s[2 * p][3]),
+          tc::pack(s[2 * p + 1][0], s[2 * p + 1][1]),
+          tc::pack(s[2 * p + 1][2], s[2 * p + 1][3])}};
+      tc::accumulate<Dp, 1>(dv, pa, gs, q0 + 16 * p, lane);
+    }
+  }
+}
+
+// bf16 key-chunked route, phase 2, the ring body: one block per 16 * W
+// key rows (W = ring_key_tiles(Dp) tiles, ring_roles(Dp) consumer warps
+// each, and one producer warp), Q, G and the rows' statistics streamed
+// ring_rows(Dp) rows at a time through the ring, 8 * ring_tiles() queries
+// a warp step -> dk, dv, in the whole-sequence body's 16-query order.
+// With two roles the first warp of a tile sums dk (S^T and dA^T), the
+// second dv (S^T only).
 template <int Dp>
-__global__ void __launch_bounds__(32 * (kRingWarps + 1), kRingBlocks)
+__global__ void __launch_bounds__(
+    32 * (ring_roles(Dp) * ring_key_tiles(Dp) + 1), ring_key_blocks(Dp))
 attention_bwd_mma_ring_k_kernel(const Operands<tc::bf16> ops,
                                 const float* __restrict__ stats, int n,
                                 int heads, int d, float scale) {
   using tc::bf16;
   constexpr int kPad = tc::row_pad(Dp);
   constexpr int NT = ring_tiles<Dp>();
-  // Q then G of one chunk, then its 3 x kLongRows statistics (f32)
-  constexpr int kBuf = 2 * kLongRows * kPad + 6 * kLongRows;
+  constexpr int kRows = ring_rows(Dp);
+  constexpr int kStages = ring_stages(Dp);
+  constexpr int kRoles = ring_roles(Dp);
+  // Q then G of one chunk, then its 3 x kRows statistics (f32)
+  constexpr int kBuf = 2 * kRows * kPad + 6 * kRows;
   extern __shared__ uint4 smem_tc[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem_tc);
-  tc::Ring ring{bars, bars + kRingStages};
-  const int warps = (blockDim.x >> 5) - 1;  // the last warp stages
+  tc::Ring ring{bars, bars + kStages};
+  // key tiles a block; the last warp stages
+  const int warps = ((blockDim.x >> 5) - 1) / kRoles;
   const int rows = 16 * warps;
   bf16* ks = reinterpret_cast<bf16*>(reinterpret_cast<char*>(smem_tc) +
-                                     kRingHeader);  // rows rows each
+                                     ring_header(Dp));  // rows rows each
   bf16* vs = ks + rows * kPad;
-  bf16* qg = vs + rows * kPad;  // kRingStages buffers of kBuf
+  bf16* qg = vs + rows * kPad;  // kStages buffers of kBuf
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -1067,8 +942,27 @@ attention_bwd_mma_ring_k_kernel(const Operands<tc::bf16> ops,
   const int warp = threadIdx.x >> 5;
   const int npad = tc::pad16(n);
   const int k0 = blockIdx.x * rows;
-  const int tiles = min(warps, (npad - k0) / 16);  // warps with a tile
-  tc::ring_init(ring, kRingStages, tiles);
+  const int tiles = min(warps, (npad - k0) / 16);  // key tiles with rows
+  // Dp >= 128: Q, G and the statistics staged by bulk copies where their
+  // rows allow it (attention_mma.cuh), Q's and G's columns d..Dp-1 zeroed
+  // once here
+  constexpr bool kBulkWidth = Dp >= 128;
+  bool bulk = false;
+  if constexpr (kBulkWidth) {
+    bulk = tc::rows_16b(ops.q.head(b, h, d), ops.q.row, d) &&
+           tc::rows_16b(ops.g.head(b, h, d), ops.g.row, d) &&
+           reinterpret_cast<uintptr_t>(stats) % 16 == 0;
+    tc::ring_init(ring, kStages, kRoles * tiles,
+                  bulk ? tc::kRingBulkCount : tc::kRingFullCount);
+    if (bulk && d < Dp) {
+      for (int st = 0; st < kStages; ++st) {
+        tc::ring_zero_columns<Dp>(qg + st * kBuf, 2 * kRows, d, threadIdx.x,
+                                  blockDim.x);
+      }
+    }
+  } else {
+    tc::ring_init(ring, kStages, kRoles * tiles);
+  }
   const int cnt = min(rows, n - k0);
   tc::stage_rows<Dp>(ops.k.head(b, h, d) + k0 * ops.k.row, ops.k.row, ks,
                      cnt, rows, d);
@@ -1077,34 +971,54 @@ attention_bwd_mma_ring_k_kernel(const Operands<tc::bf16> ops,
   tc::cp_async_wait_all();
   __syncthreads();
 
-  const int chunks = (n + kLongRows - 1) / kLongRows;
-  if (warp == warps) {  // Q, G and the statistics chunk by chunk
+  const int chunks = (n + kRows - 1) / kRows;
+  if (warp == kRoles * warps) {  // Q, G and the statistics chunk by chunk
     const bf16* qh = ops.q.head(b, h, d);
     const bf16* gh = ops.g.head(b, h, d);
     const float* sh = stats + (static_cast<int64_t>(b) * heads + h) * 3 * npad;
     for (int c = 0; c < chunks; ++c) {
-      const int q0 = c * kLongRows;
-      const int qc = min(kLongRows, n - q0);
-      tc::ring_produce(ring, kRingStages, [&](int st) {
+      const int q0 = c * kRows;
+      const int qc = min(kRows, n - q0);
+      if constexpr (kBulkWidth) {
+        if (bulk) {
+          // the rows' statistics below npad: three copies of sr floats
+          const int sr = min(kRows, npad - q0);
+          tc::ring_produce_bulk(
+              ring, kStages, 4u * qc * d + 12u * sr, lane,
+              [&](int st, uint64_t* bar) {
+                bf16* qb = qg + st * kBuf;
+                tc::bulk_rows<Dp>(qh + q0 * ops.q.row, ops.q.row, qb, qc,
+                                  kRows, d, bar, lane);
+                tc::bulk_rows<Dp>(gh + q0 * ops.g.row, ops.g.row,
+                                  qb + kRows * kPad, qc, kRows, d, bar, lane);
+                if (lane < 3) {
+                  tc::bulk_row(reinterpret_cast<float*>(qb + 2 * kRows * kPad) +
+                                   lane * kRows,
+                               sh + lane * npad + q0, 4u * sr, bar);
+                }
+              });
+          continue;
+        }
+      }
+      tc::ring_produce(ring, kStages, [&](int st) {
         bf16* qb = qg + st * kBuf;
-        tc::stage_rows_by<Dp>(qh + q0 * ops.q.row, ops.q.row, qb, qc,
-                              kLongRows, d, lane, 32u);
+        tc::stage_rows_by<Dp>(qh + q0 * ops.q.row, ops.q.row, qb, qc, kRows,
+                              d, lane, 32u);
         tc::stage_rows_by<Dp>(gh + q0 * ops.g.row, ops.g.row,
-                              qb + kLongRows * kPad, qc, kLongRows, d, lane,
-                              32u);
+                              qb + kRows * kPad, qc, kRows, d, lane, 32u);
         // the rows' max, 1 / sum and rd below npad (the pad rows past n
         // are never read: key_pds gives their queries 0)
-        float* sb = reinterpret_cast<float*>(qb + 2 * kLongRows * kPad);
-        const int sr = min(kLongRows, npad - q0);
+        float* sb = reinterpret_cast<float*>(qb + 2 * kRows * kPad);
+        const int sr = min(kRows, npad - q0);
         if (reinterpret_cast<uintptr_t>(sh) % 16 == 0) {
           for (int idx = lane; idx < 3 * (sr / 4); idx += 32) {
             const int w = idx / (sr / 4), i = 4 * (idx - w * (sr / 4));
-            tc::cp_async16(sb + w * kLongRows + i, sh + w * npad + q0 + i);
+            tc::cp_async16(sb + w * kRows + i, sh + w * npad + q0 + i);
           }
         } else {
           for (int idx = lane; idx < 3 * sr; idx += 32) {
             const int w = idx / sr, i = idx - w * sr;
-            sb[w * kLongRows + i] = sh[w * npad + q0 + i];
+            sb[w * kRows + i] = sh[w * npad + q0 + i];
           }
         }
       });
@@ -1112,9 +1026,12 @@ attention_bwd_mma_ring_k_kernel(const Operands<tc::bf16> ops,
     tc::cp_async_wait_all();
     return;
   }
-  if (warp >= tiles) return;
+  // the warp's key tile, and with two roles whether it sums dk (0) or dv
+  const int tile = kRoles == 1 ? warp : warp % warps;
+  const int role = kRoles == 1 ? 0 : warp / warps;
+  if (tile >= tiles) return;
 
-  const int c0 = k0 + 16 * warp;  // this warp's key tile
+  const int c0 = k0 + 16 * tile;  // this warp's key tile
   // K's and V's A fragments in registers at Dp = 16, else read from the
   // staged rows at each step in the same mma order (products_smem), which
   // keeps the registers within the 128 a thread that two blocks an SM
@@ -1122,40 +1039,59 @@ attention_bwd_mma_ring_k_kernel(const Operands<tc::bf16> ops,
   constexpr bool kASmem = Dp >= 32;
   uint32_t ka[kASmem ? 1 : Dp / 16][4], va[kASmem ? 1 : Dp / 16][4];
   if constexpr (!kASmem) {
-    tc::load_a<Dp>(ka, ks, 16 * warp, lane);
-    tc::load_a<Dp>(va, vs, 16 * warp, lane);
+    tc::load_a<Dp>(ka, ks, 16 * tile, lane);
+    tc::load_a<Dp>(va, vs, 16 * tile, lane);
   }
   float s[NT][4], da[NT][4];
-  float dk[Dp / 8][4] = {}, dv[Dp / 8][4] = {};
+  // with two roles dk holds the warp's one gradient, dk or dv
+  float dk[Dp / 8][4] = {}, dv[kRoles == 1 ? Dp / 8 : 1][4] = {};
   for (int c = 0; c < chunks; ++c) {
     tc::ring_acquire(ring);
     const bf16* qb = qg + ring.stage * kBuf;
-    const bf16* gb = qb + kLongRows * kPad;
-    const float* st = reinterpret_cast<const float*>(gb + kLongRows * kPad);
-    const int left = n - c * kLongRows;  // queries from the chunk's first
-    for (int q0 = 0; q0 < kLongRows && q0 < left; q0 += 8 * NT) {
+    const bf16* gb = qb + kRows * kPad;
+    const float* st = reinterpret_cast<const float*>(gb + kRows * kPad);
+    const int left = n - c * kRows;  // queries from the chunk's first
+    for (int q0 = 0; q0 < kRows && q0 < left; q0 += 8 * NT) {
       // the step's 16-query sub-steps that hold a query below n
       const int live = min(NT / 2, (left - q0 + 15) / 16);
-      if constexpr (kASmem) {  // S^T, dA^T
-        tc::products_smem<Dp>(s, ks, 16 * warp, qb, q0, kLongRows, lane);
-        tc::products_smem<Dp>(da, vs, 16 * warp, gb, q0, kLongRows, lane);
+      if constexpr (kASmem) {  // S^T, dA^T (the dv warp: S^T only)
+        tc::products_smem<Dp>(s, ks, 16 * tile, qb, q0, kRows, lane);
+        if (role == 0) {
+          tc::products_smem<Dp>(da, vs, 16 * tile, gb, q0, kRows, lane);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            da[j][0] = da[j][1] = da[j][2] = da[j][3] = 0.f;
+          }
+        }
       } else {
-        tc::products<Dp>(s, ka, qb, q0, kLongRows, lane);
-        tc::products<Dp>(da, va, gb, q0, kLongRows, lane);
+        tc::products<Dp>(s, ka, qb, q0, kRows, lane);
+        tc::products<Dp>(da, va, gb, q0, kRows, lane);
       }
       if (q0 + 8 * NT <= left) {
-        key_pds<NT, true>(s, da, q0, left, st, st + kLongRows,
-                          st + 2 * kLongRows, scale, lane);
+        key_pds<NT, true>(s, da, q0, left, st, st + kRows, st + 2 * kRows,
+                          scale, lane);
       } else {
-        key_pds(s, da, q0, left, st, st + kLongRows, st + 2 * kLongRows,
-                scale, lane);
+        key_pds(s, da, q0, left, st, st + kRows, st + 2 * kRows, scale,
+                lane);
       }
-      key_accumulate_steps<Dp>(dk, dv, s, da, qb, gb, q0, live, lane);
+      if constexpr (kRoles == 1) {
+        key_accumulate_steps<Dp>(dk, dv, s, da, qb, gb, q0, live, lane);
+      } else if (role == 0) {
+        accumulate_steps<Dp>(dk, da, qb, q0, live, lane);
+      } else {
+        key_dv_steps<Dp>(dk, s, gb, q0, live, lane);
+      }
     }
-    tc::ring_release(ring, kRingStages, lane);
+    tc::ring_release(ring, kStages, lane);
   }
-  tc::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d, lane);
-  tc::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d, lane);
+  if constexpr (kRoles == 1) {
+    tc::store_rows<Dp>(dk, ops.dk.head(b, h, d), ops.dk.row, c0, n, d, lane);
+    tc::store_rows<Dp>(dv, ops.dv.head(b, h, d), ops.dv.row, c0, n, d, lane);
+  } else {
+    const Operand<bf16>& o = role == 0 ? ops.dk : ops.dv;
+    tc::store_rows<Dp>(dk, o.head(b, h, d), o.row, c0, n, d, lane);
+  }
 }
 
 // The f32 body, whole-sequence route: the bf16 body's two phases and
@@ -1469,21 +1405,19 @@ size_t smem_whole(int n, int dtype, int dp) {
 }
 
 size_t smem_long(int dtype, int dp) {
-  // the ring bodies: 2 tiles of 16 W rows and kRingStages buffers of 2 R
-  // rows, plus the k kernel's 3 R statistics a buffer
-  if (dtype == 1 && ring_body(dp)) {
-    return kRingHeader +
-           (2 * 16 * kRingWarps + kRingStages * 2 * kLongRows) *
+  // the ring bodies: 2 tiles of 16 W rows (W the larger of the two
+  // kernels' tiles a block) and S buffers of 2 R rows, plus the key
+  // kernel's 3 R statistics a buffer
+  if (dtype == 1) {
+    const int w = ring_warps(dp) > ring_key_tiles(dp) ? ring_warps(dp)
+                                                      : ring_key_tiles(dp);
+    return ring_header(dp) +
+           (2 * 16 * w + ring_stages(dp) * 2 * ring_rows(dp)) *
                tc::row_pad(dp) * sizeof(tc::bf16) +
-           kRingStages * 3 * kLongRows * sizeof(float);
+           ring_stages(dp) * 3 * ring_rows(dp) * sizeof(float);
   }
   // 2 tiles of 16 W rows and 2 buffers of 2 R rows, plus the k kernel's
   // 2 x 3 R statistics (W warps a block, R rows a chunk)
-  if (dtype == 1) {
-    return (2 * 16 * kLongWarps + 4 * kLongRows) * tc::row_pad(dp) *
-               sizeof(tc::bf16) +
-           6 * kLongRows * sizeof(float);
-  }
   return ((2 * 16 * f32_long_warps(dp) + 4 * f32_long_rows(dp)) *
               tf::row_pad(dp) +
           6 * f32_long_rows(dp)) *
@@ -1543,12 +1477,9 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
   constexpr int dtype = kMma ? 1 : 0;
   const size_t smem = smem_of(r, n, dtype, Dp);
   const void *qk, *kk;
-  if constexpr (kMma && ring_body(Dp)) {
+  if constexpr (kMma) {
     qk = reinterpret_cast<const void*>(attention_bwd_mma_ring_q_kernel<Dp>);
     kk = reinterpret_cast<const void*>(attention_bwd_mma_ring_k_kernel<Dp>);
-  } else if constexpr (kMma) {
-    qk = reinterpret_cast<const void*>(attention_bwd_mma_q_kernel<Dp>);
-    kk = reinterpret_cast<const void*>(attention_bwd_mma_k_kernel<Dp>);
   } else {
     qk = reinterpret_cast<const void*>(attention_bwd_tf32_q_kernel<Dp>);
     kk = reinterpret_cast<const void*>(attention_bwd_tf32_k_kernel<Dp>);
@@ -1586,26 +1517,18 @@ cudaError_t launch(const Operands<T>& ops, float* stats, int batch, int n,
   }
   if ((err = allow_smem(qk, smem)) != cudaSuccess) return err;
   if ((err = allow_smem(kk, smem)) != cudaSuccess) return err;
-  if constexpr (kMma && ring_body(Dp)) {
+  if constexpr (kMma) {
     const int tiles = tc::pad16(n) / 16;
-    const int warps = tiles < kRingWarps ? tiles : kRingWarps;
-    const dim3 grid((tiles + warps - 1) / warps, heads, batch);
+    const int qw = tiles < ring_warps(Dp) ? tiles : ring_warps(Dp);
+    const int kw = tiles < ring_key_tiles(Dp) ? tiles : ring_key_tiles(Dp);
     attention_bwd_mma_ring_q_kernel<Dp>
-        <<<grid, 32 * (warps + 1), smem, stream>>>(ops, stats, n, heads, d,
-                                                   scale);
+        <<<dim3((tiles + qw - 1) / qw, heads, batch), 32 * (qw + 1), smem,
+           stream>>>(ops, stats, n, heads, d, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     attention_bwd_mma_ring_k_kernel<Dp>
-        <<<grid, 32 * (warps + 1), smem, stream>>>(ops, stats, n, heads, d,
-                                                   scale);
-  } else if constexpr (kMma) {
-    const dim3 grid((tc::pad16(n) + 16 * kLongWarps - 1) / (16 * kLongWarps),
-                    heads, batch);
-    attention_bwd_mma_q_kernel<Dp><<<grid, 32 * kLongWarps, smem, stream>>>(
-        ops, stats, n, heads, d, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    attention_bwd_mma_k_kernel<Dp>
-        <<<grid, 32 * kLongWarps * key_roles(Dp), smem, stream>>>(
-            ops, stats, n, heads, d, scale);
+        <<<dim3((tiles + kw - 1) / kw, heads, batch),
+           32 * (ring_roles(Dp) * kw + 1), smem, stream>>>(ops, stats, n,
+                                                           heads, d, scale);
   } else {
     constexpr int kW = f32_long_warps(Dp);
     const dim3 grid((tc::pad16(n) + 16 * kW - 1) / (16 * kW), heads, batch);
@@ -1698,6 +1621,20 @@ int attention_qkv_bwd_smem_bytes(int n, int dtype, int head_dim) {
     return attn_wide::bwd_smem_bytes(dtype);
   }
   return static_cast<int>(smem_bytes(n, dtype, tc::padded_width(head_dim)));
+}
+
+// The kernels that run at that (n, dtype, head_dim), by their names in
+// this source (tools and tests read which body a shape takes): one name
+// on the whole-sequence route, the pair as "..._{q,k}_kernel" on the
+// others.
+const char* attention_qkv_bwd_body(int n, int dtype, int head_dim) {
+  if (head_dim >= attn_wide::kNarrowest) return "wide_bwd_{q,k}_kernel";
+  if (route(n, dtype, tc::padded_width(head_dim)) == 0) {
+    return dtype == 1 ? "attention_bwd_mma_kernel"
+                      : "attention_bwd_tf32_kernel";
+  }
+  return dtype == 1 ? "attention_bwd_mma_ring_{q,k}_kernel"
+                    : "attention_bwd_tf32_{q,k}_kernel";
 }
 
 // f32 elements of the statistics scratch the launch needs (0 on the

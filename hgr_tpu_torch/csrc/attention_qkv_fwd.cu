@@ -96,8 +96,9 @@
 // Dp = 32). A per-element division and expf cost more than the products
 // here, hence the reciprocal and the SFU exp.
 //
-// The key-chunked route at Dp = 16, 32 (the model's width, the 448 px
-// path) and 64 is the ring body, with constants of its own at each width.
+// The key-chunked route is the ring body at every padded width, with
+// constants of its own at each (Dp = 32 is the model's width, the 448 px
+// path).
 // Bound at (B=64, N=785, H=8, D=32, bf16): 102.9 MB moved (qkv read once,
 // 77.17 MB; out written once, 25.72 MB), 0.0307 ms at 3.35 TB/s, against
 // 4 N^2 D H B = 4.04e10 FLOP, 0.0408 ms at 989 TFLOP/s: bound by its
@@ -128,13 +129,36 @@
 //     kernel, whose fold holds the whole chunk, it took ptxas from 162
 //     registers to 168 and 40 bytes of spill, and the forward from 0.56
 //     to 0.61 ms at (64, 785, 768) (PERF.md section 6).
-// Each warp takes the key-chunked kernel's steps in the same order, the
-// sums in the same order: the same bits. At (64, 785, 768) the ring body
-// took 0.69 against the earlier kernel's 0.86 ms at Dp = 16 and 0.48
-// against 0.51 at Dp = 64, in turns (PERF.md section 6). Dp = 128 and 256
-// keep the earlier key-chunked kernel (64 queries a block, two cp.async
-// buffers, two block barriers a chunk). tools/tune_attention.py times the
-// bodies at other chunk, block, piece and ring sizes.
+// Each warp takes the whole-sequence body's steps in the same order, the
+// sums in the same order: the same bits (at Dp = 256, where no
+// whole-sequence body is built, those of the two-buffer key-chunked kernel
+// the card ran before, which the CPU emulator keeps as its reference:
+// tools/emulate/chunked_fwd.cuh). At (64, 785, 768) the ring body took
+// 0.69 against that kernel's 0.86 ms at Dp = 16 and 0.48 against 0.51 at
+// Dp = 64, in turns (PERF.md section 6).
+// At Dp = 128 and 256 (head widths 65 to 256) the exps no longer bind: at
+// (B=16, N=785, H=2) the bound is 4 N^2 D H B = 1.01e10 FLOP, 0.0102 ms,
+// at D = 128 (25.7 MB, 0.0077 ms by bytes) and 2.02e10, 0.0204 ms, at 256
+// (51.4 MB, 0.0154 ms), against ~0.01 ms of exps. What held the body
+// there, and what it does about it:
+//   - the staging: rows of 256 and 512 bytes, copied 16 bytes a lane by
+//     one producer warp, fell behind the consumers (0.36 ms at 2 x 256
+//     against the earlier kernel's 0.25, 0.43 at head width 192, whose
+//     zero columns doubled the producer's instructions); the producer now
+//     issues one bulk copy a row (Hopper's TMA engine: attention_mma.cuh,
+//     bulk_rows) and the columns d..Dp-1 are zeroed once;
+//   - the products: the first sweep holds a whole chunk's scores (S
+//     computed twice in all, not three times), while the output, not yet
+//     live, leaves it the registers; the second takes ring_piece tiles
+//     beside the output. Q's fragments stay in shared memory (two blocks
+//     an SM leave 128 registers at Dp = 128; one block, 230, at 256).
+// In turns at (16, 785, 2 x D) against the earlier kernel on an H100
+// (PERF.md section 6): 0.1414 -> 0.1002 ms at D = 128, 0.2474 -> 0.1855
+// at 256.
+// The ring at Dp = 256 is still ~9x its bound: 7 consumer warps an SM
+// (registers allow one block), each mma.sync product reading its A and B
+// fragments through ldmatrix. tools/tune_attention.py times the bodies at other
+// chunk, block, piece and ring sizes.
 //
 // f32 (cli.export's f32 eval, --dtype mixed's decoder, the check paths):
 // the same structure, routes and steps on the tensor cores by a three-way
@@ -191,8 +215,7 @@ __host__ __device__ constexpr int chunk_tiles() {
 // batch (B = 64, 512 blocks) runs in one wave; at N = 145 the 10 query
 // tiles go 4, 3, 3 to the warps.
 constexpr int kFwdWarps = 3;
-// Warps (16-row query tiles) per block of the bf16 key-chunked kernel
-// (widths 128 and 256) and of the f32 one.
+// Warps (16-row query tiles) per block of the f32 key-chunked kernel.
 constexpr int kLongWarps = 4;
 // The bf16 key-chunked route's ring body (Dp = 16, 32 and 64), its
 // constants per width, each set fitted by ptxas -v with no spill: most
@@ -225,22 +248,60 @@ constexpr int kRingWarps64 = 7;
 constexpr int kRingStages64 = 3;
 constexpr int kRingBlocks64 = 2;
 constexpr int kRingPiece64 = 4;
-__host__ __device__ constexpr bool ring_body(int dp) {
-  return dp == 16 || dp == 32 || dp == 64;
-}
+// Dp = 128 and 256 (bound by their products): K and V staged by bulk
+// copies, the first sweep holding a whole chunk's scores and the second
+// taking kRingPiece tiles at a time beside the output (see the note at the
+// top). Dp = 128: 48-key chunks of 136-element rows, three buffers
+// (108,848 bytes a block) so that an SM holds two blocks of eight warps at
+// 127 registers, Q's fragments read from shared memory (ring_q_smem), the
+// second sweep 2 tiles at a time (the whole chunk spilled 12 bytes;
+// tools/tune_attention.py --grid ring128, PERF.md section 6).
+constexpr int kRingWarps128 = 7;
+constexpr int kRingStages128 = 3;
+constexpr int kRingBlocks128 = 2;
+constexpr int kRingPiece128 = 2;
+// Dp = 256: 32-key chunks of 264-element rows, three buffers (160,560
+// bytes): one block an SM at 230 registers, the output's 128 accumulators
+// and the whole chunk.
+constexpr int kRingWarps256 = 7;
+constexpr int kRingStages256 = 3;
+constexpr int kRingBlocks256 = 1;
+constexpr int kRingPiece256 = 4;
 __host__ __device__ constexpr int ring_warps(int dp) {
-  return dp == 16 ? kRingWarps16 : dp == 32 ? kRingWarps32 : kRingWarps64;
+  return dp == 16    ? kRingWarps16
+         : dp == 32  ? kRingWarps32
+         : dp == 64  ? kRingWarps64
+         : dp == 128 ? kRingWarps128
+                     : kRingWarps256;
 }
 __host__ __device__ constexpr int ring_stages(int dp) {
-  return dp == 16 ? kRingStages16 : dp == 32 ? kRingStages32 : kRingStages64;
+  return dp == 16    ? kRingStages16
+         : dp == 32  ? kRingStages32
+         : dp == 64  ? kRingStages64
+         : dp == 128 ? kRingStages128
+                     : kRingStages256;
 }
 __host__ __device__ constexpr int ring_blocks(int dp) {
-  return dp == 16 ? kRingBlocks16 : dp == 32 ? kRingBlocks32 : kRingBlocks64;
+  return dp == 16    ? kRingBlocks16
+         : dp == 32  ? kRingBlocks32
+         : dp == 64  ? kRingBlocks64
+         : dp == 128 ? kRingBlocks128
+                     : kRingBlocks256;
 }
+// whether the ring body reads Q's A fragments from shared memory
+// (products_smem) at each step instead of holding them in registers: at
+// Dp = 128 and 256, where in registers they took no less time on an
+// H100 (0.0998 against 0.1005 ms at (16, 785, 2 x 128), 0.1838 against
+// 0.1833 at 2 x 256; PERF.md section 6) and the registers they free are
+// needed
+__host__ __device__ constexpr bool ring_q_smem(int dp) { return dp >= 128; }
 template <int Dp>
 __host__ __device__ constexpr int ring_piece() {
-  constexpr int kPiece =
-      Dp == 16 ? kRingPiece16 : Dp == 32 ? kRingPiece32 : kRingPiece64;
+  constexpr int kPiece = Dp == 16    ? kRingPiece16
+                         : Dp == 32  ? kRingPiece32
+                         : Dp == 64  ? kRingPiece64
+                         : Dp == 128 ? kRingPiece128
+                                     : kRingPiece256;
   return chunk_tiles<Dp>() % kPiece == 0 && kPiece % 2 == 0
              ? kPiece
              : chunk_tiles<Dp>();
@@ -444,108 +505,26 @@ attention_fwd_mma_kernel(const Operand<tc::bf16> q_op,
   }
 }
 
-// The bf16 key-chunked route at widths other than Dp = 32: one block per
-// 16 * kLongWarps queries, K and V through shared memory a register chunk
-// at a time (see the note at the top).
-template <int Dp>
-__global__ void __launch_bounds__(kLongWarps * 32)
-attention_fwd_mma_long_kernel(const Operand<tc::bf16> q_op,
-                              const Operand<tc::bf16> k_op,
-                              const Operand<tc::bf16> v_op,
-                              tc::bf16* __restrict__ out, int n, int heads,
-                              int d, float scale) {
-  constexpr int kPad = tc::row_pad(Dp);
-  constexpr int NT = chunk_tiles<Dp>();
-  constexpr int kChunk = 8 * NT;
-  constexpr int kRows = 16 * kLongWarps;
-  extern __shared__ uint4 smem_tc[];
-  tc::bf16* qs = reinterpret_cast<tc::bf16*>(smem_tc);  // kRows rows
-  tc::bf16* kv = qs + kRows * kPad;  // 2 buffers of K then V, kChunk rows
-
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * kRows;
-  const int npad = tc::pad16(n);
-  const bool active = q0 + 16 * warp < npad;
-  const int64_t hd = static_cast<int64_t>(heads) * d;
-  const tc::bf16* kh = k_op.head(b, h, d);
-  const tc::bf16* vh = v_op.head(b, h, d);
-
-  tc::stage_rows<Dp>(q_op.head(b, h, d) + q0 * q_op.row, q_op.row, qs,
-                     min(kRows, n - q0), kRows, d);
-  tc::cp_async_wait_all();
-  __syncthreads();
-  constexpr bool kQSmem = tc::a_in_smem(Dp);  // Q's fragments read per step
-  uint32_t qa[kQSmem ? 1 : Dp / 16][4];
-  if constexpr (!kQSmem) {
-    if (active) tc::load_a<Dp>(qa, qs, 16 * warp, lane);
-  }
-
-  const int chunks = (n + kChunk - 1) / kChunk;
-  // stage chunk c of K (and of V) into buffer c % 2, as one cp.async group
-  auto stage = [&](int c, bool with_v) {
-    tc::bf16* kb = kv + (c & 1) * 2 * kChunk * kPad;
-    const int k0 = c * kChunk;
-    const int cnt = min(kChunk, n - k0);
-    tc::stage_rows<Dp>(kh + k0 * k_op.row, k_op.row, kb, cnt, kChunk, d);
-    if (with_v) {
-      tc::stage_rows<Dp>(vh + k0 * v_op.row, v_op.row, kb + kChunk * kPad,
-                         cnt, kChunk, d);
-    }
-    tc::cp_async_commit();
-  };
-
-  float s[NT][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[Dp / 8][4] = {};
-  float inv[2] = {0.f, 0.f};
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    const bool second = sweep == 1;
-    stage(0, second);
-    for (int c = 0; c < chunks; ++c) {
-      if (c + 1 < chunks) {
-        stage(c + 1, second);
-        tc::cp_async_wait<1>();
-      } else {
-        tc::cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (active) {
-        const tc::bf16* kb = kv + (c & 1) * 2 * kChunk * kPad;
-        if constexpr (kQSmem) {
-          tc::masked_scores_smem<Dp>(s, qs, 16 * warp, kb, 0, n - c * kChunk,
-                                     kChunk, scale, lane);
-        } else {
-          tc::masked_scores<Dp>(s, qa, kb, 0, n - c * kChunk, kChunk, scale,
-                                lane);
-        }
-        if (!second) {
-          fold_chunk(s, m, l, false);
-        } else {
-          exp_scores(s, m);
-          accumulate_pv<Dp>(o, s, inv, kb + kChunk * kPad, 0, kChunk, lane);
-        }
-      }
-      __syncthreads();  // buffer c % 2 is free for chunk c + 2
-    }
-    // P normalised by the rounded reciprocal of the sum
-    inv[0] = 1.f / l[0];
-    inv[1] = 1.f / l[1];
-  }
-  if (active) {
-    tc::store_rows<Dp>(o, out + static_cast<int64_t>(b) * n * hd + h * d,
-                       hd, q0 + 16 * warp, n, d, lane);
+// The scores of one step of the ring body: Q's fragments from registers,
+// or from the staged rows (kQSmem); the same values.
+template <int Dp, int NT, bool kQSmem>
+__device__ __forceinline__ void ring_scores(
+    float (&s)[NT][4], const uint32_t (&qa)[kQSmem ? 1 : Dp / 16][4],
+    const tc::bf16* qs, int q0, const tc::bf16* kb, int key0, int left,
+    int npad, float scale, int lane) {
+  if constexpr (kQSmem) {
+    tc::step_scores_smem<Dp>(s, qs, q0, kb, key0, left, npad, scale, lane);
+  } else {
+    tc::step_scores<Dp>(s, qa, kb, key0, left, npad, scale, lane);
   }
 }
 
-// The bf16 key-chunked route at Dp = 16, 32 and 64, the ring body: one
-// block per 16 * W queries (W consumer warps, a 16-row tile each, and one
-// producer warp), K and then K and V streamed a register chunk at a time
-// through the ring_stages(Dp) buffers of attention_mma.cuh's Ring. Each
-// warp takes the key-chunked kernel's steps on its tile in the same order,
-// so it gives the same bits (see the note at the top).
+// The bf16 key-chunked route, the ring body: one block per 16 * W queries
+// (W consumer warps, a 16-row tile each, and one producer warp), K and
+// then K and V streamed a register chunk at a time through the
+// ring_stages(Dp) buffers of attention_mma.cuh's Ring. Each warp takes the
+// whole-sequence body's steps on its tile in the same order, so it gives
+// the same bits (see the note at the top).
 template <int Dp>
 __global__ void __launch_bounds__(32 * (ring_warps(Dp) + 1), ring_blocks(Dp))
 attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
@@ -575,7 +554,22 @@ attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
   const int q0 = blockIdx.x * rows;
   const int npad = tc::pad16(n);
   const int tiles = min(warps, (npad - q0) / 16);  // warps with a tile
-  tc::ring_init(ring, kStages, tiles);
+  // Dp >= 128: K and V staged by bulk copies where their rows allow it
+  // (attention_mma.cuh), their columns d..Dp-1 zeroed once here
+  constexpr bool kBulkWidth = Dp >= 128;
+  bool bulk = false;
+  if constexpr (kBulkWidth) {
+    bulk = tc::rows_16b(k_op.head(b, h, d), k_op.row, d) &&
+           tc::rows_16b(v_op.head(b, h, d), v_op.row, d);
+    tc::ring_init(ring, kStages, tiles,
+                  bulk ? tc::kRingBulkCount : tc::kRingFullCount);
+    if (bulk && d < Dp) {
+      tc::ring_zero_columns<Dp>(kv, kStages * 2 * kChunk, d, threadIdx.x,
+                                blockDim.x);
+    }
+  } else {
+    tc::ring_init(ring, kStages, tiles);
+  }
   tc::stage_rows<Dp>(q_op.head(b, h, d) + q0 * q_op.row, q_op.row, qs,
                      min(rows, n - q0), rows, d);
   tc::cp_async_wait_all();
@@ -589,6 +583,23 @@ attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
       const bool with_v = i >= chunks;
       const int k0 = (with_v ? i - chunks : i) * kChunk;
       const int cnt = min(kChunk, n - k0);
+      if constexpr (kBulkWidth) {
+        if (bulk) {
+          tc::ring_produce_bulk(
+              ring, kStages, (with_v ? 4u : 2u) * cnt * d, lane,
+              [&](int st, uint64_t* bar) {
+                tc::bf16* kb = kv + st * kBuf;
+                tc::bulk_rows<Dp>(kh + k0 * k_op.row, k_op.row, kb, cnt,
+                                  kChunk, d, bar, lane);
+                if (with_v) {
+                  tc::bulk_rows<Dp>(vh + k0 * v_op.row, v_op.row,
+                                    kb + kChunk * kPad, cnt, kChunk, d, bar,
+                                    lane);
+                }
+              });
+          continue;
+        }
+      }
       tc::ring_produce(ring, kStages, [&](int st) {
         tc::bf16* kb = kv + st * kBuf;
         tc::stage_rows_by<Dp>(kh + k0 * k_op.row, k_op.row, kb, cnt, kChunk,
@@ -605,67 +616,132 @@ attention_fwd_mma_ring_kernel(const Operand<tc::bf16> q_op,
   }
   if (warp >= tiles) return;
 
-  uint32_t qa[Dp / 16][4];
-  tc::load_a<Dp>(qa, qs, 16 * warp, lane);
-  float s[PT][4];
+  // Q's A fragments in registers, or read from the staged rows at each
+  // step in the same mma order (ring_q_smem)
+  constexpr bool kQSmem = ring_q_smem(Dp);
+  uint32_t qa[kQSmem ? 1 : Dp / 16][4];
+  if constexpr (!kQSmem) tc::load_a<Dp>(qa, qs, 16 * warp, lane);
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[Dp / 8][4] = {};
   float inv[2] = {0.f, 0.f};
-  for (int sweep = 0; sweep < 2; ++sweep) {
+  if constexpr (Dp >= 128) {
+    // The first sweep holds the whole chunk's scores (S computed once, as
+    // fold_chunk takes it), while the output is not yet live; the second
+    // takes PT tiles at a time beside the output.
     for (int c = 0; c < chunks; ++c) {
       tc::ring_acquire(ring);
       const tc::bf16* kb = kv + ring.stage * kBuf;
-      const int left = n - c * kChunk;  // keys from the chunk's first
-      if (sweep == 1) {
-#pragma unroll 1
-        for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
-          tc::step_scores<Dp>(s, qa, kb, key0, left, kChunk, scale, lane);
-          lane_exps(s, m);
-          accumulate_pv<Dp>(o, s, inv, kb + kChunk * kPad, key0, kChunk,
-                            lane);
-        }
-      } else {
-        // fold_chunk a piece at a time: the chunk's max over every
-        // piece's scores, then their exps and sum, the scores recomputed
-        float mc[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
-#pragma unroll 1
-        for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
-          tc::step_scores<Dp>(s, qa, kb, key0, left, kChunk, scale, lane);
-#pragma unroll
-          for (int j = 0; j < PT; ++j) {
-            mc[0] = fmaxf(mc[0], fmaxf(s[j][0], s[j][1]));
-            mc[1] = fmaxf(mc[1], fmaxf(s[j][2], s[j][3]));
-          }
-        }
-        mc[0] = tc::quad_max(mc[0]);
-        mc[1] = tc::quad_max(mc[1]);
-#pragma unroll 1
-        for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
-          tc::step_scores<Dp>(s, qa, kb, key0, left, kChunk, scale, lane);
-          lane_exps(s, mc);
-#pragma unroll
-          for (int j = 0; j < PT; ++j) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) sum[e >> 1] += s[j][e];
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          // every chunk holds a key below n, so mc is finite; the first
-          // chunk's factor is exp(-inf) = 0
-          l[r] = l[r] * score_exp<false>(m[r] - mc[r]) + tc::quad_sum(sum[r]);
-          m[r] = mc[r];
-        }
-      }
+      float sc[NT][4];
+      ring_scores<Dp, NT, kQSmem>(sc, qa, qs, 16 * warp, kb, 0,
+                                  n - c * kChunk, kChunk, scale, lane);
       tc::ring_release(ring, kStages, lane);
+      float mc[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mc[0] = fmaxf(mc[0], fmaxf(sc[j][0], sc[j][1]));
+        mc[1] = fmaxf(mc[1], fmaxf(sc[j][2], sc[j][3]));
+      }
+      mc[0] = tc::quad_max(mc[0]);
+      mc[1] = tc::quad_max(mc[1]);
+      lane_exps(sc, mc);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[e >> 1] += sc[j][e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // every chunk holds a key below n, so mc is finite; the first
+        // chunk's factor is exp(-inf) = 0
+        l[r] = l[r] * score_exp<false>(m[r] - mc[r]) + tc::quad_sum(sum[r]);
+        m[r] = mc[r];
+      }
     }
     // P normalised by the rounded reciprocal of the sum
     inv[0] = 1.f / l[0];
     inv[1] = 1.f / l[1];
+    float o[Dp / 8][4] = {};
+    for (int c = 0; c < chunks; ++c) {
+      tc::ring_acquire(ring);
+      const tc::bf16* kb = kv + ring.stage * kBuf;
+      const int left = n - c * kChunk;  // keys from the chunk's first
+#pragma unroll 1
+      for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
+        float s[PT][4];
+        ring_scores<Dp, PT, kQSmem>(s, qa, qs, 16 * warp, kb, key0, left,
+                                    kChunk, scale, lane);
+        lane_exps(s, m);
+        accumulate_pv<Dp>(o, s, inv, kb + kChunk * kPad, key0, kChunk, lane);
+      }
+      tc::ring_release(ring, kStages, lane);
+    }
+    tc::store_rows<Dp>(o, out + static_cast<int64_t>(b) * n * heads * d +
+                              h * d,
+                       static_cast<int64_t>(heads) * d, q0 + 16 * warp, n, d,
+                       lane);
+  } else {
+    float s[PT][4];
+    float o[Dp / 8][4] = {};
+    for (int sweep = 0; sweep < 2; ++sweep) {
+      for (int c = 0; c < chunks; ++c) {
+        tc::ring_acquire(ring);
+        const tc::bf16* kb = kv + ring.stage * kBuf;
+        const int left = n - c * kChunk;  // keys from the chunk's first
+        if (sweep == 1) {
+#pragma unroll 1
+          for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
+            ring_scores<Dp, PT, kQSmem>(s, qa, qs, 16 * warp, kb, key0, left,
+                                        kChunk, scale, lane);
+            lane_exps(s, m);
+            accumulate_pv<Dp>(o, s, inv, kb + kChunk * kPad, key0, kChunk,
+                              lane);
+          }
+        } else {
+          // fold_chunk a piece at a time: the chunk's max over every
+          // piece's scores, then their exps and sum, the scores recomputed
+          float mc[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
+#pragma unroll 1
+          for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
+            ring_scores<Dp, PT, kQSmem>(s, qa, qs, 16 * warp, kb, key0, left,
+                                        kChunk, scale, lane);
+#pragma unroll
+            for (int j = 0; j < PT; ++j) {
+              mc[0] = fmaxf(mc[0], fmaxf(s[j][0], s[j][1]));
+              mc[1] = fmaxf(mc[1], fmaxf(s[j][2], s[j][3]));
+            }
+          }
+          mc[0] = tc::quad_max(mc[0]);
+          mc[1] = tc::quad_max(mc[1]);
+#pragma unroll 1
+          for (int key0 = 0; key0 < kChunk; key0 += 8 * PT) {
+            ring_scores<Dp, PT, kQSmem>(s, qa, qs, 16 * warp, kb, key0, left,
+                                        kChunk, scale, lane);
+            lane_exps(s, mc);
+#pragma unroll
+            for (int j = 0; j < PT; ++j) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) sum[e >> 1] += s[j][e];
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            // every chunk holds a key below n, so mc is finite; the first
+            // chunk's factor is exp(-inf) = 0
+            l[r] = l[r] * score_exp<false>(m[r] - mc[r]) +
+                   tc::quad_sum(sum[r]);
+            m[r] = mc[r];
+          }
+        }
+        tc::ring_release(ring, kStages, lane);
+      }
+      // P normalised by the rounded reciprocal of the sum
+      inv[0] = 1.f / l[0];
+      inv[1] = 1.f / l[1];
+    }
+    tc::store_rows<Dp>(o, out + static_cast<int64_t>(b) * n * heads * d +
+                              h * d,
+                       static_cast<int64_t>(heads) * d, q0 + 16 * warp, n, d,
+                       lane);
   }
-  tc::store_rows<Dp>(o, out + static_cast<int64_t>(b) * n * heads * d + h * d,
-                     static_cast<int64_t>(heads) * d, q0 + 16 * warp, n, d,
-                     lane);
 }
 
 // o += P V over one chunk of keys from key0 on, in f32: P = e * inv from
@@ -753,10 +829,10 @@ attention_fwd_tf32_kernel(const Operand<float> q_op,
   }
 }
 
-// The f32 key-chunked route: the bf16 key-chunked kernel's structure (one
-// block per 16 * kLongWarps queries, K and V chunks double-buffered by
-// cp.async groups) with the f32 body's arithmetic, in the whole-sequence
-// f32 body's order: both routes give the same bits.
+// The f32 key-chunked route: one block per 16 * kLongWarps queries, K and
+// V chunks double-buffered by cp.async groups, two block barriers a chunk,
+// with the f32 body's arithmetic in the whole-sequence f32 body's order:
+// both routes give the same bits.
 template <int Dp>
 __global__ void __launch_bounds__(kLongWarps * 32)
 attention_fwd_tf32_long_kernel(const Operand<float> q_op,
@@ -849,15 +925,14 @@ size_t smem_whole(int n, int dtype, int dp) {
 }
 
 size_t smem_long(int dtype, int dp) {
-  if (dtype == 1 && ring_body(dp)) {
+  if (dtype == 1) {
     return ring_header(dp) +
            sizeof(tc::bf16) * tc::row_pad(dp) *
                (16 * ring_warps(dp) +
                 ring_stages(dp) * 2 * 8 * chunk_tiles_for(dp));
   }
   const int rows = 16 * kLongWarps + 4 * 8 * chunk_tiles_for(dp);
-  return dtype == 1 ? sizeof(tc::bf16) * rows * tc::row_pad(dp)
-                    : sizeof(float) * rows * tf::row_pad(dp);
+  return sizeof(float) * rows * tf::row_pad(dp);
 }
 
 // whether the whole-sequence body exists at dp and fits one block at n
@@ -933,27 +1008,14 @@ cudaError_t launch_mma(const Operands3<tc::bf16>& ops, void* out, int batch,
       return cudaGetLastError();
     }
   }
-  if constexpr (ring_body(Dp)) {
-    const cudaError_t err = allow_smem(
-        reinterpret_cast<const void*>(attention_fwd_mma_ring_kernel<Dp>),
-        smem);
-    if (err != cudaSuccess) return err;
-    const int tiles = tc::pad16(n) / 16;
-    const int warps = tiles < ring_warps(Dp) ? tiles : ring_warps(Dp);
-    attention_fwd_mma_ring_kernel<Dp><<<
-        dim3((tiles + warps - 1) / warps, heads, batch), 32 * (warps + 1),
-        smem, stream>>>(ops.q, ops.k, ops.v, o, n, heads, d, scale);
-  } else {
-    const cudaError_t err = allow_smem(
-        reinterpret_cast<const void*>(attention_fwd_mma_long_kernel<Dp>),
-        smem);
-    if (err != cudaSuccess) return err;
-    const int blocks =
-        (tc::pad16(n) + 16 * kLongWarps - 1) / (16 * kLongWarps);
-    attention_fwd_mma_long_kernel<Dp><<<dim3(blocks, heads, batch),
-                                        32 * kLongWarps, smem, stream>>>(
-        ops.q, ops.k, ops.v, o, n, heads, d, scale);
-  }
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(attention_fwd_mma_ring_kernel<Dp>), smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = tc::pad16(n) / 16;
+  const int warps = tiles < ring_warps(Dp) ? tiles : ring_warps(Dp);
+  attention_fwd_mma_ring_kernel<Dp><<<
+      dim3((tiles + warps - 1) / warps, heads, batch), 32 * (warps + 1),
+      smem, stream>>>(ops.q, ops.k, ops.v, o, n, heads, d, scale);
   return cudaGetLastError();
 }
 
@@ -1081,9 +1143,8 @@ const char* attention_qkv_fwd_body(int n, int dtype, int head_dim) {
     return dtype == 1 ? "attention_fwd_mma_kernel"
                       : "attention_fwd_tf32_kernel";
   }
-  if (dtype != 1) return "attention_fwd_tf32_long_kernel";
-  return ring_body(dp) ? "attention_fwd_mma_ring_kernel"
-                       : "attention_fwd_mma_long_kernel";
+  return dtype == 1 ? "attention_fwd_mma_ring_kernel"
+                    : "attention_fwd_tf32_long_kernel";
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the

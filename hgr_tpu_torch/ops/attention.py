@@ -229,6 +229,8 @@ def _bwd_kernel() -> ctypes.CDLL:
     lib.attention_qkv_bwd_on_route.argtypes = [p, p, p, p, i, i, i, i,
                                                ctypes.c_float, i, i, p]
     lib.attention_qkv_bwd_on_route.restype = i
+    lib.attention_qkv_bwd_body.argtypes = [i] * 3
+    lib.attention_qkv_bwd_body.restype = ctypes.c_char_p
     return lib
 
 
@@ -276,6 +278,17 @@ def forward_body(n: int, head_dim: int, dtype: torch.dtype) -> str:
     _check_head_dim(head_dim)
     return _kernel().attention_qkv_fwd_body(n, _DTYPE_CODES[dtype],
                                             head_dim).decode()
+
+
+def backward_body(n: int, head_dim: int, dtype: torch.dtype) -> str:
+    """The backward kernels that run on the card at sequence length ``n``
+    and ``head_dim`` in ``dtype`` (in ``csrc/attention_qkv_bwd.cu``; a
+    pair as ``..._{q,k}_kernel``, ``wide_bwd_{q,k}_kernel`` for route 2):
+    which body a shape takes, for chip_smoke's rows and the card tests.
+    Builds the kernel library (needs nvcc)."""
+    _check_head_dim(head_dim)
+    return _bwd_kernel().attention_qkv_bwd_body(n, _DTYPE_CODES[dtype],
+                                                head_dim).decode()
 
 
 def _bwd_scratch(lib, b: int, n: int, heads: int, head_dim: int,

@@ -6,7 +6,8 @@ at the serving batch (B = 64), the train step at B = 256 with fused BN
 off and on, the ``--dtype mixed`` step at B = 256 (bf16 compute, the
 f32 decoder: the f32 attention kernels, fused BN on), and the 448 px
 path (N = 785: the key-chunked attention route): the bf16 train step at
-B = 64 and the serving forward at B = 64. The checkouts run
+B = 64 and the serving forward at B = 64, and the long paths' wide-head
+step (2 heads x 256 at 192 px, B = 64). The checkouts run
 in the order given, then in reverse, so a parent and a change compare
 within one call:
 
@@ -121,6 +122,30 @@ print(json.dumps({"long448": {"batch": cs.LONG_BF16_BATCH,
                               "step_ms": step_ms,
                               "serve_batch": cs.SERVE_BATCH,
                               "forward_ms": fwd_ms}}))
+# the long paths' wide-head step: the model with 2 heads x 256 (every
+# attention kernel at padded width 256), a bf16 step at 192 px, B = 64,
+# CLI defaults, fused BN off; 2 warm-up steps and 6 timed
+del model, x
+torch.cuda.empty_cache()
+px = cs.IMAGE
+model = MultiTaskNet(image_size=(px, px), dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0),
+                     **cs.WIDE_HEADS)
+state = create_train_state(model, device="cuda")
+step = make_train_step(AugmentConfig(), image_size=(px, px),
+                       heatmap_size=(px // 4, px // 4),
+                       grad_demix=resolve_grad_demix(
+                           TrainConfig(), ModelConfig(
+                               compute_dtype="bfloat16")))
+batch = {k: torch.from_numpy(v).cuda() for k, v in cs._staged_batch(
+    cs.LONG_BF16_BATCH, seed=7, canvas=px + 64).items()}
+held = [state]
+wide_ms = cs.cuda_time_ms(torch, one_step, iters=6, warmup=2)
+print(json.dumps({"wide256": {"batch": cs.LONG_BF16_BATCH, "image": px,
+                              "heads_x_head_dim": [cs.WIDE_HEADS["heads"],
+                                                   cs.WIDE_HEADS[
+                                                       "head_dim"]],
+                              "step_ms": wide_ms}}))
 """
 
 
@@ -157,6 +182,28 @@ for b, n, dh in ((64, 145, 32), (256, 145, 32), (64, 785, 32),
         calls[f"split_fwd_{key}"] = (
             lambda qkv=qkv, dh=dh: A.fused_attention_split(
                 *qkv.chunk(3, dim=-1), 256 // dh, dh, dh ** -0.5))
+# 2 heads of 128, 192 and 256 (the ring bodies at padded widths 128 and
+# 256) at (16, 785) and (64, 145), forward and backward, packed and split
+for b, n in ((16, 785), (64, 145)):
+    for dh in (128, 192, 256):
+        gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n + dh)
+        qkv = torch.randn(b, n, 6 * dh, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        g = torch.randn(b, n, 2 * dh, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        key = f"{b}_{n}_2x{dh}"
+        calls[f"fwd_{key}"] = (lambda qkv=qkv, dh=dh: A.fused_attention_qkv(
+            qkv, 2, dh, dh ** -0.5))
+        calls[f"bwd_{key}"] = (lambda qkv=qkv, g=g, dh=dh:
+                               A.fused_attention_qkv_bwd(qkv, g, 2, dh,
+                                                         dh ** -0.5))
+        calls[f"split_fwd_{key}"] = (
+            lambda qkv=qkv, dh=dh: A.fused_attention_split(
+                *qkv.chunk(3, dim=-1), 2, dh, dh ** -0.5))
+        calls[f"split_bwd_{key}"] = (
+            lambda qkv=qkv, g=g, dh=dh: torch.cat(
+                A.fused_attention_split_bwd(*qkv.chunk(3, dim=-1), g, 2, dh,
+                                            dh ** -0.5), dim=-1))
 # the f32 bodies at the serving and training shapes, and their distance
 # from the float64 plain version of the same inputs
 f64 = {}
@@ -414,7 +461,7 @@ def _side(tree: str) -> dict:
     out = {"tree": tree}
     for line in proc.stdout.splitlines():
         if line.startswith(('{"model"', '{"train"', '{"mixed"',
-                            '{"long448"')):
+                            '{"long448"', '{"wide256"')):
             print(line, flush=True)
             out.update(json.loads(line))
     return out
@@ -445,11 +492,13 @@ def main(argv=None) -> int:
                                                 "step_ms": {},
                                                 "mixed_step_ms": [],
                                                 "step_448_ms": [],
-                                                "forward_448_ms": []})
+                                                "forward_448_ms": [],
+                                                "step_wide256_ms": []})
         side["forward_b64_ms"].append(run["model"]["bf16_ms_per_forward_b64"])
         side["mixed_step_ms"].append(run["mixed"]["ms_per_step"])
         side["step_448_ms"].append(run["long448"]["step_ms"])
         side["forward_448_ms"].append(run["long448"]["forward_ms"])
+        side["step_wide256_ms"].append(run["wide256"]["step_ms"])
         for turn in run["train"]["turns"]:
             side["step_ms"].setdefault(f"fused_bn_{turn['fused_bn']}",
                                        []).append(turn["ms_per_step"])

@@ -1,19 +1,23 @@
 // Runs attention kernels on the host: csrc/attention_wide.cuh's, and the
-// bf16 key-chunked forward bodies of csrc/attention_qkv_fwd.cu (the ring
-// body and the two-buffer kernel). One fiber (ucontext) per CUDA thread,
-// scheduled in turns; __syncthreads, __syncwarp and the warp collectives
-// (ldmatrix, mma, shuffles) as barriers over the block or the warp, a
+// bf16 key-chunked bodies of csrc/attention_qkv_fwd.cu and
+// csrc/attention_qkv_bwd.cu (the ring bodies, and the two-buffer kernels
+// of chunked_fwd.cuh and chunked_bwd.cuh, their bit references). One
+// fiber (ucontext) per CUDA thread, scheduled in turns; __syncthreads,
+// __syncwarp and the warp collectives (ldmatrix, mma, shuffles) as
+// barriers over the block or the warp, a
 // collective's operands exchanged through per-warp slots; an mbarrier wait
 // yields until its phase completes (mma_primitives.h). A block's shared
 // memory starts as NaN, so a read of anything not staged shows. Built and
 // driven by hgr_tpu_torch/tools/emulate_wide.py:
-//   emulate <f32|bf16|ring|chunked> B N H D scale <packed|split> <dir>
+//   emulate <f32|bf16|ring|chunked|ring_bwd|chunked_bwd> B N H D scale
+//           <packed|split> <dir>
 // reads dir/qkv.bin (B, N, 3 H D) and dir/g.bin (B, N, H D) as float32,
 // runs the kernels on the packed operands or on three contiguous copies,
 // and writes dir/out_<layout>.bin (and, for the wide bodies, f32 or bf16,
 // whose backward kernels run too, dir/dqkv_<layout>.bin) as float32;
 // ring and chunked run the bf16 forward's ring body or its two-buffer
-// kernel at padded head width 16, 32 or 64.
+// kernel, ring_bwd and chunked_bwd the backward's pairs (dqkv), at the
+// padded head width of D (16 .. 256).
 #include <ucontext.h>
 
 #include <cstdio>
@@ -132,6 +136,16 @@ inline float ex2_ftz(float x) { return exp2f(x); }
 }  // namespace
 
 #include "attention_qkv_fwd_dev.cuh"
+#include "chunked_fwd.cuh"
+
+// the backward's bf16 kernels and their dynamic shared memory, in a
+// namespace of their own (their helpers share the forward's names)
+namespace emu_bwd {
+alignas(16) uint4 smem_tc[232448 / 16];
+}  // namespace emu_bwd
+
+#include "attention_qkv_bwd_dev.cuh"
+#include "chunked_bwd.cuh"
 
 namespace {
 template <size_t kN>
@@ -341,8 +355,8 @@ void run_chunked(bool ring, int B, int N, int H, int D, float scale,
       attention_fwd_mma_ring_kernel<Dp>(q, k, v, out.data(), N, H, D, scale);
     });
   } else {
-    grid((tiles + kLongWarps - 1) / kLongWarps, H, B, 32 * kLongWarps,
-         smem_tc, [&] {
+    grid((tiles + kChunkedWarps - 1) / kChunkedWarps, H, B,
+         32 * kChunkedWarps, smem_tc, [&] {
            attention_fwd_mma_long_kernel<Dp>(q, k, v, out.data(), N, H, D,
                                              scale);
          });
@@ -351,13 +365,93 @@ void run_chunked(bool ring, int B, int N, int H, int D, float scale,
                       ".bin",
                   out);
 }
+
+// The bf16 key-chunked backward at padded width Dp on the grids its launch
+// gives (attention_qkv_bwd.cu, launch): the ring pair, or the two-buffer
+// pair; dq, dk and dv written packed as dqkv (B, N, 3 H D).
+template <int Dp>
+void run_chunked_bwd(bool ring, int B, int N, int H, int D, float scale,
+                     bool split, const std::string& dir) {
+  using bf16 = __nv_bfloat16;
+  using namespace emu_bwd;
+  const int64_t hd = int64_t(H) * D;
+  const auto qkv = read_as<bf16>(dir + "/qkv.bin", size_t(B) * N * 3 * hd);
+  const auto gg = read_as<bf16>(dir + "/g.bin", size_t(B) * N * hd);
+  const Layout<bf16> in(qkv, B, N, hd, split);
+  std::vector<bf16> dq(size_t(B) * N * hd, from_float<bf16>(NAN)), dk = dq,
+                                                                   dv = dq;
+  const Operands<bf16> ops{{in.q, in.img, in.row},      {in.k, in.img, in.row},
+                           {in.v, in.img, in.row},      {gg.data(), N * hd, hd},
+                           {dq.data(), N * hd, hd},     {dk.data(), N * hd, hd},
+                           {dv.data(), N * hd, hd}};
+  std::vector<float> stats(size_t(B) * H * 3 * attn_mma::pad16(N), NAN);
+  const int tiles = attn_mma::pad16(N) / 16;
+  if (ring) {
+    const int qw = tiles < ring_warps(Dp) ? tiles : ring_warps(Dp);
+    const int kw = tiles < ring_key_tiles(Dp) ? tiles : ring_key_tiles(Dp);
+    grid((tiles + qw - 1) / qw, H, B, 32 * (qw + 1), smem_tc, [&] {
+      attention_bwd_mma_ring_q_kernel<Dp>(ops, stats.data(), N, H, D, scale);
+    });
+    grid((tiles + kw - 1) / kw, H, B, 32 * (ring_roles(Dp) * kw + 1), smem_tc,
+         [&] {
+           attention_bwd_mma_ring_k_kernel<Dp>(ops, stats.data(), N, H, D,
+                                               scale);
+         });
+  } else {
+    const int blocks = (tiles + kChunkedWarps - 1) / kChunkedWarps;
+    grid(blocks, H, B, 32 * kChunkedWarps, smem_tc, [&] {
+      attention_bwd_mma_q_kernel<Dp>(ops, stats.data(), N, H, D, scale);
+    });
+    grid(blocks, H, B, 32 * kChunkedWarps * key_roles(Dp), smem_tc, [&] {
+      attention_bwd_mma_k_kernel<Dp>(ops, stats.data(), N, H, D, scale);
+    });
+  }
+  std::vector<float> dqkv(size_t(B) * N * 3 * hd);
+  for (int64_t r = 0; r < int64_t(B) * N; ++r) {
+    for (int64_t f = 0; f < hd; ++f) {
+      dqkv[r * 3 * hd + f] = to_float(dq[r * hd + f]);
+      dqkv[r * 3 * hd + hd + f] = to_float(dk[r * hd + f]);
+      dqkv[r * 3 * hd + 2 * hd + f] = to_float(dv[r * hd + f]);
+    }
+  }
+  write_floats(dir + "/dqkv_" + std::string(split ? "split" : "packed") +
+                   ".bin",
+               dqkv);
+}
+
+// the body at the padded width of D (16 .. 256)
+template <template <int> class Run, typename... Args>
+bool by_width(int D, Args... args) {
+  switch (attn_mma::padded_width(D)) {
+    case 16: Run<16>::go(args...); return true;
+    case 32: Run<32>::go(args...); return true;
+    case 64: Run<64>::go(args...); return true;
+    case 128: Run<128>::go(args...); return true;
+    case 256: Run<256>::go(args...); return true;
+  }
+  return false;
+}
+template <int Dp>
+struct Fwd {
+  template <typename... Args>
+  static void go(Args... args) {
+    run_chunked<Dp>(args...);
+  }
+};
+template <int Dp>
+struct Bwd {
+  template <typename... Args>
+  static void go(Args... args) {
+    run_chunked_bwd<Dp>(args...);
+  }
+};
 }  // namespace
 
 int main(int argc, char** argv) {
   if (argc != 9) {
     fprintf(stderr,
-            "usage: emulate <f32|bf16|ring|chunked> B N H D scale "
-            "<packed|split> dir\n");
+            "usage: emulate <f32|bf16|ring|chunked|ring_bwd|chunked_bwd> B "
+            "N H D scale <packed|split> dir\n");
     return 2;
   }
   const std::string body = argv[1];
@@ -370,17 +464,15 @@ int main(int argc, char** argv) {
   } else if (body == "bf16") {
     run<__nv_bfloat16>(B, N, H, D, scale, split, argv[8]);
   } else {
-    const bool ring = body == "ring";
-    switch (attn_mma::padded_width(D)) {
-      case 16: run_chunked<16>(ring, B, N, H, D, scale, split, argv[8]);
-        break;
-      case 32: run_chunked<32>(ring, B, N, H, D, scale, split, argv[8]);
-        break;
-      case 64: run_chunked<64>(ring, B, N, H, D, scale, split, argv[8]);
-        break;
-      default:
-        fprintf(stderr, "the ring body takes head widths up to 64\n");
-        return 2;
+    const bool bwd = body == "ring_bwd" || body == "chunked_bwd";
+    const bool ring = body == "ring" || body == "ring_bwd";
+    const bool ok = bwd ? by_width<Bwd>(D, ring, B, N, H, D, scale, split,
+                                        std::string(argv[8]))
+                        : by_width<Fwd>(D, ring, B, N, H, D, scale, split,
+                                        std::string(argv[8]));
+    if (!ok) {
+      fprintf(stderr, "the key-chunked bodies take head widths up to 256\n");
+      return 2;
     }
   }
   return 0;

@@ -1,6 +1,6 @@
 // Host stand-ins for the PTX primitives of csrc/attention_mma.cuh
-// (cp.async, the mbarriers, ldmatrix and mma), with the same names and
-// fragment layouts (the real header's comment lists them).
+// (cp.async, the bulk copy, the mbarriers, ldmatrix and mma), with the
+// same names and fragment layouts (the real header's comment lists them).
 // hgr_tpu_torch/tools/emulate_wide.py cuts the real ones out of a copy of
 // that header and puts these ahead of the rest of it, so every other
 // helper of the header (staging, fragment loads, the ring, the row
@@ -58,6 +58,12 @@ inline void mbar_arrive(uint64_t* bar) {
 }
 // the copies have landed at once: the arrival happens now
 inline void mbar_arrive_copies(uint64_t* bar) { mbar_arrive(bar); }
+// a bulk copy completes at once (its bytes never pend), so an arrival
+// expecting bytes is a plain arrival
+inline void bulk_row(void* dst, const void* src, unsigned bytes, uint64_t*) {
+  memcpy(dst, src, bytes);
+}
+inline void mbar_arrive_expect(uint64_t* bar, unsigned) { mbar_arrive(bar); }
 // returns once the phase of parity ``parity`` has completed, that is while
 // the current phase has the other parity
 inline void mbar_wait(uint64_t* bar, unsigned parity) {

@@ -1,9 +1,11 @@
 """Run attention bodies of the card on the CPU and hold them against the
 plain versions: the bodies of head widths above 256, and the bf16
-key-chunked forward's ring body at padded head widths 16, 32 and 64.
+key-chunked ring bodies, forward and backward, at every padded head width
+(16 .. 256).
 
 ``g++`` compiles the device code of ``csrc/attention_wide.cuh`` and the
-bf16 kernels of ``csrc/attention_qkv_fwd.cu`` as C++, with the real
+bf16 kernels of ``csrc/attention_qkv_fwd.cu`` and
+``csrc/attention_qkv_bwd.cu`` as C++, with the real
 ``csrc/attention_mma.cuh`` whose PTX primitives (cp.async, mbarriers,
 ldmatrix, mma) are swapped for the stand-ins in ``tools/emulate/`` (with
 the CUDA headers and ``attention_tf32.cuh``'s mma), the PTX-only bulk copy
@@ -14,21 +16,24 @@ forward and both backward kernels on the packed operands and on three
 contiguous copies (split) and compares them with
 ``attention_qkv_reference`` and ``attention_qkv_bwd_reference`` at the
 card's tolerances, the split outputs with the packed ones bit for bit. A
-ring case (``--body ring``) runs the ring forward packed and split, and
-the two-buffer key-chunked kernel packed, and compares the ring's output
-with ``attention_qkv_reference``, split with packed, and the ring with
-the two-buffer kernel bit for bit (the same steps in the same order give
-the same bits under the emulated arithmetic too). It checks the bodies'
-indexing, fragment layouts, masking, staging, the ring's buffer turns and
-softmax statistics without a card; not their speed, not the ordering of
-asynchronous copies (they complete at once), and not the tensor cores'
-rounding (the emulated mma sums in double). Needs g++ (C++17) and
-ucontext:
+ring case (``--body ring``, ``--kernel fwd`` or ``bwd``) runs the ring
+forward (or backward pair) packed and split, and the two-buffer
+key-chunked kernel (pair) of ``tools/emulate/chunked_{fwd,bwd}.cuh``
+packed, and compares the ring's output with the plain version, split with
+packed, and the ring with the two-buffer kernel bit for bit (the same
+steps in the same order give the same bits under the emulated arithmetic
+too). It checks the bodies' indexing, fragment layouts, masking, staging,
+the ring's buffer turns and softmax statistics without a card; not their
+speed, not the ordering of asynchronous copies (they complete at once),
+and not the tensor cores' rounding (the emulated mma sums in double).
+Needs g++ (C++17) and ucontext:
 
     python -m hgr_tpu_torch.tools.emulate_wide --dtype bfloat16 --n 40 \\
         --heads 2 --head_dim 264
     python -m hgr_tpu_torch.tools.emulate_wide --body ring --n 337 \\
         --heads 2 --head_dim 16
+    python -m hgr_tpu_torch.tools.emulate_wide --body ring --kernel bwd \\
+        --n 81 --heads 1 --head_dim 256
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ CSRC = HERE.parent.parent / "csrc"
 HEADER = CSRC / "attention_wide.cuh"
 MMA = CSRC / "attention_mma.cuh"
 FWD = CSRC / "attention_qkv_fwd.cu"
+BWD = CSRC / "attention_qkv_bwd.cu"
 BUILD = HERE.parent.parent.parent / "build" / "emulate"
 # the card's tolerances (tests/test_torch_gpu.py): forward atol, rtol;
 # gradients atol, rtol
@@ -67,7 +73,8 @@ _PTX_ONLY_FWD = ("ex2_ftz",)
 _PTX_ONLY_MMA = ("smem_addr", "cp_async16", "cp_async_wait_all",
                  "cp_async_commit", "cp_async_wait", "mbar_init",
                  "mbar_fence_init", "mbar_arrive", "mbar_arrive_copies",
-                 "mbar_wait", "ldsm_x4", "ldsm_x2", "ldsm_x4_trans", "mma")
+                 "mbar_wait", "ldsm_x4", "ldsm_x2", "ldsm_x4_trans", "mma",
+                 "bulk_row", "mbar_arrive_expect")
 
 
 def _cut(code: str, names, where: str) -> str:
@@ -109,6 +116,16 @@ def fwd_code(source: str) -> str:
         "}  // namespace\n")
 
 
+def bwd_code(source: str) -> str:
+    """The bf16 kernels of attention_qkv_bwd.cu (its anonymous namespace
+    up to the f32 bodies) in a namespace of their own, emu_bwd (their
+    helpers share the forward's names)."""
+    start = source.index("\nnamespace {\n")
+    end = source.index("// The f32 body, whole-sequence route")
+    return ("\nnamespace emu_bwd {\n" + source[start + len("\nnamespace {\n"):end]
+            + "}  // namespace emu_bwd\n")
+
+
 @functools.lru_cache(maxsize=None)
 def build() -> Path:
     """Compile the emulator (once per source: the binary is named by a
@@ -117,7 +134,8 @@ def build() -> Path:
         raise RuntimeError("the emulator needs g++")
     generated = {"attention_wide_dev.cuh": device_code(HEADER.read_text()),
                  "attention_mma.cuh": mma_code(MMA.read_text()),
-                 "attention_qkv_fwd_dev.cuh": fwd_code(FWD.read_text())}
+                 "attention_qkv_fwd_dev.cuh": fwd_code(FWD.read_text()),
+                 "attention_qkv_bwd_dev.cuh": bwd_code(BWD.read_text())}
     digest = hashlib.sha256()
     for name, code in sorted(generated.items()):
         digest.update(name.encode() + code.encode())
@@ -186,37 +204,46 @@ def run_case(dtype: str, b: int, n: int, heads: int, head_dim: int,
 
 
 def run_ring_case(b: int, n: int, heads: int, head_dim: int,
-                  seed: int = 0) -> dict:
-    """One case of the bf16 key-chunked forward (head widths up to 64):
-    the ring body packed and split and the two-buffer kernel packed,
-    through the emulator; the ring's largest error against the plain
-    version and its excess over the card's tolerance (<= 0 passes),
-    whether split equals packed and the ring equals the two-buffer kernel
-    bit for bit, and whether every output is finite."""
+                  seed: int = 0, kernel: str = "fwd") -> dict:
+    """One case of the bf16 key-chunked forward (``kernel`` "fwd") or
+    backward ("bwd"): the ring body packed and split and the two-buffer
+    kernel packed, through the emulator; the ring's largest error against
+    the plain version and its excess over the card's tolerance (<= 0
+    passes), whether split equals packed and the ring equals the
+    two-buffer kernel bit for bit, and whether every output is finite."""
     binary = build()
     rng = np.random.RandomState(seed + n * 7 + head_dim)
     qkv = rng.randn(b, n, 3 * heads * head_dim).astype(np.float32)
+    g = rng.randn(b, n, heads * head_dim).astype(np.float32)
     scale = float(np.float32(head_dim**-0.5))
+    suffix, name = ("", "out") if kernel == "fwd" else ("_bwd", "dqkv")
     outs = {}
     with tempfile.TemporaryDirectory() as work:
         qkv.tofile(os.path.join(work, "qkv.bin"))
+        g.tofile(os.path.join(work, "g.bin"))
         for body, layout in (("ring", "packed"), ("ring", "split"),
                              ("chunked", "packed")):
-            subprocess.run([str(binary), body, str(b), str(n), str(heads),
-                            str(head_dim), repr(scale), layout, work],
-                           check=True)
+            subprocess.run([str(binary), body + suffix, str(b), str(n),
+                            str(heads), str(head_dim), repr(scale), layout,
+                            work], check=True)
             outs[body, layout] = np.fromfile(
-                os.path.join(work, f"out_{layout}.bin"), np.float32)
+                os.path.join(work, f"{name}_{layout}.bin"), np.float32)
     x = torch.from_numpy(qkv).to(torch.bfloat16)
-    ref = A.attention_qkv_reference(x, heads, head_dim,
-                                    scale).float().numpy()
+    if kernel == "fwd":
+        ref = A.attention_qkv_reference(x, heads, head_dim, scale)
+        atol, rtol = TOL["bfloat16"]
+    else:
+        ref = A.attention_qkv_bwd_reference(
+            x, torch.from_numpy(g).to(torch.bfloat16), heads, head_dim,
+            scale)
+        atol, rtol = GRAD_TOL["bfloat16"]
+    ref = ref.float().numpy()
     out = outs["ring", "packed"].reshape(ref.shape)
-    atol, rtol = TOL["bfloat16"]
     return {
-        "body": "ring", "shape": [b, n, heads, head_dim],
-        "fwd_err": float(np.abs(out - ref).max()),
-        "fwd_excess": float((np.abs(out - ref) - atol
-                             - rtol * np.abs(ref)).max()),
+        "body": "ring", "kernel": kernel, "shape": [b, n, heads, head_dim],
+        f"{kernel}_err": float(np.abs(out - ref).max()),
+        f"{kernel}_excess": float((np.abs(out - ref) - atol
+                                   - rtol * np.abs(ref)).max()),
         "split_equals_packed": bool(np.array_equal(
             outs["ring", "packed"], outs["ring", "split"])),
         "ring_equals_chunked": bool(np.array_equal(
@@ -229,8 +256,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--body", default="wide", choices=("wide", "ring"),
                     help="the bodies of head widths above 256 (forward and "
-                    "backward), or the bf16 key-chunked forward's ring body "
-                    "(head widths up to 64)")
+                    "backward), or the bf16 key-chunked ring bodies (head "
+                    "widths up to 256)")
+    ap.add_argument("--kernel", default="fwd", choices=("fwd", "bwd"),
+                    help="the ring body's kernel: the forward, or the "
+                    "backward pair")
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("bfloat16", "float32"),
                     help="the wide bodies' type (the ring body is bf16)")
@@ -240,9 +270,11 @@ def main(argv=None) -> int:
     ap.add_argument("--head_dim", type=int, default=264)
     args = ap.parse_args(argv)
     if args.body == "ring":
-        row = run_ring_case(args.batch, args.n, args.heads, args.head_dim)
+        row = run_ring_case(args.batch, args.n, args.heads, args.head_dim,
+                            kernel=args.kernel)
         print(json.dumps(row))
-        return 0 if (row["fwd_excess"] <= 0 and row["split_equals_packed"]
+        return 0 if (row[f"{args.kernel}_excess"] <= 0
+                     and row["split_equals_packed"]
                      and row["ring_equals_chunked"]
                      and row["finite"]) else 1
     row = run_case(args.dtype, args.batch, args.n, args.heads, args.head_dim)

@@ -5,7 +5,9 @@ compile-time sizes of a tensor-core body is changed (bf16: the chunk of
 keys a forward warp holds in registers, the warps per block, the rows a
 backward warp sweeps at a time, the bf16 terms that carry dS; the
 key-chunked ring bodies' consumer warps, buffers, least blocks an SM and
-backward step width, the forward's per padded head width; f32: the
+backward step width, per padded head width (the backward's at Dp <= 64
+share one set), and the backward's key tiles a block and warps a key
+tile at 128 and 256; f32: the
 warps per block of the whole-sequence bodies, the tiles a backward step
 takes; or ``{fwd,bwd}_f32_small=int``: the small TF32 part rounded by the
 integer add and mask instead of cvt.rna, csrc/attention_tf32.cuh), and
@@ -45,9 +47,21 @@ KNOBS = {
     # the forward's ring body, per padded head width (fwd_ring_warps16 ...)
     **{f"fwd_ring_{knob}{dp}": ("attention_qkv_fwd",
                                 f"constexpr int kRing{name}{dp} = ")
-       for dp in (16, 32, 64)
+       for dp in (16, 32, 64, 128, 256)
        for knob, name in (("warps", "Warps"), ("stages", "Stages"),
                           ("blocks", "Blocks"), ("piece", "Piece"))},
+    # the backward's ring pair at padded head widths 128 and 256
+    # (bwd_ring_warps128 ...: query tiles a block, key tiles a block,
+    # warps a key tile, buffers, rows a chunk, tiles a step, least blocks
+    # an SM of the query and the key kernel; roles and blocks at 128 only)
+    **{f"bwd_ring_{knob}{dp}": ("attention_qkv_bwd",
+                                f"constexpr int kRing{name}{dp} = ")
+       for dp in (128, 256)
+       for knob, name in (("warps", "Warps"), ("keytiles", "KeyTiles"),
+                          ("roles", "Roles"), ("stages", "Stages"),
+                          ("rows", "Rows"), ("tiles", "Tiles"),
+                          ("blocks", "Blocks"), ("keyblocks", "KeyBlocks"))
+       if dp == 128 or knob not in ("roles", "blocks", "keyblocks")},
 }
 # knob -> (source, header, the text it replaces); value "int" only: the
 # small TF32 part by the integer form of cvt.rna (which turns a NaN of x
@@ -76,6 +90,16 @@ DEFAULT_GRID = {
     "ring64": ["fwd_ring_stages64=2", "fwd_ring_piece64=2",
                "fwd_ring_warps64=6", "fwd_ring_warps64=8",
                "fwd_ring_warps64=5,fwd_ring_stages64=2,fwd_ring_blocks64=3"],
+    # the ring bodies at padded head widths 128 and 256 (run with --n 785
+    # --batch 16 --heads 2 --head_dim 128, or 256)
+    "ring128": ["fwd_ring_piece128=6", "fwd_ring_stages128=2",
+                "bwd_ring_tiles128=4,bwd_ring_blocks128=1",
+                "bwd_ring_roles128=2,bwd_ring_keytiles128=3,"
+                "bwd_ring_keyblocks128=2",
+                "bwd_ring_stages128=2"],
+    "ring256": ["fwd_ring_piece256=2",
+                "fwd_ring_stages256=2", "bwd_ring_stages256=3",
+                "bwd_ring_tiles256=2", "bwd_ring_keytiles256=2"],
     "float32": ["f32_fwd_warps=8", "f32_bwd_warps=4", "f32_tiles=2",
                 "fwd_f32_small=int", "bwd_f32_small=int"],
 }
@@ -236,7 +260,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grid", choices=sorted(DEFAULT_GRID), default=None,
                     help="a default grid of variants (default: the "
                     "dtype's; 'ring': the key-chunked ring bodies; 'ring16', "
-                    "'ring64': the forward's ring body at those widths)")
+                    "'ring64': the forward's ring body at those widths; "
+                    "'ring128', 'ring256': both ring bodies at those widths)")
     args = ap.parse_args(argv)
     variants = args.variants or DEFAULT_GRID[args.grid or args.dtype]
     if not torch.cuda.is_available():

@@ -819,17 +819,95 @@ def test_forward_crossover_at_head_widths_16_and_64(head_dim, last):
     (32, "attention_fwd_mma_ring_kernel"),
     (48, "attention_fwd_mma_ring_kernel"),
     (64, "attention_fwd_mma_ring_kernel"),
-    (128, "attention_fwd_mma_long_kernel"),
-    (256, "attention_fwd_mma_long_kernel"), (320, "wide_fwd_kernel")])
+    (128, "attention_fwd_mma_ring_kernel"),
+    (256, "attention_fwd_mma_ring_kernel"), (320, "wide_fwd_kernel")])
 def test_forward_body_at_the_448_px_length(head_dim, body):
-    """At N = 785 the bf16 forward runs the ring body at padded widths 16,
-    32 and 64, the two-buffer key-chunked kernel at 128 and 256, and route
-    2 above; f32 takes its key-chunked kernel below 257."""
+    """At N = 785 the bf16 forward runs the ring body at every padded width
+    up to 256, and route 2 above; f32 takes its key-chunked kernel below
+    257."""
     _cuda_or_skip()
     assert A.forward_body(785, head_dim, torch.bfloat16) == body
     if head_dim <= 256:
         assert A.forward_body(785, head_dim, torch.float32) == (
             "attention_fwd_tf32_long_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 100, 128, 192, 256, 320])
+def test_backward_body_at_the_448_px_length(head_dim):
+    """At N = 785 the bf16 backward runs the ring pair at every padded
+    width up to 256, and route 2's pair above; f32 its key-chunked pair."""
+    _cuda_or_skip()
+    wide = head_dim > 256
+    assert A.backward_body(785, head_dim, torch.bfloat16) == (
+        "wide_bwd_{q,k}_kernel" if wide
+        else "attention_bwd_mma_ring_{q,k}_kernel")
+    assert A.backward_body(785, head_dim, torch.float32) == (
+        "wide_bwd_{q,k}_kernel" if wide
+        else "attention_bwd_tf32_{q,k}_kernel")
+
+
+# the ring pair at padded head widths 128 and 256 (100 pads to 128 and
+# stages element by element; 192 pads to 256), at lengths on the edges of
+# their chunks (48 keys in the forward at Dp = 128, 32 at 256; 32 rows in
+# the backward at both), past the key kernel's blocks of 3 and 4 key
+# tiles and the query kernels' 7 tiles (113: 8 tiles), at the 448 px
+# path's 785 and chip_smoke's wide-head step's 145
+RING_WIDE_EDGES = [(d, n) for d in (128, 256) for n in (
+    31, 32, 33, 47, 48, 49, 97, 113, 145, 785)] + [
+    (d, n) for d in (100, 192) for n in (33, 97, 145)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,n", RING_WIDE_EDGES)
+def test_ring_pair_at_head_widths_128_to_256(head_dim, n):
+    """The bf16 key-chunked route at padded widths 128 and 256 is the ring
+    forward and the ring backward pair. On that route they match the plain
+    versions at the card's tolerances, the entry points give their bits,
+    so do the split operands, and at padded width 128 the whole-sequence
+    route, wherever it exists, gives the same bits forward and backward."""
+    _cuda_or_skip()
+    heads, scale, bf = 2, head_dim**-0.5, torch.bfloat16
+    rng = np.random.RandomState(n * 11 + head_dim)
+    hd = heads * head_dim
+    qkv = torch.from_numpy(rng.randn(2, n, 3 * hd).astype(np.float32)).to(
+        "cuda", bf)
+    g = torch.from_numpy(rng.randn(2, n, hd).astype(np.float32)).to(
+        "cuda", bf)
+    outs = {}
+    for kernel, cot in (("fwd", None), ("bwd", g)):
+        for r in (0, 1):
+            try:
+                outs[kernel, r] = A.launch_on_route(kernel, r, qkv, heads,
+                                                    head_dim, scale, cot)
+            except ValueError:  # no whole-sequence route here
+                assert r == 0
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(
+        outs["fwd", 1].float().cpu().numpy(),
+        A.attention_qkv_reference(qkv, heads, head_dim, scale).float().cpu()
+        .numpy(), **TOL["bfloat16"])
+    np.testing.assert_allclose(
+        outs["bwd", 1].float().cpu().numpy(),
+        A.attention_qkv_bwd_reference(qkv, g, heads, head_dim, scale)
+        .float().cpu().numpy(), **GRAD_TOL["bfloat16"])
+    for kernel in ("fwd", "bwd"):
+        if (kernel, 0) in outs:
+            assert head_dim <= 128
+            assert torch.equal(outs[kernel, 0], outs[kernel, 1])
+    out = A.fused_attention_qkv(qkv, heads, head_dim, scale)
+    d = A.fused_attention_qkv_bwd(qkv, g, heads, head_dim, scale)
+    assert torch.equal(out, outs["fwd", A.kernel_route("fwd", n, head_dim,
+                                                       bf)])
+    assert torch.equal(d, outs["bwd", A.kernel_route("bwd", n, head_dim,
+                                                     bf)])
+    ops = qkv.chunk(3, dim=-1)
+    assert torch.equal(A.fused_attention_split(*ops, heads, head_dim, scale),
+                       out)
+    for got, want in zip(A.fused_attention_split_bwd(*ops, g, heads,
+                                                     head_dim, scale),
+                         d.chunk(3, dim=-1)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

@@ -1,19 +1,21 @@
-"""The card's bf16 key-chunked attention forward at padded head widths 16
-and 64, the ring body of ``csrc/attention_qkv_fwd.cu``, run on the CPU
+"""The card's bf16 key-chunked attention forward, the ring body of
+``csrc/attention_qkv_fwd.cu``, at every padded head width, run on the CPU
 through ``hgr_tpu_torch.tools.emulate_wide``: g++ compiles the kernels
 with ``csrc/attention_mma.cuh``'s helpers as written (its PTX primitives
 stood in for), one fiber per CUDA thread runs them, and the ring's
 mbarrier waits yield until their phase completes. Each case is held
 against the plain version at the card's tolerance, the split operands
 against the packed ones bit for bit, and the ring against the two-buffer
-key-chunked kernel bit for bit (both take the same steps in the same
-order). This checks indexing, masking and the ring's staging and buffer
-turns without a card; not bits of the tensor cores, not speed.
+key-chunked kernel (``tools/emulate/chunked_fwd.cuh``) bit for bit (both
+take the same steps in the same order). This checks indexing, masking
+and the ring's staging and buffer turns without a card; not bits of the
+tensor cores, not speed.
 
-The lengths run past two chunks of keys (160 at Dp = 16, 96 at Dp = 64),
-so every ring buffer is reused and the last chunk is partly masked; 12
-features take the element-by-element staging, 40 the zero columns of
-Dp = 64.
+The lengths run past two chunks of keys (160 at Dp = 16, 96 at Dp = 64,
+48 at 128, 32 at 256), so every ring buffer is reused and the last chunk
+is partly masked; 113 at 2 x 128 also takes a second block of query
+tiles. 12 features and 100 take the element-by-element staging, 40 the
+zero columns of Dp = 64, 192 those of Dp = 256.
 """
 
 import shutil
@@ -23,7 +25,8 @@ import pytest
 from hgr_tpu_torch.tools import emulate_wide as E
 
 CASES = [(1, 337, 2, 16), (1, 193, 2, 64), (1, 161, 1, 40),
-         (1, 177, 1, 12)]
+         (1, 177, 1, 12), (1, 113, 2, 128), (1, 100, 1, 192),
+         (1, 81, 1, 256), (1, 113, 1, 100)]
 
 
 @pytest.fixture(scope="module")
